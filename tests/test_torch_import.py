@@ -1,0 +1,94 @@
+"""The PyTorch port stands alone: no jax, no ``repro``, no silent CPU.
+
+  * ``repro_torch`` and every submodule import in a process where ``jax``
+    and ``repro`` cannot be imported;
+  * no file of the port (nor ``chip_smoke.py``) imports either;
+  * entry points default to ``cuda`` and raise when no card exists;
+  * ``chip_smoke.py`` exits nonzero, printing no result, without a card
+    and when it stands alone in a directory.
+"""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+IMPORT_RE = re.compile(r"^\s*(?:from|import)\s+(jax|repro)(?:\.|\s|$)", re.M)
+
+
+def test_port_imports_without_jax_or_reference():
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import importlib, pkgutil
+import repro_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch."))
+for name in names:
+    importlib.import_module(name)
+print(len(names))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 25
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_file_imports_jax_or_reference(path):
+    assert IMPORT_RE.findall(path.read_text()) == []
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from repro_torch.kernels.colskip import colskip_sort_batched
+    from repro_torch.kernels.radix_topk import (
+        radix_topk,
+        radix_topk_threshold,
+        threshold_sortable,
+    )
+    from repro_torch.launch import sortserve
+    from repro_torch.sortserve import EngineConfig
+
+    x = np.arange(64, dtype=np.uint32).reshape(2, 32)
+    xf = np.linspace(-1, 1, 64, dtype=np.float32).reshape(2, 32)
+    calls = [lambda: colskip_sort_batched(x),
+             lambda: radix_topk(xf, 3),
+             lambda: radix_topk_threshold(xf, 3),
+             lambda: threshold_sortable(x, 3),
+             lambda: EngineConfig(),
+             lambda: sortserve.main(["--requests", "4"])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    # only an explicit cpu runs the plain versions
+    vals, order, _, _ = colskip_sort_batched(x, device="cpu")
+    assert np.array_equal(vals.numpy(), x)
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_fails_without_a_card(where, tmp_path):
+    script = ROOT / "chip_smoke.py"
+    if where == "alone":
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script = tmp_path / "chip_smoke.py"
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=120, cwd=script.parent,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
