@@ -9,25 +9,39 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
   1. print the card (``nvidia-smi`` name and power limit, torch's name);
   2. build every kernel from ``src/repro_torch/**/csrc/*.cu`` with nvcc
      (one process per source, started together) and print ``-Xptxas -v``;
-  3. hold the colskip kernel against its plain torch version on the card
-     ((8, N), N in {64, 256}, the five datasets; ``stop_after=16`` at
-     N=2048) and against the numpy hardware model (N in {1024, 2048},
-     w=32, k=2, the five datasets): values, order, CRs and cycles, exact;
+  3. hold the colskip kernel on both mask carriers against the plain torch
+     machines, which run on the host (on the card they are bound by
+     launches and take several times longer) ((8, N), N in {64, 256},
+     the five datasets;
+     ``stop_after=16`` at N=2048; k in {0, 8} at N=256), the dense kernel
+     against the packed one, and both against the numpy hardware model
+     (N in {1024, 2048}, w=32, k=2, the five datasets): values, order, CRs
+     and cycles, exact;
   4. hold the radix threshold kernel against its plain version (thresholds
      and ``visited``, exact) at (8, N) for N in {128, 4096, 16384}, a
      ragged B and constant rows, on the float32 and the sortable entry;
-  5. serve the default ``--smoke`` workload (200 requests, lengths
-     64-4096, seed 0, sim_width_cap 2048) through
+     and the bitonic kernel against its plain network and ``np.sort``
+     (exact) at the reference's test shapes, at N in {1, 2, 2^15, 2^16,
+     2^20} (the global-memory split included) and at ragged B;
+  5. the main path: serve the default ``--smoke`` workload (200 requests,
+     lengths 64-4096, seed 0, sim_width_cap 2048) through
      ``repro_torch.launch.sortserve`` on ``cuda``, every response checked
-     against the numpy oracle, with both kernels' launch counts reset just
-     before and read just after: each must be above 0;
-  6. time each kernel with CUDA events at a serving shape beside its plain
+     against the numpy oracle, with both serving kernels' launch counts
+     reset just before and read just after: each must be above 0;
+  6. the benchmark path: run the port's eight benchmark suites
+     (``repro_torch.benchmarks.run --out``) on ``cuda`` with every launch
+     count reset just before and read just after: no suite may fail, no
+     correctness predicate may MISS (sorted output, threshold and index
+     equality, CR parity), and every kernel must have launched; a MISS of
+     a performance or paper band is printed as a finding;
+  7. time each kernel with CUDA events at a path shape beside its plain
      version, the library yardstick where one exists and its bound, and
      print them as one JSON line (``{"kernels": [...]}``).  Radix is bound
-     by one read of its tile; colskip by latency: the slowest row's chain
-     of dependent steps times one dependent warp vote, timed here by the
-     ``vote_chain`` probe;
-  7. print ``{"ok": true, "device": {...}}`` as the last line.
+     by one read of its tile; bitonic by the larger of its bytes and its
+     compare-exchanges at the int32 rate; colskip (both carriers) by
+     latency: the slowest row's chain of dependent steps times one
+     dependent warp vote, timed here by the ``vote_chain`` probe;
+  8. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Exact integer outputs: every tolerance is equality (``max_abs_err`` 0).
 """
@@ -44,6 +58,10 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM device memory rate (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
+# H100 SXM int32 rate: 64 int32 lanes an SM x 132 SMs x 1.98 GHz boost
+# (Hopper white paper), a quarter of the 67 TFLOP/s float32 rate, which
+# counts a fused multiply-add as two
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # dependent warp votes timed to price one step of a colskip row's chain
 VOTE_ROUNDS = 1 << 20
 
@@ -70,6 +88,14 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _host_ms(fn) -> float:
+    """Host time of one call of ``fn()`` in ms (a plain version on the
+    CPU)."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def _rows(name: str, b: int, n: int, seed: int):
     """(b, n) uint32 rows of a paper dataset, one seed per row."""
     import numpy as np
@@ -87,46 +113,100 @@ def _max_err(a, b) -> int:
     return int((a - b).abs().max()) if a.numel() else 0
 
 
-def hold_colskip(torch, np) -> int:
+def _hold(what: str, got, want) -> int:
+    """Largest error over the paired outputs; fails on any nonzero."""
+    errs = [_max_err(g, w) for g, w in zip(got, want)]
+    if any(errs):
+        _fail(f"{what}: max errors per output {errs}")
+    return max(errs)
+
+
+def hold_colskip(torch, np) -> dict:
+    """Both carriers' kernels against the plain machines (on the host, on
+    the same inputs), each other and the numpy hardware model; returns the
+    worst error per carrier."""
     from repro_torch.core.colskip import colskip_sort
     from repro_torch.core.datasets import DATASETS
     from repro_torch.kernels.colskip import ops, ref
     dev = torch.device("cuda")
-    worst = 0
-    cases = [(n, None) for n in (64, 256)] + [(2048, 16)]
-    for n, stop in cases:
+    worst = {"colskip": 0, "colskip_dense": 0}
+
+    def both(x, k, stop, what):
+        packed = ops.colskip_sort_batched(x, 32, k, stop_after=stop)
+        dense = ops.colskip_sort_batched(x, 32, k, stop_after=stop,
+                                         packed=False)
+        x_host = x.cpu()
+        plain = ref.sort_ref(x_host, 32, k, stop)
+        plain_dense = ref.sort_ref(x_host, 32, k, stop, packed=False)
+        torch.cuda.synchronize()
+        worst["colskip"] = max(worst["colskip"], _hold(
+            f"colskip kernel != plain at {what}", packed, plain))
+        worst["colskip_dense"] = max(
+            worst["colskip_dense"],
+            _hold(f"dense colskip kernel != plain dense at {what}", dense,
+                  plain_dense),
+            _hold(f"dense colskip kernel != packed kernel at {what}", dense,
+                  packed))
+
+    for n, stop in [(64, None), (256, None), (2048, 16)]:
         for i, name in enumerate(sorted(DATASETS)):
             x = torch.from_numpy(_rows(name, 8, n, 100 * i)).to(dev)
-            got = ops.colskip_sort_batched(x, 32, 2, stop_after=stop)
-            want = ref.sort_ref(x, 32, 2, stop)
-            torch.cuda.synchronize()
-            errs = [_max_err(g, w) for g, w in zip(got, want)]
-            worst = max(worst, *errs)
-            if any(errs):
-                _fail(f"colskip kernel != plain at N={n} stop={stop} "
-                      f"{name}: max errors (values, order, crs, cycles) "
-                      f"{errs}")
-        print(f"colskip kernel == plain version: (8, {n}) stop={stop}, "
-              f"{len(DATASETS)} datasets")
+            both(x, 2, stop, f"(8, {n}) stop={stop} {name}")
+        print(f"colskip kernels (packed, dense) == plain versions: (8, {n}) "
+              f"stop={stop}, {len(DATASETS)} datasets")
+    for k in (0, 8):
+        x = torch.from_numpy(_rows("mapreduce", 8, 256, 500 + k)).to(dev)
+        both(x, k, None, f"(8, 256) k={k} mapreduce")
+    print("colskip kernels (packed, dense) == plain versions: (8, 256) "
+          "k in {0, 8}, mapreduce")
     for n in (1024, 2048):
         for i, name in enumerate(sorted(DATASETS)):
             x = _rows(name, 4, n, 1000 + 10 * i)
-            vals, order, crs, cyc = (
-                t.cpu() for t in ops.colskip_sort_batched(
-                    torch.from_numpy(x).to(dev), 32, 2))
+            xt = torch.from_numpy(x).to(dev)
+            outs = {carrier: [t.cpu() for t in ops.colskip_sort_batched(
+                xt, 32, 2, packed=carrier == "packed")]
+                for carrier in ("packed", "dense")}
             for r in range(x.shape[0]):
                 hw = colskip_sort(x[r].astype(np.uint64), 32, 2)
-                ok = (np.array_equal(vals[r].numpy(), hw.values.astype(np.uint32))
-                      and np.array_equal(order[r].numpy(), hw.order)
-                      and int(crs[r]) == hw.column_reads
-                      and int(cyc[r]) == hw.cycles)
-                if not ok:
-                    _fail(f"colskip kernel != numpy hardware model at N={n} "
-                          f"{name} row {r}: crs {int(crs[r])} vs "
-                          f"{hw.column_reads}, cycles {int(cyc[r])} vs "
-                          f"{hw.cycles}")
-        print(f"colskip kernel == numpy hardware model: (4, {n}) w=32 k=2, "
-              f"{len(DATASETS)} datasets")
+                for carrier, (vals, order, crs, cyc) in outs.items():
+                    ok = (np.array_equal(vals[r].numpy(),
+                                         hw.values.astype(np.uint32))
+                          and np.array_equal(order[r].numpy(), hw.order)
+                          and int(crs[r]) == hw.column_reads
+                          and int(cyc[r]) == hw.cycles)
+                    if not ok:
+                        _fail(f"{carrier} colskip kernel != numpy hardware "
+                              f"model at N={n} {name} row {r}: crs "
+                              f"{int(crs[r])} vs {hw.column_reads}, cycles "
+                              f"{int(cyc[r])} vs {hw.cycles}")
+        print(f"colskip kernels (packed, dense) == numpy hardware model: "
+              f"(4, {n}) w=32 k=2, {len(DATASETS)} datasets")
+    return worst
+
+
+def hold_bitonic(torch, np) -> int:
+    from repro_torch.kernels.bitonic import ops, ref
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    worst = 0
+    # the reference's test shapes, the edge widths, the global-memory split
+    # (N > 2^15) and ragged batches; one duplicate-heavy case
+    cases = [(3, 64), (5, 256), (2, 1024), (7, 128), (4, 1), (3, 2),
+             (3, 1 << 15), (5, 1 << 16), (2, 1 << 20), (13, 4096)]
+    for b, n in cases:
+        x = rng.integers(0, 1 << 32, (b, n), dtype=np.uint64).astype(np.uint32)
+        if n == 4096:
+            x %= 7
+        xt = torch.from_numpy(x).to(dev)
+        got = ops.bitonic_sort(xt)
+        want = ref.sort_ref(xt)
+        torch.cuda.synchronize()
+        worst = max(worst, _hold(f"bitonic kernel != plain at ({b}, {n})",
+                                 [got], [want]))
+        npw = torch.from_numpy(np.sort(x, axis=-1))
+        worst = max(worst, _hold(f"bitonic kernel != np.sort at ({b}, {n})",
+                                 [got], [npw]))
+    print(f"bitonic kernel == plain network == np.sort: {cases}")
     return worst
 
 
@@ -195,14 +275,69 @@ def serve(torch) -> dict:
     return launches
 
 
-def measure(torch, np, launches: dict, errs: dict) -> list:
+# Rows whose PASS is a correctness predicate of the output (sorted values,
+# threshold or index equality, carrier parity); every other PASS/MISS is a
+# performance or paper band.
+CORRECTNESS_ROWS = ("kernel/", "serving/")
+
+
+def bench(torch) -> dict:
+    """The benchmark path on the card; returns every kernel's launches."""
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.kernels.bitonic import ops as bitonic_ops
+    from repro_torch.kernels.colskip import ops as colskip_ops
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    out = ROOT / "build" / "chip_smoke" / "bench.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    for ops in (colskip_ops, radix_ops, bitonic_ops):
+        ops.reset_launches()
+    t0 = time.perf_counter()
+    rc = bench_run.main(["--device", "cuda", "--out", str(out)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"colskip": colskip_ops.launches,
+                "colskip_dense": colskip_ops.launches_dense,
+                "radix_threshold": radix_ops.launches,
+                "bitonic": bitonic_ops.launches}
+    doc = json.loads(out.read_text())
+    print(f"benchmark suites took {wall:.3f} s wall on cuda: "
+          f"{len(doc['rows'])} rows, {doc['band_misses']} band misses, "
+          f"{len(doc['errors'])} suite errors")
+    print(f"kernel launches in the benchmark run: {json.dumps(launches)}")
+    if rc != 0 or doc["errors"]:
+        _fail(f"benchmark suites failed: {doc['errors']}")
+    for row in doc["rows"]:
+        if "MISS" not in row["derived"]:
+            continue
+        broken = (row["name"].startswith(CORRECTNESS_ROWS)
+                  or "cr_parity=BROKEN" in row["derived"])
+        if broken:
+            _fail(f"benchmark correctness MISS: {row['name']} "
+                  f"{row['derived']}")
+        print(f"finding: band MISS on the card: {row['name']} "
+              f"{row['derived']}")
+    for name, count in launches.items():
+        if count <= 0:
+            _fail(f"the benchmark run launched the {name} kernel {count} "
+                  "times")
+    return launches
+
+
+def measure(torch, np, launches: dict, bench_launches: dict,
+            errs: dict) -> list:
+    """The ``kernels`` rows.  ``launches`` are the serving path's (colskip,
+    radix), ``bench_launches`` the benchmark path's (dense colskip,
+    bitonic): each kernel's count from the path that carries it."""
     from repro_torch.core.bitmatrix import as_words
+    from repro_torch.kernels.bitonic import ops as bitonic_ops, ref as bitonic_ref
     from repro_torch.kernels.colskip import ops as colskip_ops, ref as colskip_ref
     from repro_torch.kernels.radix_topk import ops as radix_ops, ref as radix_ref
     dev = torch.device("cuda")
     rows = []
 
-    # colskip at the serving cap: one (8, 2048) tile of uniform 32-bit data
+    # colskip at the serving cap: one (8, 2048) tile of uniform 32-bit data.
+    # Its plain machine is timed once on the host: on the card it is bound
+    # by its many small launches (26 s for this tile, PERF.md)
     b, n, w, k = 8, 2048, 32, 2
     x = torch.from_numpy(_rows("uniform", b, n, 5)).to(dev)
     _, _, crs, cyc = colskip_ops.colskip_sort_batched(x, w, k)
@@ -218,13 +353,13 @@ def measure(torch, np, launches: dict, errs: dict) -> list:
     latency_ms = steps * vote_ms / VOTE_ROUNDS
     c_bytes = b * n * 4 + b * n * 8 + b * 8
     ms = _time_ms(lambda: colskip_ops.colskip_sort_batched(x, w, k), 10)
-    plain_ms = _time_ms(lambda: colskip_ref.sort_ref(x, w, k), 1, warmup=0)
+    plain_ms = _host_ms(lambda: colskip_ref.sort_ref(x.cpu(), w, k))
     rows.append(_row("colskip", "src/repro_torch/kernels/colskip/csrc/colskip.cu",
                      "src/repro/kernels/colskip/kernel.py:294",
                      launches["colskip"], errs["colskip"], ms, plain_ms,
                      c_bytes, latency_ms, None,
                      shape=f"({b}, {n}) uint32 w={w} k={k}",
-                     crs_max_row=int(crs.max()),
+                     plain_device="cpu", crs_max_row=int(crs.max()),
                      slowest_row_crs=int(crs[slow]),
                      slowest_row_drains=steps - int(crs[slow]),
                      vote_round_ns=vote_ms * 1e6 / VOTE_ROUNDS))
@@ -253,6 +388,54 @@ def measure(torch, np, launches: dict, errs: dict) -> list:
                      shape=f"({b}, {n}) sortable uint32 k={k}",
                      visited=int(visited.max()),
                      descent_operations=b * n * 5 * passes))
+
+    # dense colskip at the packed_bench shape: (8, 1024) mapreduce, beside
+    # the packed kernel on the same tile.  Same function, same latency
+    # bound.
+    b, n, w, k = 8, 1024, 32, 2
+    x = torch.from_numpy(_rows("mapreduce", b, n, 0)).to(dev)
+    _, _, crs, cyc = colskip_ops.colskip_sort_batched(x, w, k, packed=False)
+    crs, cyc = crs.cpu().long(), cyc.cpu().long()
+    slow = int(cyc.argmax())
+    steps = int(cyc[slow])
+    ms = _time_ms(lambda: colskip_ops.colskip_sort_batched(
+        x, w, k, packed=False), 10)
+    packed_ms = _time_ms(lambda: colskip_ops.colskip_sort_batched(x, w, k),
+                         10)
+    plain_ms = _host_ms(lambda: colskip_ref.sort_ref(x.cpu(), w, k,
+                                                     packed=False))
+    rows.append(_row("colskip_dense",
+                     "src/repro_torch/kernels/colskip/csrc/colskip.cu",
+                     "src/repro/kernels/colskip/kernel.py:229",
+                     bench_launches["colskip_dense"], errs["colskip_dense"],
+                     ms, plain_ms, b * n * 4 + b * n * 8 + b * 8,
+                     steps * vote_ms / VOTE_ROUNDS, None,
+                     shape=f"({b}, {n}) uint32 w={w} k={k} mapreduce",
+                     packed_ms=packed_ms, plain_device="cpu",
+                     slowest_row_crs=int(crs[slow]),
+                     slowest_row_drains=steps - int(crs[slow]),
+                     vote_round_ns=vote_ms * 1e6 / VOTE_ROUNDS))
+
+    # bitonic at the harness shape (2, 1024) mapreduce and at (8, 32768)
+    # uniform words: bound by the larger of one read and one write of the
+    # rows and the compare-exchanges (a min and a max each) at the int32
+    # rate; the yardstick sorts an int64 copy made outside the timing
+    for name, b, n, data in (("bitonic", 2, 1024, "mapreduce"),
+                             ("bitonic_32768", 8, 1 << 15, "uniform")):
+        x = torch.from_numpy(_rows(data, b, n, 1)).to(dev)
+        iters = 200 if n <= 1024 else 50
+        ms = _time_ms(lambda: bitonic_ops.bitonic_sort(x), iters)
+        plain_ms = _time_ms(lambda: bitonic_ref.sort_ref(x), 3)
+        keys = as_words(x)
+        lib_ms = _time_ms(lambda: torch.sort(keys, dim=-1), iters)
+        exchanges = b * (n // 2) * bitonic_ref.n_passes(n)
+        rows.append(_row(name, "src/repro_torch/kernels/bitonic/csrc/bitonic.cu",
+                         "src/repro/kernels/bitonic/kernel.py:29",
+                         bench_launches["bitonic"], errs["bitonic"], ms,
+                         plain_ms, 2 * b * n * 4,
+                         2 * exchanges / INT32_OPS_PER_S * 1e3, lib_ms,
+                         shape=f"({b}, {n}) uint32 {data}",
+                         compare_exchanges=exchanges))
     return rows
 
 
@@ -306,21 +489,30 @@ def main() -> int:
         print(f"--- nvcc -Xptxas -v: {name}\n{log.strip()}")
 
     # 3-4. hold each kernel against its plain version (and the hw model)
-    errs = {"colskip": hold_colskip(torch, np),
-            "radix_threshold": hold_radix(torch, np)}
+    t0 = time.perf_counter()
+    errs = {**hold_colskip(torch, np),
+            "radix_threshold": hold_radix(torch, np),
+            "bitonic": hold_bitonic(torch, np)}
+    print(f"phases 3-4 (holds) took {time.perf_counter() - t0:.1f} s")
 
     # 5. the main path: the sortserve smoke on the card
     launches = serve(torch)
 
-    # 6. timings at serving shapes
-    rows = measure(torch, np, launches, errs)
+    # 6. the benchmark path: the port's eight suites on the card
+    bench_launches = bench(torch)
+
+    # 7. timings at the paths' shapes
+    t0 = time.perf_counter()
+    rows = measure(torch, np, launches, bench_launches, errs)
+    print(f"phase 7 (timings) took {time.perf_counter() - t0:.1f} s")
     for r in rows:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         print(f"{r['name']}: {r['ms']:.4f} ms/launch at {r['shape']} "
               f"(plain {r['plain_ms']:.3f} ms, library {lib}, bound "
               f"{r['bound_ms']:.6f} ms by {r['bound_by']}), "
-              f"{r['launches']} launches in the smoke")
+              f"{r['launches']} launches on its path")
+    # 8. the card again, the timings, and the verdict as the last line
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
 """Public op over the colskip sort kernel: CUDA kernel on the card, the
 plain torch machine (:mod:`.ref`) for CPU tensors.
 
-``launches`` counts the CUDA kernel launches made through
-:func:`colskip_sort_batched` since import or the last :func:`reset_launches`
-(``chip_smoke.py`` reads it to show the serving path went through the
-kernel).  :func:`vote_chain` runs the latency probe that prices one step
-of a row's chain (not counted: it is not the sort kernel).
+Two mask carriers, as in the reference: ``packed=True`` (the lane-packed
+hot path) and ``packed=False`` (the dense machine).  Each has its own
+CUDA kernel behind one C entry point.  ``launches`` counts the packed
+kernel's launches made through :func:`colskip_sort_batched` and
+``launches_dense`` the dense kernel's, since import or the last
+:func:`reset_launches` (``chip_smoke.py`` reads them to show a path went
+through the kernels).  :func:`vote_chain` runs the latency probe that
+prices one step of a row's chain (not counted: it is not the sort kernel).
 """
 
 from __future__ import annotations
@@ -19,14 +22,15 @@ from repro_torch.kernels import _build
 
 from . import ref as _ref
 
-__all__ = ["colskip_sort_batched", "reset_launches", "vote_chain"]
+__all__ = ["colskip_sort_batched", "max_n", "reset_launches", "vote_chain"]
 
 launches = 0
+launches_dense = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, launches_dense
+    launches = launches_dense = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -34,9 +38,11 @@ def _lib() -> ctypes.CDLL:
     if lib.colskip_sort_launch.argtypes is None:      # first load
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.colskip_sort_launch.argtypes = [vp, vp, vp, vp, vp, i, i, i, i,
-                                            i, vp]
+                                            i, i, vp]
         lib.colskip_sort_launch.restype = i
+        lib.colskip_max_n.argtypes = [i, i]
         lib.colskip_max_n.restype = i
+        lib.colskip_max_k.argtypes = []
         lib.colskip_max_k.restype = i
         lib.colskip_vote_chain_launch.argtypes = [vp, ctypes.c_uint, i, vp]
         lib.colskip_vote_chain_launch.restype = i
@@ -60,9 +66,16 @@ def vote_chain(rounds: int, seed: int = 0, device="cuda") -> torch.Tensor:
     return out
 
 
-def _launch(x: torch.Tensor, w: int, k: int, stop: int):
-    """Launch the CUDA kernel on ``x`` (B, N) 32-bit words on the card."""
-    global launches
+def max_n(packed: bool, k: int) -> int:
+    """Widest row the carrier's CUDA kernel holds at state depth ``k`` on
+    the current card (the dense carrier's shared memory grows with k)."""
+    return _lib().colskip_max_n(int(packed), k)
+
+
+def _launch(x: torch.Tensor, w: int, k: int, stop: int, packed: bool):
+    """Launch the carrier's CUDA kernel on ``x`` (B, N) 32-bit words on the
+    card."""
+    global launches, launches_dense
     if x.dtype not in (torch.uint32, torch.int32):
         raise TypeError(f"colskip kernel takes 32-bit words, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
@@ -74,10 +87,13 @@ def _launch(x: torch.Tensor, w: int, k: int, stop: int):
     if not 0 <= k <= lib.colskip_max_k():
         raise ValueError(f"k={k} out of range [0, {lib.colskip_max_k()}] "
                          "for the CUDA kernel")
-    if n > lib.colskip_max_n():
-        raise ValueError(f"N={n} > {lib.colskip_max_n()}, the widest row the "
-                         "CUDA kernel holds")
     dev = x.device
+    with torch.cuda.device(dev):
+        widest = lib.colskip_max_n(int(packed), k)
+    if n > widest:
+        carrier = "packed" if packed else "dense"
+        raise ValueError(f"N={n} > {widest}, the widest row the {carrier} "
+                         f"CUDA kernel holds at k={k}")
     vals = torch.empty((b, stop), dtype=torch.uint32, device=dev)
     order = torch.empty((b, stop), dtype=torch.int32, device=dev)
     crs = torch.empty((b,), dtype=torch.int32, device=dev)
@@ -88,10 +104,13 @@ def _launch(x: torch.Tensor, w: int, k: int, stop: int):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.colskip_sort_launch(
             x.data_ptr(), vals.data_ptr(), order.data_ptr(), crs.data_ptr(),
-            cyc.data_ptr(), b, n, w, k, stop, stream)
+            cyc.data_ptr(), b, n, w, k, stop, int(packed), stream)
     if err != 0:
         raise RuntimeError(f"colskip kernel launch failed: CUDA error {err}")
-    launches += 1
+    if packed:
+        launches += 1
+    else:
+        launches_dense += 1
     return vals, order, crs, cyc
 
 
@@ -103,14 +122,11 @@ def colskip_sort_batched(x, w: int = 32, k: int = 2, *,
 
     ``values`` (B, stop) uint32, ``order`` (B, stop) int32, per-row CRs and
     cycles (B,) int32, as the reference's ``colskip_sort_batched``.
-    ``stop_after=k'`` runs the k-early-exit drain (outputs (B, k')).  ``x``
-    (a tensor or array) is moved to ``device``: on the card the CUDA kernel
-    runs, on the CPU the plain machine of :mod:`.ref`.
+    ``stop_after=k'`` runs the k-early-exit drain (outputs (B, k')).
+    ``packed`` picks the mask carrier (the outputs do not depend on it).
+    ``x`` (a tensor or array) is moved to ``device``: on the card the
+    carrier's CUDA kernel runs, on the CPU its plain machine of :mod:`.ref`.
     """
-    if not packed:
-        raise NotImplementedError(
-            "the dense machine (packed=False) is not ported yet "
-            "(ROADMAP Queue 1)")
     dev = resolve_device(device)
     x = torch.as_tensor(x, device=dev)
     b, n = x.shape
@@ -118,5 +134,5 @@ def colskip_sort_batched(x, w: int = 32, k: int = 2, *,
     if stop < 1:
         raise ValueError(f"stop_after={stop_after} must be >= 1")
     if dev.type == "cpu":
-        return _ref.sort_ref(x, w, k, stop)
-    return _launch(x.contiguous(), w, k, stop)
+        return _ref.sort_ref(x, w, k, stop, packed=packed)
+    return _launch(x.contiguous(), w, k, stop, packed)

@@ -1,14 +1,21 @@
-"""Plain torch version of the colskip sort kernel (the lane-packed §III
-machine), batched over rows.
+"""Plain torch versions of the colskip sort kernel (the §III machine),
+batched over rows, on both mask carriers.
 
-It mirrors the reference's ``_machine_packed`` with ``fuse=1``
-(``repro/kernels/colskip/kernel.py``: ``load`` at :171-185, the plane
-traversal ``_traverse_planes`` at :111-153, the drain at :194-211) and the
-epilogue of ``_sort_kernel`` (:294-310).  Masks travel as packed words
-(:mod:`repro_torch.core.bitmatrix`, ``int64`` carriers).  The tests hold
-it against the Pallas kernel in interpret mode; the wrapper in ``ops.py``
-takes it for CPU tensors, and ``chip_smoke.py`` holds the CUDA kernel
-against it on the card.
+``packed=True`` mirrors the reference's ``_machine_packed`` with
+``fuse=1``; ``packed=False`` mirrors ``_machine_dense``
+(``repro/kernels/colskip/kernel.py``: the packed ``load`` at :171-185 and
+the dense one at :235-249, the shared plane traversal
+``_traverse_planes`` at :92-160, the drains at :194-211 and :259-276) and
+the epilogue of ``_sort_kernel`` (:294-310).  As in the reference, one
+machine body serves both carriers; they differ only in how a mask is
+held and read (:class:`_Packed`, :class:`_Dense`).  The packed carrier's
+masks are packed words (:mod:`repro_torch.core.bitmatrix`, ``int64``
+carriers); the dense carrier's are ``(B, N)`` bool, a column read is
+``(x >> sig) & 1`` on the ``int64``-carried words and the drain rank is a
+``cumsum`` in element order.  The tests hold both against the Pallas
+kernel in interpret mode; the wrapper in ``ops.py`` takes them for CPU
+tensors, and ``chip_smoke.py`` holds the CUDA kernels against them on the
+card.
 
 Two shortcuts leave every output unchanged:
 
@@ -36,13 +43,88 @@ from repro_torch.core.bitmatrix import (
 )
 
 
+class _Packed:
+    """Masks as ``(B, ceil(N/32))`` packed words; a CR fetches one plane."""
+
+    def __init__(self, u: torch.Tensor, w: int):
+        self.n = u.shape[1]
+        self.planes = pack_planes(u, w)               # (w, B, W)
+        self.width = self.planes.shape[-1]
+        self.valid = tail_mask(self.n, u.device)
+
+    def empty(self, *lead) -> torch.Tensor:
+        return torch.zeros(lead + (self.width,), dtype=torch.int64,
+                           device=self.valid.device)
+
+    def unsorted(self, sorted_m):
+        return (sorted_m ^ WORD_MASK) & self.valid
+
+    def any(self, m):
+        return (m != 0).any(-1)
+
+    def col(self, sig: int):
+        return self.planes[sig]
+
+    def zeros_of(self, col, m):                       # alive & ~col
+        return m & (col ^ WORD_MASK)
+
+    def count(self, m):
+        return popcount(m).sum(-1)
+
+    def rank(self, m):                                # 0-based, (B, N)
+        return cumsum_bits(m, self.n) - 1
+
+    def bits(self, m):
+        return unpack_rows(m, self.n)
+
+    def pack(self, bits):
+        return pack_rows(bits)
+
+
+class _Dense:
+    """Masks as ``(B, N)`` bool; a CR shifts the words of the tile."""
+
+    def __init__(self, u: torch.Tensor, w: int):
+        self.u = u
+        self.width = u.shape[1]
+
+    def empty(self, *lead) -> torch.Tensor:
+        return torch.zeros(lead + (self.width,), dtype=torch.bool,
+                           device=self.u.device)
+
+    def unsorted(self, sorted_m):
+        return ~sorted_m
+
+    def any(self, m):
+        return m.any(-1)
+
+    def col(self, sig: int):
+        return ((self.u >> sig) & 1).to(torch.bool)
+
+    def zeros_of(self, col, m):
+        return m & ~col
+
+    def count(self, m):
+        return m.sum(-1)
+
+    def rank(self, m):
+        return torch.cumsum(m.to(torch.int64), -1) - 1
+
+    def bits(self, m):
+        return m
+
+    def pack(self, bits):
+        return bits
+
+
 def sort_ref(x: torch.Tensor, w: int = 32, k: int = 2,
-             stop_after: int | None = None):
+             stop_after: int | None = None, packed: bool = True):
     """``(B, N)`` 32-bit words -> ``(values, order, column_reads, cycles)``.
 
     ``values`` ``(B, stop)`` uint32, ``order`` ``(B, stop)`` int32, the
     per-row CR and cycle counts ``(B,)`` int32 (cycles = CRs + drains).
-    ``x`` may be uint32, int32 (bit patterns) or an int64 carrier."""
+    ``x`` may be uint32, int32 (bit patterns) or an int64 carrier.
+    ``packed`` picks the mask carrier; the outputs do not depend on it."""
     if not 1 <= w <= 32:
         raise ValueError(f"w={w} out of range [1, 32]")
     if k < 0:
@@ -54,15 +136,13 @@ def sort_ref(x: torch.Tensor, w: int = 32, k: int = 2,
     dev = x.device
     u = as_words(x)
     kk = max(1, k)
-    planes = pack_planes(u, w)                        # (w, B, W)
-    nw = planes.shape[-1]
-    valid_w = tail_mask(n, dev)
+    cm = (_Packed if packed else _Dense)(u, w)
     i64 = dict(dtype=torch.int64, device=dev)
     rows = torch.arange(b, device=dev)
 
-    sorted_w = torch.zeros((b, nw), **i64)
+    sorted_m = cm.empty(b)
     sigs = torch.zeros((b, kk), **i64)
-    masks = torch.zeros((b, kk, nw), **i64)
+    masks = cm.empty(b, kk)
     valid = torch.zeros((b, kk), dtype=torch.bool, device=dev)
     s_top = torch.full((b,), w - 1, **i64)
     out_pos = torch.zeros((b, n), **i64)
@@ -76,8 +156,8 @@ def sort_ref(x: torch.Tensor, w: int = 32, k: int = 2,
         if bool(done.all()):
             break
         # --- load: newest live table entry, else a fresh search at s_top
-        unsorted = (sorted_w ^ WORD_MASK) & valid_w
-        hit = ((masks & unsorted[:, None, :]) != 0).any(-1)
+        unsorted = cm.unsorted(sorted_m)
+        hit = cm.any(masks & unsorted[:, None, :])
         live = valid & hit
         exists = live.any(-1)
         first = torch.argmax(live.to(torch.int64), -1)
@@ -91,11 +171,11 @@ def sort_ref(x: torch.Tensor, w: int = 32, k: int = 2,
         seen = torch.zeros((b,), dtype=torch.bool, device=dev)
         crs2 = torch.clamp(start + 1, min=0)
         for sig in range(int(start.max()), -1, -1):
-            col = planes[sig]
-            p1 = ((col & alive) != 0).any(-1)
-            p0 = (((col ^ WORD_MASK) & alive) != 0).any(-1)
+            col = cm.col(sig)
+            p1 = cm.any(col & alive)
+            p0 = cm.any(cm.zeros_of(col, alive))
             mixed = (sig <= start) & p1 & p0
-            new_alive = torch.where(mixed[:, None], alive & (col ^ WORD_MASK),
+            new_alive = torch.where(mixed[:, None], cm.zeros_of(col, alive),
                                     alive)
             rec = mixed & fresh
             if k > 0 and bool(rec.any()):
@@ -114,18 +194,16 @@ def sort_ref(x: torch.Tensor, w: int = 32, k: int = 2,
         # --- drain the survivors (finished rows drain nothing)
         alive = torch.where(done[:, None], torch.zeros_like(alive), alive)
         crs = crs + torch.where(done, 0, crs2)
-        m_tot = popcount(alive).sum(-1)
-        m_eff = torch.minimum(m_tot, stop - count)
-        rank = cumsum_bits(alive, n) - 1
-        keep = unpack_rows(alive, n) & (rank < m_eff[:, None])
+        m_eff = torch.minimum(cm.count(alive), stop - count)
+        rank = cm.rank(alive)
+        keep = cm.bits(alive) & (rank < m_eff[:, None])
         out_pos = torch.where(keep, count[:, None] + rank, out_pos)
-        sorted_w = sorted_w | pack_rows(keep)
+        sorted_m = sorted_m | cm.pack(keep)
         count = count + m_eff
         drains = drains + torch.clamp(m_eff - 1, min=0)
 
     # --- epilogue: order[pos] = column; undrained columns are dropped
-    sorted_mask = unpack_rows(sorted_w, n)
-    pos = torch.where(sorted_mask, out_pos, stop)
+    pos = torch.where(cm.bits(sorted_m), out_pos, stop)
     order = torch.zeros((b, stop + 1), **i64)
     cols = torch.arange(n, device=dev).expand(b, n)
     order.scatter_(1, pos, cols)

@@ -85,6 +85,9 @@ def main(argv=None):
     ap.add_argument("--banks", type=int, default=8)
     ap.add_argument("--bank_width", type=int, default=1024)
     ap.add_argument("--sim_width_cap", type=int, default=2048)
+    ap.add_argument("--dense", action="store_true",
+                    help="dense §III machine (its own CUDA kernel) instead "
+                         "of the lane-packed hot path (equivalence baseline)")
     ap.add_argument("--static_policy", action="store_true",
                     help="disable measured-EMA routing; static width cap only")
     ap.add_argument("--high_watermark", type=int, default=0,
@@ -149,6 +152,7 @@ def main(argv=None):
         bank_width=args.bank_width,
         bank_rows=max(args.tile_rows, 8),
         sim_width_cap=args.sim_width_cap,
+        packed=not args.dense,
         adaptive_policy=not args.static_policy,
         admission=admission,
         faults=faults,

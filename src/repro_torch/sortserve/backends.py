@@ -148,15 +148,16 @@ def _tensor(data: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _colskip_launcher(b: int, n: int, w: int, state_k: int,
-                      stop: int | None, device: torch.device):
-    """Warm launcher for one colskip tile signature."""
-    key = ("colskip", b, n, w, state_k, stop, str(device))
+                      stop: int | None, packed: bool, device: torch.device):
+    """Warm launcher for one colskip tile signature on one mask carrier."""
+    key = ("colskip", b, n, w, state_k, stop, packed, str(device))
 
     def build():
         if device.type == "cuda":
             colskip_ops._lib()                # load (or compile) the kernel
         return functools.partial(colskip_ops.colskip_sort_batched, w=w,
-                                 k=state_k, stop_after=stop, device=device)
+                                 k=state_k, stop_after=stop, packed=packed,
+                                 device=device)
     return EXECUTOR_CACHE.get(key, build)     # -> (fn, warm)
 
 
@@ -272,8 +273,8 @@ class ColskipBackend(Backend):
 
     ``kmin`` runs the k-early-exit drain: the machine stops after the
     tile's k minima have drained, so the CR/cycle telemetry covers only the
-    executed iterations instead of a complete sort.  ``packed=False`` (the
-    dense machine) is not ported yet.
+    executed iterations instead of a complete sort.  ``packed=False``
+    serves on the dense carrier's kernel (bit-identical outputs).
     """
 
     name = "colskip"
@@ -281,10 +282,6 @@ class ColskipBackend(Backend):
 
     def __init__(self, w: int = 32, state_k: int = 2, packed: bool = True,
                  device="cuda"):
-        if not packed:
-            raise NotImplementedError(
-                "the dense machine (packed=False) is not ported yet "
-                "(ROADMAP Queue 1)")
         self.w = w
         self.state_k = state_k
         self.packed = packed
@@ -294,7 +291,7 @@ class ColskipBackend(Backend):
         stop = tile.k if tile.op == "kmin" else None
         b, n = tile.data.shape
         fn, warm = _colskip_launcher(b, n, self.w, self.state_k, stop,
-                                     self.device)
+                                     self.packed, self.device)
         vals, order, crs, cycles = fn(_tensor(tile.data, self.device))
         return TileResult(vals.cpu().numpy(), order.cpu().numpy(),
                           crs.cpu().numpy().astype(np.int64),
@@ -307,7 +304,7 @@ class ColskipBackend(Backend):
     def warm(self, b: int, n: int, op: str, k: int | None) -> bool:
         stop = k if op == "kmin" else None
         _, hit = _colskip_launcher(b, n, self.w, self.state_k, stop,
-                                   self.device)
+                                   self.packed, self.device)
         return not hit
 
 

@@ -136,7 +136,7 @@ class EngineConfig:
     compile_cache: str | None = None  # persistent compile cache: not ported
     cache_size: int = 1024          # result-cache entries (0 disables)
     packed: bool = True             # lane-packed masks in the §III machine
-                                    # (the dense machine is not ported yet)
+                                    # (False: the dense carrier)
     adaptive_policy: bool = True    # measured-EMA routing over the cap prior
     admission: object | None = None  # AdmissionPolicy (e.g. WatermarkPolicy)
                                      # gating arrivals; None accepts all
@@ -164,14 +164,13 @@ class EngineConfig:
                 "tiles would never fit a bank")
         unported = {"mesh": self.mesh, "mesh_hosts > 1": self.mesh_hosts > 1,
                     "fuse != 1": self.fuse != 1,
-                    "compile_cache": bool(self.compile_cache),
-                    "packed=False": not self.packed}
+                    "compile_cache": bool(self.compile_cache)}
         asked = [name for name, on in unported.items() if on]
         if asked:
             raise NotImplementedError(
                 f"{', '.join(asked)}: not ported yet (ROADMAP Queue 1: the "
-                "mesh pool and fusion are item 10, the dense machine item 4; "
-                "the compile cache has no counterpart)")
+                "mesh pool and fusion are item 10; the compile cache has no "
+                "counterpart)")
         resolve_device(self.device)
 
 
@@ -1419,7 +1418,7 @@ def config_from_reference(d: dict, *, device="cuda") -> EngineConfig:
     ``use_pallas``/``interpret`` (Pallas switches), objects of the
     reference package in ``admission``/``tracer``/``slo``/``faults`` (build
     the port's own and pass them to :class:`EngineConfig`), and the
-    unported mesh, fusion, compile-cache and dense options
+    unported mesh, fusion and compile-cache options
     (:class:`NotImplementedError`)."""
     d = dict(d)
     for name in _PALLAS_ONLY:

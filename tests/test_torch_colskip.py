@@ -67,13 +67,16 @@ def test_plain_machine_matches_copied_hardware_model():
 
 
 def test_dense_machine_and_bad_arguments_raise():
+    # the dense machine is ported: it runs and equals the packed one
     x = np.zeros((2, 8), np.uint32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        colskip_sort_batched(x, packed=False, device="cpu")
-    with pytest.raises(ValueError):
-        colskip_sort_batched(x, stop_after=0, device="cpu")
-    with pytest.raises(ValueError):
-        colskip_sort_batched(x, w=33, device="cpu")
+    for g, v in zip(colskip_sort_batched(x, packed=False, device="cpu"),
+                    colskip_sort_batched(x, packed=True, device="cpu")):
+        assert torch.equal(g, v)
+    for packed in (True, False):
+        with pytest.raises(ValueError):
+            colskip_sort_batched(x, stop_after=0, packed=packed, device="cpu")
+        with pytest.raises(ValueError):
+            colskip_sort_batched(x, w=33, packed=packed, device="cpu")
 
 
 def test_vote_chain_probe_has_no_cpu_version():

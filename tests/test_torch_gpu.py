@@ -91,3 +91,77 @@ def test_vote_chain_probe_runs_uncounted(cuda):
     # on each of them is true whatever the running count
     assert int(out[0]) >= 5 * (1000 // 32)
     assert ops.launches == before
+
+
+@pytest.mark.parametrize("b,n", [
+    (3, 64), (5, 256), (2, 1024), (7, 128), (4, 1), (3, 2),
+    (3, 1 << 15), (5, 1 << 16), (2, 1 << 20), (13, 4096),
+])
+def test_bitonic_kernel_equals_plain(cuda, b, n):
+    from repro_torch.kernels.bitonic import ops, ref
+    rng = np.random.default_rng(b + n)
+    x = rng.integers(0, 1 << 32, (b, n), dtype=np.uint64).astype(np.uint32)
+    if n == 4096:
+        x %= 7                                 # duplicate-heavy rows
+    xt = torch.from_numpy(x).to(cuda)
+    before = ops.launches
+    got = ops.bitonic_sort(xt)
+    assert ops.launches == before + 1
+    want = ref.sort_ref(xt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint32 and got.device.type == "cuda"
+    assert torch.equal(_words(got), _words(want))
+    assert np.array_equal(_words(got).numpy(), np.sort(x, -1))
+
+
+def test_bitonic_kernel_refuses_a_width_not_a_power_of_two(cuda):
+    from repro_torch.kernels.bitonic import ops
+    with pytest.raises(ValueError, match="power-of-two"):
+        ops.bitonic_sort(torch.zeros((2, 96), dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("b,n,w,k,stop", [
+    (8, 64, 32, 2, None), (3, 100, 16, 0, None), (5, 256, 32, 4, 17),
+    (8, 2048, 32, 2, 16), (2, 4096, 32, 2, 64), (1, 33, 8, 8, None),
+    (4, 1024, 32, 2, None), (3, 17, 16, 1, 7),
+])
+def test_dense_kernel_equals_packed_kernel_and_plain(cuda, b, n, w, k, stop):
+    from repro_torch.kernels.colskip import ops, ref
+    rng = np.random.default_rng(n + k + 1)
+    x = rng.integers(0, 1 << w, (b, n), dtype=np.uint64).astype(np.uint32)
+    x[0] %= 5                                  # duplicate-heavy drains
+    x = torch.from_numpy(x).to(cuda)
+    before = (ops.launches, ops.launches_dense)
+    dense = ops.colskip_sort_batched(x, w, k, stop_after=stop, packed=False)
+    assert (ops.launches, ops.launches_dense) == (before[0], before[1] + 1)
+    packed = ops.colskip_sort_batched(x, w, k, stop_after=stop)
+    want = ref.sort_ref(x, w, k, stop, packed=False) if n <= 256 else packed
+    torch.cuda.synchronize()
+    for d, p, v in zip(dense, packed, want):
+        assert d.dtype == p.dtype and d.device.type == "cuda"
+        assert torch.equal(_words(d), _words(p))
+        assert torch.equal(_words(d), _words(v))
+
+
+def test_dense_kernel_refuses_rows_past_its_shared_memory(cuda):
+    from repro_torch.kernels.colskip import ops
+    for k in (0, 2, 8):
+        widest = ops.max_n(False, k)
+        assert 2048 <= widest < 1 << 16
+        x = torch.zeros((1, widest + 32), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="dense"):
+            ops.colskip_sort_batched(x, 32, k, packed=False)
+    assert ops.max_n(False, 8) < ops.max_n(False, 2) <= ops.max_n(False, 0)
+
+
+def test_engine_on_cuda_dense_reproduces_golden(cuda):
+    from repro_torch.kernels.colskip import ops as colskip_ops
+    from repro_torch.sortserve import EngineConfig, SortServeEngine
+    from _torch_golden import GOLDEN, GOLDEN_CFG, golden_payload, \
+        golden_text
+    c0, d0 = colskip_ops.launches, colskip_ops.launches_dense
+    engine = SortServeEngine(EngineConfig(**GOLDEN_CFG, packed=False,
+                                          device="cuda"))
+    live = golden_text(golden_payload(engine))
+    assert live.strip() == GOLDEN.read_text().strip()
+    assert colskip_ops.launches == c0 and colskip_ops.launches_dense > d0
