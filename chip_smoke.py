@@ -8,21 +8,27 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
 
   1. print the card (``nvidia-smi`` name and power limit, torch's name);
   2. build every kernel from ``src/repro_torch/**/csrc/*.cu`` with nvcc
-     (one process per source, started together) and print ``-Xptxas -v``;
+     (one process per source, started together), print ``-Xptxas -v``
+     (this build's, or the report kept beside an earlier build) and read
+     the spills of the packed colskip kernel's register path (WPL 1 and
+     2): no report of them, or any spill, fails the run at its end;
   3. hold the colskip kernel on both mask carriers against the plain torch
      machines, which run on the host (on the card they are bound by
      launches and take several times longer) ((8, N), N in {64, 256},
-     the five datasets;
-     ``stop_after=16`` at N=2048; k in {0, 8} at N=256), the dense kernel
-     against the packed one, and both against the numpy hardware model
-     (N in {1024, 2048}, w=32, k=2, the five datasets): values, order, CRs
-     and cycles, exact;
+     the five datasets; ``stop_after=16`` at N=2048, 4096 and 32768; k in
+     {0, 8} at N=256), the dense kernel against the packed one, both
+     against the numpy hardware model (N in {1024, 2048, 4096}, w=32, k=2,
+     the five datasets), and the packed kernel against the model on its
+     register path (N in {1000, 2000}) and its shared path (N in {4096,
+     32768}) at k in {0, 1, 2, 8} and stop_after in {1, 16, N}, ragged B:
+     values, order, CRs and cycles, exact;
   4. hold the radix threshold kernel against its plain version (thresholds
      and ``visited``, exact) at (8, N) for N in {128, 4096, 16384}, a
      ragged B and constant rows, on the float32 and the sortable entry;
      and the bitonic kernel against its plain network and ``np.sort``
-     (exact) at the reference's test shapes, at N in {1, 2, 2^15, 2^16,
-     2^20} (the global-memory split included) and at ragged B;
+     (exact) at the reference's test shapes, at N in {1, 2, 8}, at every
+     cluster size (N = 2^11 .. 2^15), past one cluster (2^16, 2^20: the
+     global-memory split) and at ragged B;
   5. the main path: serve the default ``--smoke`` workload (200 requests,
      lengths 64-4096, seed 0, sim_width_cap 2048) through
      ``repro_torch.launch.sortserve`` on ``cuda``, every response checked
@@ -38,9 +44,11 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      version, the library yardstick where one exists and its bound, and
      print them as one JSON line (``{"kernels": [...]}``).  Radix is bound
      by one read of its tile; bitonic by the larger of its bytes and its
-     compare-exchanges at the int32 rate; colskip (both carriers) by
-     latency: the slowest row's chain of dependent steps times one
-     dependent warp vote, timed here by the ``vote_chain`` probe;
+     compare-exchanges at the int32 rate, with its device time split from
+     the host's enqueue; colskip (both carriers) by latency: the slowest
+     row's min searches (one per distinct value) times one dependent warp
+     round, the cheaper of the ``vote_chain`` and ``redux_chain`` probes,
+     with the older chain (CRs + drains rounds) as ``unfused_chain_ms``;
   8. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Exact integer outputs: every tolerance is equality (``max_abs_err`` 0).
@@ -49,6 +57,7 @@ Exact integer outputs: every tolerance is equality (``max_abs_err`` 0).
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -62,7 +71,7 @@ HBM_BYTES_PER_S = 3.35e12
 # (Hopper white paper), a quarter of the 67 TFLOP/s float32 rate, which
 # counts a fused multiply-add as two
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# dependent warp votes timed to price one step of a colskip row's chain
+# dependent warp rounds timed to price one step of a colskip row's chain
 VOTE_ROUNDS = 1 << 20
 
 
@@ -86,6 +95,50 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _queued_ms(torch, fn, iters: int, busy) -> tuple:
+    """(device ms, host enqueue ms) per call of ``fn()``: ``busy()`` (a
+    kernel of some milliseconds) is queued first, so the ``iters`` calls
+    are all enqueued before the card reaches them and then run back to
+    back; CUDA events around them time the device, the host clock the
+    enqueue."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    busy()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host * 1e3 / iters
+
+
+def _searches(x) -> list:
+    """Min searches each row of a full sort makes: its distinct values."""
+    from repro_torch.core.bitmatrix import as_words
+    return [int(r.unique().numel()) for r in as_words(x.cpu())]
+
+
+def register_path_spills(log: str) -> dict:
+    """Spill bytes (stores, loads) of each instance of the packed colskip
+    kernel's register path (WPL 1 and 2) in an ``-Xptxas -v`` log."""
+    lines = log.splitlines()
+    out = {}
+    for i, line in enumerate(lines[:-1]):
+        m = re.search(
+            r"Function properties for (\S*colskip_sort_kernelILi[12]E\S*)",
+            line)
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       lines[i + 1])
+        if m and sp:
+            out[m.group(1)] = (int(sp.group(1)), int(sp.group(2)))
+    return out
 
 
 def _host_ms(fn) -> float:
@@ -119,6 +172,18 @@ def _hold(what: str, got, want) -> int:
     if any(errs):
         _fail(f"{what}: max errors per output {errs}")
     return max(errs)
+
+
+def _hold_model(np, colskip_sort, row, w, k, stop, r, out, what) -> None:
+    """Row ``r`` of a kernel's outputs against the numpy hardware model."""
+    vals, order, crs, cyc = out
+    hw = colskip_sort(row.astype(np.uint64), w, k, stop_after=stop)
+    ok = (np.array_equal(vals[r].numpy(), hw.values.astype(np.uint32))
+          and np.array_equal(order[r].numpy(), hw.order)
+          and int(crs[r]) == hw.column_reads and int(cyc[r]) == hw.cycles)
+    if not ok:
+        _fail(f"{what} row {r} != numpy hardware model: crs {int(crs[r])} "
+              f"vs {hw.column_reads}, cycles {int(cyc[r])} vs {hw.cycles}")
 
 
 def hold_colskip(torch, np) -> dict:
@@ -159,28 +224,44 @@ def hold_colskip(torch, np) -> dict:
         both(x, k, None, f"(8, 256) k={k} mapreduce")
     print("colskip kernels (packed, dense) == plain versions: (8, 256) "
           "k in {0, 8}, mapreduce")
-    for n in (1024, 2048):
+    for n in (1024, 2048, 4096):
         for i, name in enumerate(sorted(DATASETS)):
-            x = _rows(name, 4, n, 1000 + 10 * i)
+            x = _rows(name, 4 if n < 4096 else 2, n, 1000 + 10 * i)
             xt = torch.from_numpy(x).to(dev)
             outs = {carrier: [t.cpu() for t in ops.colskip_sort_batched(
                 xt, 32, 2, packed=carrier == "packed")]
                 for carrier in ("packed", "dense")}
             for r in range(x.shape[0]):
-                hw = colskip_sort(x[r].astype(np.uint64), 32, 2)
-                for carrier, (vals, order, crs, cyc) in outs.items():
-                    ok = (np.array_equal(vals[r].numpy(),
-                                         hw.values.astype(np.uint32))
-                          and np.array_equal(order[r].numpy(), hw.order)
-                          and int(crs[r]) == hw.column_reads
-                          and int(cyc[r]) == hw.cycles)
-                    if not ok:
-                        _fail(f"{carrier} colskip kernel != numpy hardware "
-                              f"model at N={n} {name} row {r}: crs "
-                              f"{int(crs[r])} vs {hw.column_reads}, cycles "
-                              f"{int(cyc[r])} vs {hw.cycles}")
+                for carrier, out in outs.items():
+                    _hold_model(np, colskip_sort, x[r], 32, 2, None, r, out,
+                                f"{carrier} colskip kernel at N={n} {name}")
         print(f"colskip kernels (packed, dense) == numpy hardware model: "
-              f"(4, {n}) w=32 k=2, {len(DATASETS)} datasets")
+              f"({4 if n < 4096 else 2}, {n}) w=32 k=2, {len(DATASETS)} "
+              "datasets")
+    # the packed kernel's register path (WPL 1, 2) and shared path (WPL 4
+    # to 32) at every state depth and early exit, ragged B
+    for b, n in ((3, 1000), (3, 2000), (2, 4096), (1, 32768)):
+        for k in (0, 1, 2, 8):
+            for stop in (1, 16, None):
+                if n == 32768 and stop is None and k != 2:
+                    continue                   # one full 32768 row (k=2)
+                x = _rows("uniform" if k % 2 else "mapreduce", b, n, 77 + k)
+                out = [t.cpu() for t in ops.colskip_sort_batched(
+                    torch.from_numpy(x).to(dev), 32, k, stop_after=stop)]
+                for r in range(b):
+                    _hold_model(np, colskip_sort, x[r], 32, k, stop, r, out,
+                                f"packed colskip kernel at N={n} k={k} "
+                                f"stop={stop}")
+        print(f"packed colskip kernel == numpy hardware model: ({b}, {n}) "
+              "w=32, k in {0, 1, 2, 8}, stop_after in {1, 16, N}")
+    for b, n in ((5, 4096), (3, 32768)):
+        x = torch.from_numpy(_rows("normal", b, n, 900 + b)).to(dev)
+        worst["colskip"] = max(worst["colskip"], _hold(
+            f"colskip kernel != plain at ({b}, {n}) stop=16",
+            ops.colskip_sort_batched(x, 32, 2, stop_after=16),
+            ref.sort_ref(x.cpu(), 32, 2, 16)))
+    print("packed colskip kernel == plain version: (5, 4096) and (3, 32768) "
+          "stop=16, normal")
     return worst
 
 
@@ -192,7 +273,8 @@ def hold_bitonic(torch, np) -> int:
     # the reference's test shapes, the edge widths, the global-memory split
     # (N > 2^15) and ragged batches; one duplicate-heavy case
     cases = [(3, 64), (5, 256), (2, 1024), (7, 128), (4, 1), (3, 2),
-             (3, 1 << 15), (5, 1 << 16), (2, 1 << 20), (13, 4096)]
+             (3, 1 << 15), (5, 1 << 16), (2, 1 << 20), (13, 4096),
+             (3, 1 << 11), (5, 1 << 12), (3, 1 << 13), (9, 1 << 14), (4, 8)]
     for b, n in cases:
         x = rng.integers(0, 1 << 32, (b, n), dtype=np.uint64).astype(np.uint32)
         if n == 4096:
@@ -340,29 +422,38 @@ def measure(torch, np, launches: dict, bench_launches: dict,
     # by its many small launches (26 s for this tile, PERF.md)
     b, n, w, k = 8, 2048, 32, 2
     x = torch.from_numpy(_rows("uniform", b, n, 5)).to(dev)
-    _, _, crs, cyc = colskip_ops.colskip_sort_batched(x, w, k)
-    crs, cyc = crs.cpu().long(), cyc.cpu().long()
-    # bound: each row is a chain of dependent steps (a CR or a drain, each
-    # at least one warp vote on the last verdict), so the least time is the
-    # slowest row's cycles (CRs + drains, this run's) times one dependent
-    # vote round, timed here on the card; bytes: the tile in, values +
-    # order + 2 counters out
-    slow = int(cyc.argmax())
-    steps = int(cyc[slow])
+    want = colskip_ops.colskip_sort_batched(x, w, k)
+    crs, cyc = want[2].cpu().long(), want[3].cpu().long()
+    # bound: a min search reads the sorted mask the last drain wrote, so a
+    # row costs at least one dependent warp round per search, whatever the
+    # design; with stop = N a row makes one search per distinct value.  The
+    # round is the cheaper of the two probes, timed here on the card.  The
+    # older chain (one round per CR or drain step, PR 11) is printed
+    # beside it as unfused_chain_ms.  Bytes: the tile in, values + order +
+    # 2 counters out
     vote_ms = _time_ms(lambda: colskip_ops.vote_chain(VOTE_ROUNDS), 3)
-    latency_ms = steps * vote_ms / VOTE_ROUNDS
+    redux_ms = _time_ms(lambda: colskip_ops.redux_chain(VOTE_ROUNDS), 3)
+    round_ms = min(vote_ms, redux_ms) / VOTE_ROUNDS
+    searches = _searches(x)
+    slow = int(cyc.argmax())
     c_bytes = b * n * 4 + b * n * 8 + b * 8
     ms = _time_ms(lambda: colskip_ops.colskip_sort_batched(x, w, k), 10)
     plain_ms = _host_ms(lambda: colskip_ref.sort_ref(x.cpu(), w, k))
     rows.append(_row("colskip", "src/repro_torch/kernels/colskip/csrc/colskip.cu",
                      "src/repro/kernels/colskip/kernel.py:294",
                      launches["colskip"], errs["colskip"], ms, plain_ms,
-                     c_bytes, latency_ms, None,
-                     shape=f"({b}, {n}) uint32 w={w} k={k}",
-                     plain_device="cpu", crs_max_row=int(crs.max()),
+                     c_bytes, max(searches) * round_ms, None,
+                     shape=f"({b}, {n}) uint32 w={w} k={k} uniform",
+                     plain_device="cpu", fuse=colskip_ops.fuse(),
+                     verdicts="patterns", reduction="__reduce_or_sync",
+                     searches_max_row=max(searches),
+                     crs_max_row=int(crs.max()),
                      slowest_row_crs=int(crs[slow]),
-                     slowest_row_drains=steps - int(crs[slow]),
-                     vote_round_ns=vote_ms * 1e6 / VOTE_ROUNDS))
+                     slowest_row_drains=int(cyc[slow] - crs[slow]),
+                     unfused_chain_ms=int(cyc[slow]) * vote_ms / VOTE_ROUNDS,
+                     ns_per_cr=ms * 1e6 / int(crs.max()),
+                     vote_round_ns=vote_ms * 1e6 / VOTE_ROUNDS,
+                     redux_round_ns=redux_ms * 1e6 / VOTE_ROUNDS))
 
     # radix at a serving shape: (8, 4096) sortable words, k=32 (the sortable
     # entry the serving radix backend launches)
@@ -390,14 +481,14 @@ def measure(torch, np, launches: dict, bench_launches: dict,
                      descent_operations=b * n * 5 * passes))
 
     # dense colskip at the packed_bench shape: (8, 1024) mapreduce, beside
-    # the packed kernel on the same tile.  Same function, same latency
-    # bound.
+    # the packed kernel on the same tile.  Same function, same bound
+    # (searches x one round).
     b, n, w, k = 8, 1024, 32, 2
     x = torch.from_numpy(_rows("mapreduce", b, n, 0)).to(dev)
     _, _, crs, cyc = colskip_ops.colskip_sort_batched(x, w, k, packed=False)
     crs, cyc = crs.cpu().long(), cyc.cpu().long()
     slow = int(cyc.argmax())
-    steps = int(cyc[slow])
+    searches = _searches(x)
     ms = _time_ms(lambda: colskip_ops.colskip_sort_batched(
         x, w, k, packed=False), 10)
     packed_ms = _time_ms(lambda: colskip_ops.colskip_sort_batched(x, w, k),
@@ -409,25 +500,35 @@ def measure(torch, np, launches: dict, bench_launches: dict,
                      "src/repro/kernels/colskip/kernel.py:229",
                      bench_launches["colskip_dense"], errs["colskip_dense"],
                      ms, plain_ms, b * n * 4 + b * n * 8 + b * 8,
-                     steps * vote_ms / VOTE_ROUNDS, None,
+                     max(searches) * round_ms, None,
                      shape=f"({b}, {n}) uint32 w={w} k={k} mapreduce",
                      packed_ms=packed_ms, plain_device="cpu",
+                     searches_max_row=max(searches),
                      slowest_row_crs=int(crs[slow]),
-                     slowest_row_drains=steps - int(crs[slow]),
+                     slowest_row_drains=int(cyc[slow] - crs[slow]),
+                     unfused_chain_ms=int(cyc[slow]) * vote_ms / VOTE_ROUNDS,
                      vote_round_ns=vote_ms * 1e6 / VOTE_ROUNDS))
 
     # bitonic at the harness shape (2, 1024) mapreduce and at (8, 32768)
     # uniform words: bound by the larger of one read and one write of the
     # rows and the compare-exchanges (a min and a max each) at the int32
-    # rate; the yardstick sorts an int64 copy made outside the timing
+    # rate; the yardstick sorts an int64 copy made outside the timing.  The
+    # device time is split from the host's enqueue: calls queued behind a
+    # busy kernel run back to back on the card
     for name, b, n, data in (("bitonic", 2, 1024, "mapreduce"),
                              ("bitonic_32768", 8, 1 << 15, "uniform")):
         x = torch.from_numpy(_rows(data, b, n, 1)).to(dev)
         iters = 200 if n <= 1024 else 50
         ms = _time_ms(lambda: bitonic_ops.bitonic_sort(x), iters)
+        device_ms, enqueue_ms = _queued_ms(
+            torch, lambda: bitonic_ops.bitonic_sort(x), iters,
+            lambda: colskip_ops.vote_chain(VOTE_ROUNDS))
         plain_ms = _time_ms(lambda: bitonic_ref.sort_ref(x), 3)
         keys = as_words(x)
         lib_ms = _time_ms(lambda: torch.sort(keys, dim=-1), iters)
+        lib_device_ms, _ = _queued_ms(
+            torch, lambda: torch.sort(keys, dim=-1), iters,
+            lambda: colskip_ops.vote_chain(VOTE_ROUNDS))
         exchanges = b * (n // 2) * bitonic_ref.n_passes(n)
         rows.append(_row(name, "src/repro_torch/kernels/bitonic/csrc/bitonic.cu",
                          "src/repro/kernels/bitonic/kernel.py:29",
@@ -435,7 +536,9 @@ def measure(torch, np, launches: dict, bench_launches: dict,
                          plain_ms, 2 * b * n * 4,
                          2 * exchanges / INT32_OPS_PER_S * 1e3, lib_ms,
                          shape=f"({b}, {n}) uint32 {data}",
-                         compare_exchanges=exchanges))
+                         compare_exchanges=exchanges,
+                         device_ms=device_ms, host_enqueue_ms=enqueue_ms,
+                         library_device_ms=lib_device_ms))
     return rows
 
 
@@ -487,6 +590,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     for name, log in sorted(logs.items()):
         print(f"--- nvcc -Xptxas -v: {name}\n{log.strip()}")
+    spills = register_path_spills(logs.get("colskip", ""))
+    print(f"colskip register-path spills (stores, loads): "
+          f"{json.dumps(spills)}")
+    if not spills:
+        _fail("no register-path instance in the colskip ptxas report")
 
     # 3-4. hold each kernel against its plain version (and the hw model)
     t0 = time.perf_counter()
@@ -512,6 +620,9 @@ def main() -> int:
               f"(plain {r['plain_ms']:.3f} ms, library {lib}, bound "
               f"{r['bound_ms']:.6f} ms by {r['bound_by']}), "
               f"{r['launches']} launches on its path")
+    spilled = {k: v for k, v in spills.items() if any(v)}
+    if spilled:
+        _fail(f"the colskip register path spills: {spilled}")
     # 8. the card again, the timings, and the verdict as the last line
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -6,9 +6,11 @@ PyTorch headers, so a build takes seconds, not minutes).  A library is
 named after its source and a hash of that source, the package's ``*.cuh``
 headers and the flags, and lives under ``build/repro_torch/`` at the root
 of the checkout; an edited source therefore rebuilds, an unchanged one
-loads.  :func:`build_all` starts one ``nvcc`` per missing library, all at
-once, and waits for them; :func:`load` builds one library if it is missing
-and opens it.  Nothing here runs at import time.
+loads.  The compiler's report (``-Xptxas -v``: registers, spills) is kept
+beside its library as ``.log``.  :func:`build_all` starts one ``nvcc`` per
+library that is missing (or lacks its report), all at once, and waits for
+them; :func:`load` builds one library if it is missing and opens it.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -58,18 +60,20 @@ def _lib_path(src: Path) -> Path:
 def build_all(names=None) -> dict[str, str]:
     """Build the named kernels (default: all) that are not built yet, one
     ``nvcc`` each, started together.  Returns name -> compiler output
-    (``-Xptxas -v``: registers, shared memory, spills) for the kernels
-    built by this call; raises with the compiler's output on failure."""
+    (``-Xptxas -v``: registers, shared memory, spills) for every named
+    kernel, whether this call built it or read the report kept beside an
+    earlier build; raises with the compiler's output on failure."""
     srcs = sources()
     names = list(srcs) if names is None else list(names)
     missing = [nm for nm in names if nm not in srcs]
     if missing:
         raise KeyError(f"no kernel source for {missing}; have {sorted(srcs)}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, built = {}, {}
     for nm in names:
         out = _lib_path(srcs[nm])
-        if out.exists():
+        if out.exists() and out.with_suffix(".log").exists():
+            built[nm] = out.with_suffix(".log").read_text()
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         inc = str(srcs[nm].parent)
@@ -77,10 +81,12 @@ def build_all(names=None) -> dict[str, str]:
             [_nvcc(), *NVCC_FLAGS, "-I", inc, "-o", str(tmp), str(srcs[nm])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
-    built, failed = {}, {}
+    failed = {}
     for nm, (proc, tmp, out) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode == 0:
+            tmp.with_suffix(".log").write_text(log)
+            os.replace(tmp.with_suffix(".log"), out.with_suffix(".log"))
             os.replace(tmp, out)
             built[nm] = log
         else:

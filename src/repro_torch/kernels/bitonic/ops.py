@@ -3,8 +3,8 @@ network (:mod:`.ref`) for CPU tensors.
 
 ``launches`` counts the calls of :func:`bitonic_sort` that launched the
 CUDA kernel since import or the last :func:`reset_launches` (one per call;
-a row wider than the kernel's shared-memory block takes several launches
-inside that call).
+a row wider than one thread-block cluster takes several launches inside
+that call).
 """
 
 from __future__ import annotations

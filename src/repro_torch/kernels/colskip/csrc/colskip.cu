@@ -1,35 +1,68 @@
 // Column-skipping in-memory sort (paper §III) for Hopper, one warp per row.
 //
 // Replaces the Pallas kernel repro/kernels/colskip/kernel.py:_sort_kernel
-// (launched by sort_pallas) on its lane-packed path (_machine_packed with
-// fuse=1).  The outputs are bit-identical to it: per row the ascending
-// values and order, the column reads (CRs) and the cycles (CRs + drains).
+// (launched by sort_pallas) on its lane-packed path (_machine_packed).
+// The outputs are bit-identical to it for any `fuse`: per row the
+// ascending values and order, the column reads (CRs) and the cycles (CRs
+// + drains).
 //
 // What bounds it on this card.  Rows are independent in the single-bank
 // machine (or_any and drain_counts are identities), but each row is a
-// dependency chain: every CR is a warp-wide ballot whose verdict decides
-// the next plane's alive mask, and every drain is a warp scan whose count
-// decides the next min search.  The least time is therefore latency:
-// CRs of the slowest row times one ballot round, plus its drains times
-// one scan (at least one dependent warp vote each; vote_chain_kernel
-// below measures that round on the card, and chip_smoke.py prices the
-// slowest row's cycles with it); the bytes (one read of the tile, one write of values and
-// order: 64 KB in, 128 KB out for an 8 x 2048 tile) are negligible at
-// 3.35 TB/s.  The design keeps every step of that chain on chip:
+// dependency chain: a min search cannot start before the drain of the
+// last one has marked its survivors sorted, and that drain cannot start
+// before the search's last verdict.  However many planes one round
+// resolves, a row costs at least one dependent warp round per min search,
+// and with stop = N a row makes one search per distinct value.  The least
+// time is therefore the slowest row's searches times one dependent warp
+// round (vote_chain_kernel and redux_chain_kernel below time that round;
+// chip_smoke.py prices the bound with it, and prints the older unfused
+// chain, CRs + drains rounds, beside it).  The bytes (one read of the
+// tile, one write of values and order: 64 KB in, 128 KB out for an
+// 8 x 2048 tile) are negligible at 3.35 TB/s.  The design shortens the
+// chain:
 //
-//   * the row's w bit planes are packed once into shared memory with
-//     __ballot_sync (w * ceil(N/32) words: 8 KB at N=2048, 16 KB at
-//     N=4096), so a CR is one shared-memory word per lane per 32 columns;
-//   * the alive and sorted masks live in registers, WPL words per lane
-//     (word i = q*32 + lane is held by `lane` as its q-th word);
-//   * any_lane is __ballot_sync, popcount is __popc plus a warp sum, and
-//     cumsum_bits is a warp exclusive scan of per-word popcounts plus a
-//     masked __popc inside the word;
-//   * the k-entry state table keeps its masks in shared memory (each lane
-//     touches only its own words, so no barrier is needed) and its
-//     significances and valid bits in warp-uniform registers;
-//   * drained elements write order[count + rank] = column directly, and the
-//     values are gathered from the input after the row finishes.
+//   * speculative plane fusion, as _traverse_planes (kernel.py:92-160)
+//     does it: planes are walked in blocks of kFuse, aligned at multiples
+//     of kFuse (planes bF + F - 1 .. bF; a plane above the search's start
+//     is inactive), one warp round a block.  Each lane sets bit p of a
+//     2^F-bit word when one of its alive elements shows the F-bit pattern
+//     p on the block's planes; one __reduce_or_sync gives the warp's
+//     patterns, and the verdicts resolve in registers plane by plane: a
+//     plane is mixed when the patterns still alive show both of its bits,
+//     and then keeps those with a 0.  This is the reference's speculation
+//     (a saw-a-1 and a saw-a-0 bit for each plane under each hypothesis of
+//     the earlier planes' verdicts) in 2^F bits instead of 2 (2^F - 1).
+//     kFuse = 2 (COLSKIP_FUSE at build time: 1, 2 or 4).  On an H100 it
+//     beat F = 4 on distinct 32-bit rows, the serving traffic, and lost to
+//     it on duplicate-heavy ones (PERF.md, scripts/colskip_fuse.py);
+//   * a walk stops at a lone alive element: its alive count rides in the
+//     same round as the verdicts (__reduce_add_sync), and a lone element
+//     makes every lower plane uniform.  Its CRs (start + 1) are counted
+//     when the walk starts, so nothing else depends on the planes skipped;
+//     the lone element is then drained with no warp round;
+//   * contiguous word ownership: lane l holds the packed words
+//     l * WPL .. l * WPL + WPL - 1 (word i holds elements 32i .. 32i + 31),
+//     so a drain rank is the lane's running count plus one warp exclusive
+//     scan, and the total is one __reduce_add_sync; a drain whose
+//     survivors sit in one lane skips the scan (a ballot says so);
+//   * one round for the load: every table entry's still-live bit is one
+//     bit of one __reduce_or_sync; the newest live entry is __ffs of it;
+//     the table's sigs and mask slots are packed in two scalars, so a push
+//     is a shift;
+//   * planes and table in registers up to WPL = 2 (N <= 2048, the serving
+//     cap): the 32 x WPL plane words and the kMaxK x WPL table words of a
+//     lane are register arrays indexed only by compile-time constants
+//     (the block walk is unrolled over the 32 / kFuse blocks), so a table
+//     push is register moves and `-Xptxas -v` shows no spill.  Wider rows
+//     (WPL 4 to 32, N up to 32768) keep planes and table masks in shared
+//     memory, lane-interleaved (the lane's q-th word at q * 32 + lane, no
+//     bank conflicts), with table entries renamed through slot numbers,
+//     and take the same fused walk, rolled.
+
+// Planes are packed once with __ballot_sync: one ballot per bit of each
+// 32-element word, kept by the word's owner lane.  Drained elements write
+// order[count + rank] = column directly, and the values are gathered from
+// the input after the row finishes.
 //
 // Exactness notes (line numbers in the Pallas kernel file): fresh rows
 // start at s_top (:111, :184); `seen` resets on each traversal; a push
@@ -58,25 +91,26 @@
 //   * table entries live in physical mask slots named by warp-uniform
 //     registers, so a push writes one mask and renames the rest.
 //
-// Its bound is the same latency chain as the packed carrier's (one warp
-// vote per CR or drain step on the previous verdict), but each CR costs
-// a lane C shifts and byte reads instead of one word.  colskip_max_n()
-// gives the widest row its shared memory holds on the current card; a
-// wider row is refused, never split.
+// It walks one plane per round (two votes a CR), and each CR costs a lane
+// C shifts and byte reads instead of one word.  colskip_max_n() gives the
+// widest row its shared memory holds on the current card; a wider row is
+// refused, never split.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kMaxK = 8;        // deepest state table the kernel holds
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-    return v;
-}
+#ifndef COLSKIP_FUSE
+#define COLSKIP_FUSE 2
+#endif
+constexpr int kFuse = COLSKIP_FUSE;     // planes resolved per verdict round
+constexpr int kPlanes = 32;     // bit planes packed per row (w <= 32)
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
 #pragma unroll
@@ -87,76 +121,149 @@ __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
     return v;
 }
 
+// 1 if any bit of `t` is set, else 0 (one IMNMX, no compare and select)
+__device__ __forceinline__ uint32_t nonzero(uint32_t t) { return min(t, 1u); }
+
+// The F-bit patterns (plane i of a block at bit F - 1 - i) whose bit j is
+// set, as a 2^F-bit mask.
+__host__ __device__ constexpr uint32_t pattern_mask(int f, int j) {
+    uint32_t m = 0u;
+    for (int p = 0; p < (1 << f); ++p)
+        if ((p >> j) & 1) m |= 1u << p;
+    return m;
+}
+
+// OR of bits[p] << p over p < n, as a balanced tree (no serial chain)
+template <int N>
+__device__ __forceinline__ uint32_t pack_bits(uint32_t (&bits)[N]) {
+#pragma unroll
+    for (int p = 0; p < N; ++p) bits[p] <<= p;
+#pragma unroll
+    for (int d = 1; d < N; d <<= 1)
+#pragma unroll
+        for (int p = 0; p + d < N; p += 2 * d) bits[p] |= bits[p + d];
+    return bits[0];
+}
+
+// One warp per row.  WPL = packed words a lane holds (ceil(N/1024) rounded
+// up to a power of two).  Up to WPL = 2 the planes and the table masks
+// live in registers and the block walk is unrolled; wider rows keep them
+// in shared memory and take the walk rolled.
 template <int WPL>
 __global__ void __launch_bounds__(32)
 colskip_sort_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ vals,
                     int32_t* __restrict__ order, int32_t* __restrict__ crs_out,
-                    int32_t* __restrict__ cyc_out, int n, int w, int k, int stop) {
+                    int32_t* __restrict__ cyc_out, int n, int w, int k,
+                    int stop) {
+    constexpr int F = kFuse;
+    static_assert(kPlanes % F == 0, "blocks tile the 32 planes");
+    constexpr bool kRegs = WPL <= 2;       // planes and table in registers
+    constexpr int kStride = 32 * WPL;      // shared words of one mask
+    constexpr int kPR = kRegs ? kPlanes : 1, kPC = kRegs ? WPL : 1;
+    constexpr int kTR = kRegs ? kMaxK : 1, kTC = kRegs ? WPL : 1;
     extern __shared__ uint32_t smem[];
     const int row = blockIdx.x;
     const int lane = threadIdx.x;
     const int nw = (n + 31) >> 5;
     const int kk = k > 0 ? k : 1;
-    uint32_t* planes = smem;               // [w][nw]
-    uint32_t* tmask = smem + w * nw;       // [kk][nw]
+    uint32_t* splanes = smem;              // [32][kStride] (!kRegs)
+    uint32_t* stable = smem + (kRegs ? 0 : kPlanes * kStride);  // [kk][kStride]
     const uint32_t* xr = x + (size_t)row * n;
     int32_t* ordr = order + (size_t)row * stop;
 
-    // pack the bit planes: lane b of word i holds element 32*i + b
-    for (int i = 0; i < nw; ++i) {
-        const int j = i * 32 + lane;
-        const uint32_t v = j < n ? xr[j] : 0u;
-        uint32_t mine = 0;
-        for (int s = 0; s < w; ++s) {
-            const uint32_t bits = __ballot_sync(kFull, (v >> s) & 1u);
-            if (lane == s) mine = bits;
+    uint32_t pl[kPR][kPC];                 // planes (register path)
+    uint32_t tm[kTR][kTC];                 // table masks (register path)
+#pragma unroll
+    for (int s = 0; s < kPR; ++s)
+#pragma unroll
+        for (int q = 0; q < kPC; ++q) pl[s][q] = 0u;
+
+    // pack the bit planes: word i = o * WPL + q is owned by lane o; the
+    // ballot of bit s over the word's 32 elements is its plane-s word
+    for (int o = 0; o * WPL < nw; ++o) {
+#pragma unroll
+        for (int q = 0; q < WPL; ++q) {
+            const int i = o * WPL + q;
+            if (i >= nw) break;
+            const int j = i * 32 + lane;
+            const uint32_t v = j < n ? xr[j] : 0u;
+            uint32_t mine = 0u;
+#pragma unroll
+            for (int s = 0; s < kPlanes; ++s) {
+                const uint32_t bits = __ballot_sync(kFull, (v >> s) & 1u);
+                if (kRegs) {
+                    if (lane == o) pl[kRegs ? s : 0][kRegs ? q : 0] = bits;
+                } else if (lane == s) {
+                    mine = bits;
+                }
+            }
+            if (!kRegs) splanes[lane * kStride + q * 32 + o] = mine;
         }
-        if (lane < w) planes[lane * nw + i] = mine;
     }
     __syncwarp();
 
     uint32_t alive[WPL], srt[WPL], vmask[WPL];
 #pragma unroll
     for (int q = 0; q < WPL; ++q) {
-        const int i = q * 32 + lane;
+        const int i = lane * WPL + q;
         const int rem = n - i * 32;        // valid bits of word i
         vmask[q] = i >= nw ? 0u : (rem >= 32 ? kFull : ((1u << rem) - 1u));
         srt[q] = 0u;
-    }
-    int tsig[kMaxK];
+        alive[q] = 0u;
+        if (kRegs) {
 #pragma unroll
-    for (int e = 0; e < kMaxK; ++e) tsig[e] = 0;
+            for (int e = 0; e < kTR; ++e) tm[e][kRegs ? q : 0] = 0u;
+        }
+    }
+    // table entry e: its sig in byte e of tsig, its mask slot (shared path)
+    // in nibble e of tslot; scalars, so a push is a shift
+    uint64_t tsig = 0u;
+    uint32_t tslot = 0x76543210u;
     uint32_t tvalid = 0u;                  // bit e: table entry e is valid
-    const uint32_t kkmask = (kk >= 32) ? kFull : ((1u << kk) - 1u);
+    const uint32_t kkmask = (1u << kk) - 1u;
+    const uint64_t sigmask = kk >= 8 ? ~0ull : (1ull << (8 * kk)) - 1u;
+    const uint32_t slotmask = kk >= 8 ? kFull : (1u << (4 * kk)) - 1u;
     int s_top = w - 1, count = 0, crs = 0, drains = 0;
 
+    // plane s, the lane's word q; table entry e's mask word q (compile-time
+    // indices on the register path: the walk below is unrolled there)
+#define COL(s, q) (kRegs ? pl[kRegs ? (s) : 0][kRegs ? (q) : 0] \
+                         : splanes[(s) * kStride + (q) * 32 + lane])
+#define TMASK(e, q) (kRegs ? tm[kRegs ? (e) : 0][kRegs ? (q) : 0] \
+                           : stable[((tslot >> (4 * (e))) & 15u) * kStride \
+                                    + (q) * 32 + lane])
+    constexpr int kWalkUnroll = kRegs ? kPlanes / F : 1;
+    constexpr int kPats = 1 << F;          // patterns of a block's planes
+    bool fresh = true, seen = false;
+    int start = 0;
+
     while (count < stop) {
-        // --- load: the newest live table entry, else a fresh search
-        int first = -1;
+        // --- load: the newest live table entry (one round), else fresh
+        uint32_t live = 0u;
+        if (tvalid != 0u) {
+            uint32_t hit = 0u;
 #pragma unroll
-        for (int e = 0; e < kMaxK; ++e) {
-            if (e < kk && first < 0 && ((tvalid >> e) & 1u)) {
-                uint32_t h = 0u;
+            for (int e = 0; e < kMaxK; ++e) {
+                if (e < kk) {
+                    uint32_t h = 0u;
 #pragma unroll
-                for (int q = 0; q < WPL; ++q) {
-                    const int i = q * 32 + lane;
-                    if (i < nw) h |= tmask[e * nw + i] & ~srt[q] & vmask[q];
+                    for (int q = 0; q < WPL; ++q) h |= TMASK(e, q) & ~srt[q];
+                    hit |= nonzero(h) << e;
                 }
-                if (__any_sync(kFull, h != 0u)) first = e;
             }
+            live = tvalid & __reduce_or_sync(kFull, hit);
         }
-        int start;
-        bool fresh;
-        if (first >= 0) {
+        if (live != 0u) {
+            const int first = __ffs(live) - 1;
+            start = (int)((tsig >> (8 * first)) & 0xFFu) - 1;
 #pragma unroll
-            for (int q = 0; q < WPL; ++q) {
-                const int i = q * 32 + lane;
-                alive[q] = i < nw ? (tmask[first * nw + i] & ~srt[q] & vmask[q]) : 0u;
+            for (int e = 0; e < kMaxK; ++e) {
+                if (e == first) {
+#pragma unroll
+                    for (int q = 0; q < WPL; ++q)
+                        alive[q] = TMASK(e, q) & ~srt[q];
+                }
             }
-            start = 0;
-#pragma unroll
-            for (int e = 0; e < kMaxK; ++e)
-                if (e == first) start = tsig[e] - 1;
             tvalid &= ~((1u << first) - 1u);   // drop the newer entries
             fresh = false;
         } else {
@@ -167,86 +274,190 @@ colskip_sort_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ vals,
             fresh = true;
         }
 
-        // --- traverse planes start..0, one CR each
-        bool seen = false;
-        for (int sig = start; sig >= 0; --sig) {
-            const uint32_t* col = planes + sig * nw;
-            uint32_t t1 = 0u, t0 = 0u;
+        crs += start + 1;                     // start >= -1
+        // --- traverse planes start..0 in blocks of F, one round a block
+        // (plane i of the block is base + F - 1 - i)
+        seen = false;
+        bool lone = false;                 // the walk stopped at one element
+#pragma unroll (kWalkUnroll)
+        for (int bi = kPlanes / F - 1; bi >= 0; --bi) {
+            if (bi * F > start) continue;
+            const int base = bi * F;
+            // in the same round as the verdicts: the alive count.  A lone
+            // element makes every plane from here down uniform, so the rest
+            // of the walk would change nothing (its CRs are counted above)
+            int here = 0;
 #pragma unroll
-            for (int q = 0; q < WPL; ++q) {
-                const int i = q * 32 + lane;
-                const uint32_t c = i < nw ? col[i] : 0u;
-                t1 |= c & alive[q];
-                t0 |= ~c & alive[q];
-            }
-            const bool p1 = __any_sync(kFull, t1 != 0u);
-            const bool p0 = __any_sync(kFull, t0 != 0u);
-            if (p1 && p0) {                   // mixed column: exclude the 1s
+            for (int q = 0; q < WPL; ++q) here += __popc(alive[q]);
+            const bool alone = __reduce_add_sync(kFull, here) <= 1;
+            uint32_t mixed = 0u;           // bit i: plane i mixed
+            // the set of F-bit patterns (plane i of the block at bit
+            // F - 1 - i) that the alive elements show.  A plane is mixed
+            // when the patterns still alive show both of its bits; it then
+            // keeps those with a 0 there
+            uint32_t bits[kPats];
+            if (kRegs) {
+                uint32_t pm[kPats][WPL];
+#pragma unroll
+                for (int q = 0; q < WPL; ++q) pm[0][q] = alive[q];
+#pragma unroll
+                for (int i = 0; i < F; ++i) {
+                    const int s = base + F - 1 - i;
+#pragma unroll
+                    for (int p = kPats - 1; p >= 0; --p) {
+                        if (p >= (1 << i)) continue;
+#pragma unroll
+                        for (int q = 0; q < WPL; ++q) {
+                            const uint32_t v = pm[p][q];
+                            pm[(2 * p + 1) % kPats][q] = v & COL(s, q);
+                            pm[(2 * p) % kPats][q] = v & ~COL(s, q);
+                        }
+                    }
+                }
+#pragma unroll
+                for (int p = 0; p < kPats; ++p) {
+                    uint32_t t = 0u;
+#pragma unroll
+                    for (int q = 0; q < WPL; ++q) t |= pm[p][q];
+                    bits[p] = nonzero(t);
+                }
+            } else {
+                uint32_t t[kPats];
+#pragma unroll
+                for (int p = 0; p < kPats; ++p) t[p] = 0u;
 #pragma unroll
                 for (int q = 0; q < WPL; ++q) {
-                    const int i = q * 32 + lane;
-                    if (i < nw) alive[q] &= ~col[i];
+                    uint32_t pm[kPats];
+                    pm[0] = alive[q];
+#pragma unroll
+                    for (int i = 0; i < F; ++i) {
+                        const uint32_t c = COL(base + F - 1 - i, q);
+#pragma unroll
+                        for (int p = kPats - 1; p >= 0; --p) {
+                            if (p >= (1 << i)) continue;
+                            const uint32_t v = pm[p];
+                            pm[(2 * p + 1) % kPats] = v & c;
+                            pm[(2 * p) % kPats] = v & ~c;
+                        }
+                    }
+#pragma unroll
+                    for (int p = 0; p < kPats; ++p) t[p] |= pm[p];
                 }
-                if (fresh) {
-                    if (k > 0) {              // push (sig, alive) as entry 0
+#pragma unroll
+                for (int p = 0; p < kPats; ++p) bits[p] = nonzero(t[p]);
+            }
+            uint32_t seen_pats = __reduce_or_sync(kFull, pack_bits(bits));
+            if (alone) {
+                lone = true;
+                break;
+            }
+#pragma unroll
+            for (int i = 0; i < F; ++i) {
+                const uint32_t has1 = pattern_mask(F, F - 1 - i);
+                const uint32_t ones = seen_pats & has1;
+                const uint32_t zeros = seen_pats & ~has1;
+                const bool on = base + F - 1 - i <= start && ones != 0u &&
+                                zeros != 0u;
+                seen_pats = on ? zeros : seen_pats;
+                mixed |= (uint32_t)on << i;
+            }
+            if (mixed == 0u) continue;     // uniform block: alive unchanged
+            if (!fresh || k == 0) {
+                // no table push: exclude the 1s of every mixed plane at once
+#pragma unroll
+                for (int q = 0; q < WPL; ++q) {
+                    uint32_t ones = 0u;
+#pragma unroll
+                    for (int i = 0; i < F; ++i)
+                        if ((mixed >> i) & 1u) ones |= COL(base + F - 1 - i, q);
+                    alive[q] &= ~ones;
+                }
+            } else {
+#pragma unroll
+                for (int i = 0; i < F; ++i) {
+                    if (((mixed >> i) & 1u) == 0u) continue;
+                    const int sig = base + F - 1 - i;
+#pragma unroll
+                    for (int q = 0; q < WPL; ++q) alive[q] &= ~COL(sig, q);
+                    // push (sig, alive) as entry 0: older entries shift on
+                    if (kRegs) {
 #pragma unroll
                         for (int e = kMaxK - 1; e > 0; --e) {
                             if (e < kk) {
-                                tsig[e] = tsig[e - 1];
 #pragma unroll
-                                for (int q = 0; q < WPL; ++q) {
-                                    const int i = q * 32 + lane;
-                                    if (i < nw) tmask[e * nw + i] = tmask[(e - 1) * nw + i];
-                                }
+                                for (int q = 0; q < WPL; ++q)
+                                    tm[kRegs ? e : 0][kRegs ? q : 0] =
+                                        tm[kRegs ? e - 1 : 0]
+                                          [kRegs ? q : 0];
                             }
                         }
-                        tsig[0] = sig;
 #pragma unroll
-                        for (int q = 0; q < WPL; ++q) {
-                            const int i = q * 32 + lane;
-                            if (i < nw) tmask[i] = alive[q];
-                        }
-                        tvalid = ((tvalid << 1) | 1u) & kkmask;
+                        for (int q = 0; q < WPL; ++q)
+                            tm[0][kRegs ? q : 0] = alive[q];
+                    } else {
+                        // the oldest entry's slot takes the new mask
+                        const uint32_t recycled =
+                            (tslot >> (4 * (kk - 1))) & 15u;
+                        tslot = ((tslot << 4) | recycled) & slotmask;
+#pragma unroll
+                        for (int q = 0; q < WPL; ++q)
+                            stable[recycled * kStride + q * 32 + lane] =
+                                alive[q];
                     }
-                    if (!seen) {
-                        s_top = sig;
-                        seen = true;
-                    }
+                    tsig = ((tsig << 8) | (uint64_t)sig) & sigmask;
+                    tvalid = ((tvalid << 1) | 1u) & kkmask;
                 }
             }
+            if (fresh && !seen) {
+                s_top = base + F - __ffs(mixed);   // the first mixed plane
+                seen = true;
+            }
         }
-        crs += start + 1;                     // start >= -1
 
-        // --- drain the survivors in column order, up to `stop`
+        // --- drain the survivors in element order, up to `stop`.  A walk
+        // that stopped at a lone element already knows the count (one) and
+        // the rank (0): its lane writes it, with no warp round
+        if (lone) {
+#pragma unroll
+            for (int q = 0; q < WPL; ++q) {
+                if (alive[q] != 0u)
+                    ordr[count] = (lane * WPL + q) * 32 + __ffs(alive[q]) - 1;
+                srt[q] |= alive[q];
+            }
+            ++count;
+            continue;
+        }
         int mine = 0;
 #pragma unroll
         for (int q = 0; q < WPL; ++q) mine += __popc(alive[q]);
-        const int m_tot = warp_sum(mine);
+        const int m_tot = __reduce_add_sync(kFull, mine);
+        const uint32_t holders = __ballot_sync(kFull, mine != 0);
         const int m_eff = min(m_tot, stop - count);
         if (m_eff <= 0) break;                // unreachable: a search always
                                               // keeps a survivor; never spin
-        int base = 0;
+        int r = 0;                            // rank of the lane's first
+        if (holders & (holders - 1u))         // survivors in several lanes
+            r = warp_inclusive_scan(mine, lane) - mine;
+        if (mine != 0 && r < m_eff) {
 #pragma unroll
-        for (int q = 0; q < WPL; ++q) {
-            const int c = __popc(alive[q]);
-            const int incl = warp_inclusive_scan(c, lane);
-            int r = base + incl - c;          // rank of this word's first bit
-            uint32_t a = alive[q];
-            uint32_t kept = 0u;
-            while (a != 0u && r < m_eff) {
-                const int bpos = __ffs(a) - 1;
-                a &= a - 1u;
-                ordr[count + r] = (q * 32 + lane) * 32 + bpos;
-                kept |= 1u << bpos;
-                ++r;
+            for (int q = 0; q < WPL; ++q) {
+                uint32_t a = alive[q], kept = 0u;
+                while (a != 0u && r < m_eff) {
+                    const int bpos = __ffs(a) - 1;
+                    a &= a - 1u;
+                    ordr[count + r] = (lane * WPL + q) * 32 + bpos;
+                    kept |= 1u << bpos;
+                    ++r;
+                }
+                srt[q] |= kept;
             }
-            srt[q] |= kept;
-            base += __shfl_sync(kFull, incl, 31);
         }
         count += m_eff;
         drains += max(m_eff - 1, 0);
     }
 
+#undef COL
+#undef TMASK
     __syncwarp();                             // order[] written by all lanes
     uint32_t* vr = vals + (size_t)row * stop;
     for (int t = lane; t < stop; t += 32) vr[t] = xr[ordr[t]];
@@ -416,14 +627,37 @@ colskip_dense_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ vals
     }
 }
 
+// Opt `kernel` in to `bytes` of dynamic shared memory on the current
+// device, once per device (`done` is the kernel's own flag array); a race
+// between two first calls only sets the attribute twice.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<bool>* done) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const bool keep = dev >= 0 && dev < kMaxDevices;
+    if (keep && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err == cudaSuccess && keep)
+        done[dev].store(true, std::memory_order_release);
+    return err;
+}
+
 template <int WPL>
 int launch(const uint32_t* x, uint32_t* vals, int32_t* order, int32_t* crs,
-           int32_t* cyc, int b, int n, int w, int k, int stop, size_t smem,
+           int32_t* cyc, int b, int n, int w, int k, int stop,
            cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(
-        colskip_sort_kernel<WPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    const int kk = k > 0 ? k : 1;
+    const int masks = WPL <= 2 ? 0 : kPlanes + kk;
+    const size_t smem = (size_t)masks * 32 * WPL * sizeof(uint32_t);
+    if (WPL > 2) {
+        static std::atomic<bool> done[kMaxDevices];
+        const int most = (kPlanes + kMaxK) * 32 * WPL * (int)sizeof(uint32_t);
+        cudaError_t err = allow_smem(colskip_sort_kernel<WPL>, most, done);
+        if (err != cudaSuccess) return (int)err;
+    }
     colskip_sort_kernel<WPL><<<b, 32, smem, stream>>>(x, vals, order, crs, cyc,
                                                       n, w, k, stop);
     return (int)cudaGetLastError();
@@ -431,9 +665,8 @@ int launch(const uint32_t* x, uint32_t* vals, int32_t* order, int32_t* crs,
 
 // One warp, `rounds` dependent __any_sync votes: each predicate depends on
 // the previous verdict, as a CR's alive mask depends on the last one.  The
-// time per round is the latency of one step of a row's chain in the sort
-// kernel above; it prices that kernel's bound and is not on the serving
-// path.
+// time per round is the latency of one step of a row's chain; it prices
+// the sort kernels' bounds and is not on the serving path.
 __global__ void __launch_bounds__(32)
 vote_chain_kernel(int32_t* __restrict__ out, uint32_t seed, int rounds) {
     const uint32_t v = seed ^ threadIdx.x;
@@ -443,17 +676,39 @@ vote_chain_kernel(int32_t* __restrict__ out, uint32_t seed, int rounds) {
     if (threadIdx.x == 0) out[0] = acc;
 }
 
+// The same chain with __reduce_or_sync (one REDUX a round), the reduction
+// the packed kernel's fused verdicts and loads take.
+__global__ void __launch_bounds__(32)
+redux_chain_kernel(int32_t* __restrict__ out, uint32_t seed, int rounds) {
+    const uint32_t v = seed ^ threadIdx.x;
+    int acc = 0;
+    for (int r = 0; r < rounds; ++r)
+        acc += (int)__reduce_or_sync(kFull,
+                                     ((v >> (r & 31)) ^ (uint32_t)acc) & 1u);
+    if (threadIdx.x == 0) out[0] = acc;
+}
+
+bool bad_args(int b, int n, int w, int k, int stop) {
+    return b <= 0 || n <= 0 || w < 1 || w > 32 || k < 0 || k > kMaxK ||
+           stop < 1 || stop > n;
+}
+
 }  // namespace
 
 extern "C" {
 
-// out (1,) int32 <- the count of true votes in a chain of `rounds`
-// dependent warp votes (one warp).  Returns cudaGetLastError().
-int colskip_vote_chain_launch(void* out, unsigned seed, int rounds,
-                              void* stream) {
+// out (1,) int32 <- the count of true verdicts in a chain of `rounds`
+// dependent warp rounds (one warp): __any_sync votes (redux = 0) or
+// __reduce_or_sync (redux != 0).  Returns cudaGetLastError().
+int colskip_chain_launch(void* out, unsigned seed, int rounds, int redux,
+                         void* stream) {
     if (rounds < 0) return (int)cudaErrorInvalidValue;
-    vote_chain_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<int32_t*>(out), seed, rounds);
+    auto o = static_cast<int32_t*>(out);
+    auto st = static_cast<cudaStream_t>(stream);
+    if (redux)
+        redux_chain_kernel<<<1, 32, 0, st>>>(o, seed, rounds);
+    else
+        vote_chain_kernel<<<1, 32, 0, st>>>(o, seed, rounds);
     return (int)cudaGetLastError();
 }
 
@@ -472,6 +727,7 @@ int colskip_max_n(int packed, int k) {
     return optin / (6 + kk) / 32 * 32;
 }
 int colskip_max_k(void) { return kMaxK; }
+int colskip_fuse(void) { return kFuse; }
 
 // x (b, n) uint32 -> vals (b, stop) uint32, order (b, stop) int32,
 // crs (b,) int32, cyc (b,) int32, on the packed (packed != 0) or the dense
@@ -480,8 +736,7 @@ int colskip_max_k(void) { return kMaxK; }
 int colskip_sort_launch(const void* x, void* vals, void* order, void* crs,
                         void* cyc, int b, int n, int w, int k, int stop,
                         int packed, void* stream) {
-    if (b <= 0 || n <= 0 || w < 1 || w > 32 || k < 0 || k > kMaxK ||
-        stop < 1 || stop > n || n > colskip_max_n(packed, k))
+    if (bad_args(b, n, w, k, stop) || n > colskip_max_n(packed, k))
         return (int)cudaErrorInvalidValue;
     auto xs = static_cast<const uint32_t*>(x);
     auto vs = static_cast<uint32_t*>(vals);
@@ -489,27 +744,32 @@ int colskip_sort_launch(const void* x, void* vals, void* order, void* crs,
     auto cs = static_cast<int32_t*>(crs);
     auto ys = static_cast<int32_t*>(cyc);
     auto st = static_cast<cudaStream_t>(stream);
-    const int kk = k > 0 ? k : 1;
     if (!packed) {
+        const int kk = k > 0 ? k : 1;
         const size_t slots = (size_t)((n + 31) / 32) * 32;
         const size_t smem = slots * (4 + 2 + kk);
-        cudaError_t err = cudaFuncSetAttribute(
-            colskip_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+        static std::atomic<bool> done[kMaxDevices];
+        int dev = 0, optin = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(
+                &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (err == cudaSuccess)
+            err = allow_smem(colskip_dense_kernel, optin, done);
         if (err != cudaSuccess) return (int)err;
         colskip_dense_kernel<<<b, 32, smem, st>>>(xs, vs, os, cs, ys, n, w, k,
                                                   stop);
         return (int)cudaGetLastError();
     }
-    const int nw = (n + 31) / 32;
-    const int wpl = (nw + 31) / 32;
-    const size_t smem = (size_t)(w + kk) * nw * sizeof(uint32_t);
-    if (wpl <= 1) return launch<1>(xs, vs, os, cs, ys, b, n, w, k, stop, smem, st);
-    if (wpl <= 2) return launch<2>(xs, vs, os, cs, ys, b, n, w, k, stop, smem, st);
-    if (wpl <= 4) return launch<4>(xs, vs, os, cs, ys, b, n, w, k, stop, smem, st);
-    if (wpl <= 8) return launch<8>(xs, vs, os, cs, ys, b, n, w, k, stop, smem, st);
-    if (wpl <= 16) return launch<16>(xs, vs, os, cs, ys, b, n, w, k, stop, smem, st);
-    return launch<32>(xs, vs, os, cs, ys, b, n, w, k, stop, smem, st);
+    const int wpl = ((n + 31) / 32 + 31) / 32;
+#define COLSKIP_ARGS xs, vs, os, cs, ys, b, n, w, k, stop, st
+    if (wpl <= 1) return launch<1>(COLSKIP_ARGS);
+    if (wpl <= 2) return launch<2>(COLSKIP_ARGS);
+    if (wpl <= 4) return launch<4>(COLSKIP_ARGS);
+    if (wpl <= 8) return launch<8>(COLSKIP_ARGS);
+    if (wpl <= 16) return launch<16>(COLSKIP_ARGS);
+    return launch<32>(COLSKIP_ARGS);
+#undef COLSKIP_ARGS
 }
 
 }  // extern "C"

@@ -7,8 +7,9 @@ CUDA kernel behind one C entry point.  ``launches`` counts the packed
 kernel's launches made through :func:`colskip_sort_batched` and
 ``launches_dense`` the dense kernel's, since import or the last
 :func:`reset_launches` (``chip_smoke.py`` reads them to show a path went
-through the kernels).  :func:`vote_chain` runs the latency probe that
-prices one step of a row's chain (not counted: it is not the sort kernel).
+through the kernels).  :func:`vote_chain` and :func:`redux_chain` run
+the latency probes that price one dependent warp round of a row's chain;
+they are not counted (they are not the kernels a path runs).
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from repro_torch.kernels import _build
 
 from . import ref as _ref
 
-__all__ = ["colskip_sort_batched", "max_n", "reset_launches", "vote_chain"]
+__all__ = ["colskip_sort_batched", "fuse", "max_n", "redux_chain",
+           "reset_launches", "vote_chain"]
 
 launches = 0
 launches_dense = 0
@@ -44,26 +46,44 @@ def _lib() -> ctypes.CDLL:
         lib.colskip_max_n.restype = i
         lib.colskip_max_k.argtypes = []
         lib.colskip_max_k.restype = i
-        lib.colskip_vote_chain_launch.argtypes = [vp, ctypes.c_uint, i, vp]
-        lib.colskip_vote_chain_launch.restype = i
+        lib.colskip_fuse.argtypes = []
+        lib.colskip_fuse.restype = i
+        lib.colskip_chain_launch.argtypes = [vp, ctypes.c_uint, i, i, vp]
+        lib.colskip_chain_launch.restype = i
     return lib
 
 
-def vote_chain(rounds: int, seed: int = 0, device="cuda") -> torch.Tensor:
-    """Launch one warp running ``rounds`` dependent warp votes on the card
-    (no CPU version: it measures the card); returns its (1,) int32 count
-    of true votes.  Time it to price one step of the sort kernel's chain."""
+def _chain(rounds: int, seed: int, device, redux: bool) -> torch.Tensor:
     dev = resolve_device(device)
+    name = "redux_chain" if redux else "vote_chain"
     if dev.type != "cuda":
-        raise ValueError("vote_chain measures the card; it has no CPU version")
+        raise ValueError(f"{name} measures the card; it has no CPU version")
     out = torch.empty((1,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().colskip_vote_chain_launch(out.data_ptr(), seed, rounds,
-                                               stream)
+        err = _lib().colskip_chain_launch(out.data_ptr(), seed, rounds,
+                                          int(redux), stream)
     if err != 0:
-        raise RuntimeError(f"vote chain launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out
+
+
+def vote_chain(rounds: int, seed: int = 0, device="cuda") -> torch.Tensor:
+    """Launch one warp running ``rounds`` dependent ``__any_sync`` votes on
+    the card (no CPU version: it measures the card); returns its (1,) int32
+    count of true votes.  Time it to price one dependent warp round."""
+    return _chain(rounds, seed, device, redux=False)
+
+
+def redux_chain(rounds: int, seed: int = 0, device="cuda") -> torch.Tensor:
+    """:func:`vote_chain` with ``__reduce_or_sync`` rounds, the reduction
+    the packed kernel's fused verdicts and loads take."""
+    return _chain(rounds, seed, device, redux=True)
+
+
+def fuse() -> int:
+    """Planes the packed CUDA kernel resolves per verdict round."""
+    return _lib().colskip_fuse()
 
 
 def max_n(packed: bool, k: int) -> int:
@@ -102,9 +122,9 @@ def _launch(x: torch.Tensor, w: int, k: int, stop: int, packed: bool):
         return vals, order, crs, cyc
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.colskip_sort_launch(
-            x.data_ptr(), vals.data_ptr(), order.data_ptr(), crs.data_ptr(),
-            cyc.data_ptr(), b, n, w, k, stop, int(packed), stream)
+        ptrs = (x.data_ptr(), vals.data_ptr(), order.data_ptr(),
+                crs.data_ptr(), cyc.data_ptr(), b, n, w, k, stop)
+        err = lib.colskip_sort_launch(*ptrs, int(packed), stream)
     if err != 0:
         raise RuntimeError(f"colskip kernel launch failed: CUDA error {err}")
     if packed:

@@ -1,8 +1,8 @@
 """Plain torch versions of the colskip sort kernel (the §III machine),
 batched over rows, on both mask carriers.
 
-``packed=True`` mirrors the reference's ``_machine_packed`` with
-``fuse=1``; ``packed=False`` mirrors ``_machine_dense``
+``packed=True`` mirrors the reference's ``_machine_packed`` and
+``packed=False`` its ``_machine_dense``
 (``repro/kernels/colskip/kernel.py``: the packed ``load`` at :171-185 and
 the dense one at :235-249, the shared plane traversal
 ``_traverse_planes`` at :92-160, the drains at :194-211 and :259-276) and
@@ -17,11 +17,25 @@ kernel in interpret mode; the wrapper in ``ops.py`` takes them for CPU
 tensors, and ``chip_smoke.py`` holds the CUDA kernels against them on the
 card.
 
-Two shortcuts leave every output unchanged:
+``fuse=F`` walks the planes in blocks of F under the speculative tree of
+``_traverse_planes``: each block computes every plane's saw-a-1 / saw-a-0
+pair under each of the ``2^i`` hypotheses of its earlier planes' verdicts
+(``2 * (2^F - 1)`` predicates, one OR round), then resolves the verdicts
+plane by plane.  The packed CUDA kernel encodes the same speculation as
+the set of F-bit patterns its alive elements show (``colskip.cu``), with
+the same blocks and the same verdicts.  Blocks are aligned at multiples
+of F (planes ``bF + F - 1 .. bF``), as in the kernel, where the
+reference aligns them at ``w - 1``; a plane above a row's start is
+inactive either way, so the outputs are the same for any F and either
+alignment.
 
-  * the traversal visits only planes at or below the highest row's start
+Three shortcuts leave every output unchanged:
+
+  * the traversal visits only blocks at or below the highest row's start
     (a plane above a row's start is inactive for it: no CR, no state
     change);
+  * a ghost plane above ``w - 1`` in the top block reads plane ``w - 1``
+    (it is above every start, so never active);
   * the outer loop stops once every row has drained ``stop`` elements (a
     finished row's later iterations change neither outputs nor counters).
 """
@@ -118,17 +132,21 @@ class _Dense:
 
 
 def sort_ref(x: torch.Tensor, w: int = 32, k: int = 2,
-             stop_after: int | None = None, packed: bool = True):
+             stop_after: int | None = None, packed: bool = True,
+             fuse: int = 1):
     """``(B, N)`` 32-bit words -> ``(values, order, column_reads, cycles)``.
 
     ``values`` ``(B, stop)`` uint32, ``order`` ``(B, stop)`` int32, the
     per-row CR and cycle counts ``(B,)`` int32 (cycles = CRs + drains).
     ``x`` may be uint32, int32 (bit patterns) or an int64 carrier.
-    ``packed`` picks the mask carrier; the outputs do not depend on it."""
+    ``packed`` picks the mask carrier and ``fuse`` the planes walked per
+    verdict round (the speculative tree); the outputs depend on neither."""
     if not 1 <= w <= 32:
         raise ValueError(f"w={w} out of range [1, 32]")
     if k < 0:
         raise ValueError(f"k={k} must be >= 0")
+    if not 1 <= fuse <= 8:
+        raise ValueError(f"fuse={fuse} out of range [1, 8]")
     b, n = x.shape
     stop = n if stop_after is None else min(int(stop_after), n)
     if stop < 1:
@@ -167,30 +185,53 @@ def sort_ref(x: torch.Tensor, w: int = 32, k: int = 2,
         alive = torch.where(exists[:, None], sel & unsorted, unsorted)
         start = torch.where(exists, sigs[rows, first] - 1, s_top)
         fresh = ~exists
-        # --- traverse planes start..0 (one CR each)
+        # --- traverse planes start..0 (one CR each) in blocks of `fuse`
         seen = torch.zeros((b,), dtype=torch.bool, device=dev)
         crs2 = torch.clamp(start + 1, min=0)
-        for sig in range(int(start.max()), -1, -1):
-            col = cm.col(sig)
-            p1 = cm.any(col & alive)
-            p0 = cm.any(cm.zeros_of(col, alive))
-            mixed = (sig <= start) & p1 & p0
-            new_alive = torch.where(mixed[:, None], cm.zeros_of(col, alive),
-                                    alive)
-            rec = mixed & fresh
-            if k > 0 and bool(rec.any()):
-                # push (sig, mask): the table shifts toward older slots
-                sigs = torch.where(rec[:, None], torch.cat(
-                    [torch.full((b, 1), sig, **i64), sigs[:, :-1]], 1), sigs)
-                masks = torch.where(rec[:, None, None], torch.cat(
-                    [new_alive[:, None, :], masks[:, :-1]], 1), masks)
-                valid = torch.where(rec[:, None], torch.cat(
-                    [torch.ones((b, 1), dtype=torch.bool, device=dev),
-                     valid[:, :-1]], 1), valid)
-            s_top = torch.where(rec & ~seen, torch.full_like(s_top, sig),
-                                s_top)
-            seen = seen | rec
-            alive = new_alive
+        top = int(start.max())
+        for base in range(top - top % fuse, -1, -fuse) if top >= 0 else ():
+            # block planes base+fuse-1 .. base; a plane above w-1 (the
+            # top block's ghost) fetches plane w-1 and is never active
+            sigs_b = [base + fuse - 1 - i for i in range(fuse)]
+            cols = [cm.col(min(s, w - 1)) for s in sigs_b]
+            # speculative tree: hypothesis h (bit j set: plane j of the
+            # block mixed) feeds plane i's saw-a-1 / saw-a-0 pair at
+            # bits 2*(2^i - 1) + 2*h and one more
+            hyps, pairs = [alive], []
+            for i in range(fuse):
+                for h in hyps:
+                    pairs.append(cm.any(cols[i] & h))
+                    pairs.append(cm.any(cm.zeros_of(cols[i], h)))
+                if i + 1 < fuse:
+                    hyps = hyps + [cm.zeros_of(cols[i], h) for h in hyps]
+            verdicts = torch.stack(pairs, -1) if fuse > 1 else None
+            branch = torch.zeros((b,), **i64)
+            for i, sig in enumerate(sigs_b):
+                if i == 0:                             # one hypothesis
+                    p1, p0 = pairs[0], pairs[1]
+                else:
+                    at = (2 * ((1 << i) - 1) + 2 * branch)[:, None]
+                    p1 = torch.gather(verdicts, 1, at)[:, 0]
+                    p0 = torch.gather(verdicts, 1, at + 1)[:, 0]
+                mixed = (sig <= start) & p1 & p0
+                branch = branch | (mixed.to(torch.int64) << i)
+                new_alive = torch.where(mixed[:, None],
+                                        cm.zeros_of(cols[i], alive), alive)
+                rec = mixed & fresh
+                if k > 0 and bool(rec.any()):
+                    # push (sig, mask): the table shifts toward older slots
+                    sigs = torch.where(rec[:, None], torch.cat(
+                        [torch.full((b, 1), sig, **i64), sigs[:, :-1]], 1),
+                        sigs)
+                    masks = torch.where(rec[:, None, None], torch.cat(
+                        [new_alive[:, None, :], masks[:, :-1]], 1), masks)
+                    valid = torch.where(rec[:, None], torch.cat(
+                        [torch.ones((b, 1), dtype=torch.bool, device=dev),
+                         valid[:, :-1]], 1), valid)
+                s_top = torch.where(rec & ~seen, torch.full_like(s_top, sig),
+                                    s_top)
+                seen = seen | rec
+                alive = new_alive
         # --- drain the survivors (finished rows drain nothing)
         alive = torch.where(done[:, None], torch.zeros_like(alive), alive)
         crs = crs + torch.where(done, 0, crs2)

@@ -16,6 +16,7 @@ from repro.kernels.colskip import colskip_sort_batched as ref_sort_batched
 from repro.kernels.colskip.ref import sort_ref
 from repro_torch.core.colskip import colskip_sort as port_hw_model
 from repro_torch.kernels.colskip import colskip_sort_batched
+from repro_torch.kernels.colskip.ref import sort_ref as sort_ref_port
 
 FIELDS = ("values", "order", "column_reads", "cycles")
 
@@ -79,7 +80,54 @@ def test_dense_machine_and_bad_arguments_raise():
             colskip_sort_batched(x, w=33, packed=packed, device="cpu")
 
 
-def test_vote_chain_probe_has_no_cpu_version():
-    from repro_torch.kernels.colskip.ops import vote_chain
-    with pytest.raises(ValueError, match="measures the card"):
-        vote_chain(8, device="cpu")
+@pytest.mark.parametrize("probe", ["vote_chain", "redux_chain"])
+def test_vote_chain_probe_has_no_cpu_version(probe):
+    # the probes measure the card: no CPU version
+    from repro_torch.kernels.colskip import ops
+    with pytest.raises(ValueError, match="the card; it has no CPU version"):
+        getattr(ops, probe)(8, device="cpu")
+
+
+def _machine_outputs(x, w, k, stop, packed, fuse):
+    """The JAX ``colskip_machine`` (pure jnp) with ``fuse``, assembled into
+    (values, order, column_reads, cycles) as ``_sort_kernel`` does."""
+    from repro.kernels.colskip.kernel import colskip_machine
+    sorted_mask, out_pos, crs, drains = (np.asarray(a) for a in colskip_machine(
+        jnp.asarray(x), w, k, stop, packed=packed, fuse=fuse))
+    b, n = x.shape
+    order = np.zeros((b, stop + 1), np.int32)
+    pos = np.where(sorted_mask, out_pos, stop)
+    for r in range(b):
+        order[r, pos[r]] = np.arange(n, dtype=np.int32)
+    order = order[:, :stop]
+    return (np.take_along_axis(x, order, 1), order, crs.astype(np.int32),
+            (crs + drains).astype(np.int32))
+
+
+@pytest.mark.parametrize("fuse,packed,data,w,k,b,n,stop", [
+    (1, True, "random", 32, 2, 4, 64, None),
+    (2, True, "dupes", 16, 0, 3, 128, None),
+    (2, False, "random", 32, 8, 2, 100, 9),
+    (3, False, "random", 16, 8, 2, 96, None),
+    (3, True, "dupes", 32, 2, 4, 64, 1),
+    (4, True, "random", 32, 8, 4, 128, None),
+    (4, False, "dupes", 32, 2, 3, 64, None),
+    (4, True, "dupes", 16, 0, 2, 128, 16),
+])
+def test_fused_plain_machine_matches_jax_fused_machine(fuse, packed, data, w,
+                                                       k, b, n, stop):
+    # the speculative plane tree: sort_ref(fuse=F) (blocks aligned at
+    # multiples of F, as in the CUDA kernel) equals the reference's
+    # colskip_machine(fuse=F) (blocks aligned at w - 1) and the unfused walk
+    rng = np.random.default_rng(fuse * 1000 + n + k)
+    x = rng.integers(0, 1 << w, (b, n), dtype=np.uint64).astype(np.uint32)
+    if data == "dupes":
+        x %= 6
+    s = n if stop is None else stop
+    want = _machine_outputs(x, w, k, s, packed, fuse)
+    got = sort_ref_port(torch.from_numpy(x), w, k, s, packed=packed,
+                        fuse=fuse)
+    _assert_same(got, want)
+    unfused = sort_ref_port(torch.from_numpy(x), w, k, s, packed=packed)
+    for g, u in zip(got, unfused):
+        assert torch.equal(g, u)

@@ -31,19 +31,40 @@ def _words(t):
 @pytest.mark.parametrize("b,n,w,k,stop", [
     (8, 64, 32, 2, None), (3, 100, 16, 0, None), (5, 256, 32, 4, 17),
     (8, 2048, 32, 2, 16), (2, 4096, 32, 2, 64), (1, 33, 8, 8, None),
+    # the register path (WPL 1 and 2) and the shared one (WPL 4 to 32),
+    # k in {0, 1, 2, 8}, stop_after in {1, 16, N}, ragged B
+    (5, 1024, 32, 1, None), (3, 2048, 32, 8, 1), (7, 1500, 32, 0, None),
+    (2, 2100, 32, 8, None), (3, 32768, 32, 2, 16), (2, 32768, 32, 0, 1),
+    (9, 3000, 24, 1, 16),
 ])
 def test_colskip_kernel_equals_plain(cuda, b, n, w, k, stop):
     from repro_torch.kernels.colskip import ops, ref
     rng = np.random.default_rng(n + k)
-    x = torch.from_numpy(rng.integers(0, 1 << w, (b, n), dtype=np.uint64)
-                         .astype(np.uint32)).to(cuda)
+    x = rng.integers(0, 1 << w, (b, n), dtype=np.uint64).astype(np.uint32)
+    x[0] %= 5                                  # duplicate-heavy drains
+    x = torch.from_numpy(x).to(cuda)
     before = ops.launches
     got = ops.colskip_sort_batched(x, w, k, stop_after=stop)
     assert ops.launches == before + 1
-    want = ref.sort_ref(x, w, k, stop)
+    # the plain machine runs on the host (on the card it is launch-bound)
+    want = ref.sort_ref(x.cpu(), w, k, stop)
     torch.cuda.synchronize()
     for g, v in zip(got, want):
-        assert g.dtype == v.dtype and g.device.type == "cuda"
+        assert g.device.type == "cuda" and g.dtype == v.dtype
+        assert torch.equal(_words(g), _words(v))
+
+
+@pytest.mark.parametrize("name", ["clustered", "kruskal", "mapreduce",
+                                  "normal", "uniform"])
+def test_colskip_kernel_equals_plain_over_datasets(cuda, name):
+    from repro_torch.core.datasets import DATASETS, make_dataset
+    from repro_torch.kernels.colskip import ops, ref
+    assert name in DATASETS
+    x = np.stack([make_dataset(name, 512, 32, seed=s)
+                  for s in range(3)]).astype(np.uint32)
+    got = ops.colskip_sort_batched(torch.from_numpy(x).to(cuda), 32, 2)
+    want = ref.sort_ref(torch.from_numpy(x), 32, 2)
+    for g, v in zip(got, want):
         assert torch.equal(_words(g), _words(v))
 
 
@@ -90,12 +111,17 @@ def test_vote_chain_probe_runs_uncounted(cuda):
     # the first 5 bits of the lane index differ across lanes, so the vote
     # on each of them is true whatever the running count
     assert int(out[0]) >= 5 * (1000 // 32)
+    out = ops.redux_chain(1000)
+    torch.cuda.synchronize()
+    assert 5 * (1000 // 32) <= int(out[0]) <= 1000
     assert ops.launches == before
 
 
 @pytest.mark.parametrize("b,n", [
     (3, 64), (5, 256), (2, 1024), (7, 128), (4, 1), (3, 2),
     (3, 1 << 15), (5, 1 << 16), (2, 1 << 20), (13, 4096),
+    # one block, then clusters of 2 to 8 blocks, then cluster + global
+    (3, 1 << 11), (5, 1 << 12), (3, 1 << 13), (9, 1 << 14), (4, 8),
 ])
 def test_bitonic_kernel_equals_plain(cuda, b, n):
     from repro_torch.kernels.bitonic import ops, ref
