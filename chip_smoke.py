@@ -10,21 +10,25 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
   2. build every kernel from ``src/repro_torch/**/csrc/*.cu`` with nvcc
      (one process per source, started together), print ``-Xptxas -v``
      (this build's, or the report kept beside an earlier build) and read
-     the spills of the packed colskip kernel's register path (WPL 1 and
-     2): no report of them, or any spill, fails the run at its end;
+     the spills of the colskip kernels' register instances (packed: WPL 1
+     and 2; dense: C = 4, 8, 16 elements a thread): no report of either,
+     or any spill, fails the run at its end;
   3. hold the colskip kernel on both mask carriers against the plain torch
      machines, which run on the host (on the card they are bound by
      launches and take several times longer) ((8, N), N in {64, 256},
      the five datasets; ``stop_after=16`` at N=2048, 4096 and 32768; k in
      {0, 8} at N=256), the dense kernel against the packed one, both
      against the numpy hardware model (N in {1024, 2048, 4096}, w=32, k=2,
-     the five datasets), and the packed kernel against the model on its
+     the five datasets), the packed kernel against the model on its
      register path (N in {1000, 2000}) and its shared path (N in {4096,
-     32768}) at k in {0, 1, 2, 8} and stop_after in {1, 16, N}, ragged B:
-     values, order, CRs and cycles, exact;
+     32768}), and the dense kernel against the plain dense machine and
+     the packed kernel on every instance (N in {100, 256, 500, 1000, 2000}
+     in registers, 4096 rolled), all at k in {0, 1, 2, 8} and stop_after
+     in {1, 16, N}, ragged B: values, order, CRs and cycles, exact;
   4. hold the radix threshold kernel against its plain version (thresholds
-     and ``visited``, exact) at (8, N) for N in {128, 4096, 16384}, a
-     ragged B and constant rows, on the float32 and the sortable entry;
+     and ``visited``, exact) at (8, N) for N in {128, 4096, 16384}, k = N,
+     a ragged B and constant rows, on the float32 and the sortable entry,
+     and on the streamed instance ((1, 65536), (3, 20000), sortable);
      and the bitonic kernel against its plain network and ``np.sort``
      (exact) at the reference's test shapes, at N in {1, 2, 8}, at every
      cluster size (N = 2^11 .. 2^15), past one cluster (2^16, 2^20: the
@@ -39,11 +43,17 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      count reset just before and read just after: no suite may fail, no
      correctness predicate may MISS (sorted output, threshold and index
      equality, CR parity), and every kernel must have launched; a MISS of
-     a performance or paper band is printed as a finding;
+     a performance or paper band is printed as a finding; the rows of the
+     redesigned dense colskip and radix kernels are printed beside their
+     times before that redesign;
   7. time each kernel with CUDA events at a path shape beside its plain
      version, the library yardstick where one exists and its bound, and
-     print them as one JSON line (``{"kernels": [...]}``).  Radix is bound
-     by one read of its tile; bitonic by the larger of its bytes and its
+     print them as one JSON line (``{"kernels": [...]}``) of this run's
+     numbers; each kernel's time before the dense and radix redesign is
+     printed on a line of its own.
+     Radix is bound by one read of its tile, with the card's launch floor
+     (an empty kernel launched as one tile) and the kernel's pass count
+     beside it; bitonic by the larger of its bytes and its
      compare-exchanges at the int32 rate, with its device time split from
      the host's enqueue; colskip (both carriers) by latency: the slowest
      row's min searches (one per distinct value) times one dependent warp
@@ -73,6 +83,21 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # dependent warp rounds timed to price one step of a colskip row's chain
 VOTE_ROUNDS = 1 << 20
+# each kernel row's time (ms) before the dense colskip carrier and the
+# radix kernel were redesigned, printed on its own line beside this run's
+# and kept out of the kernels line: one H100 80GB HBM3 at 700 W (PERF.md)
+BEFORE_MS = {"colskip": 1.6238, "radix_threshold": 0.05051,
+           "colskip_dense": 12.888, "bitonic": 0.02313,
+           "bitonic_32768": 0.05264}
+# harness rows (us_per_call) of the redesigned kernels, as they read
+# before the redesign on the same card
+BEFORE_ROWS_US = {"kernel/radix_topk/router_probs": 50.3,
+                "kernel/radix_topk/logits_wide": 79.1,
+                "serving/topk64_vocab32256": 3683.0,
+                "serving/topk64_vocab151936": 4444.3,
+                "serving/topk64_vocab262144": 3144.5,
+                "packed/colskip_sim_1024/packed": 725.1,
+                "packed/colskip_sim_1024/dense": 13527.4}
 
 
 def _fail(msg: str) -> None:
@@ -126,14 +151,16 @@ def _searches(x) -> list:
 
 
 def register_path_spills(log: str) -> dict:
-    """Spill bytes (stores, loads) of each instance of the packed colskip
-    kernel's register path (WPL 1 and 2) in an ``-Xptxas -v`` log."""
+    """Spill bytes (stores, loads) of each register-path instance of the
+    colskip kernels in an ``-Xptxas -v`` log: the packed kernel's (WPL 1
+    and 2) and the dense carrier's (C >= 4 elements a thread; C = 0
+    is its rolled shared-memory instance)."""
     lines = log.splitlines()
     out = {}
     for i, line in enumerate(lines[:-1]):
         m = re.search(
-            r"Function properties for (\S*colskip_sort_kernelILi[12]E\S*)",
-            line)
+            r"Function properties for (\S*(?:colskip_sort_kernelILi[12]E"
+            r"|colskip_dense_kernelILi[1-9]\d*E)\S*)", line)
         sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                        lines[i + 1])
         if m and sp:
@@ -254,6 +281,35 @@ def hold_colskip(torch, np) -> dict:
                                 f"stop={stop}")
         print(f"packed colskip kernel == numpy hardware model: ({b}, {n}) "
               "w=32, k in {0, 1, 2, 8}, stop_after in {1, 16, N}")
+    # the dense carrier on every instance: registers at C = 4, 8, 16
+    # elements a thread (4 warps a row, N up to 2048; the table in
+    # registers at k <= 2, in shared memory above) and the rolled
+    # shared-memory instance past N = 2048, at every state depth and early
+    # exit, ragged B, against the plain dense machine on the host and the
+    # packed kernel.  Full sorts past N = 256 take rows with 61 distinct
+    # values: the plain machine costs milliseconds a search on the host
+    for n in (100, 256, 500, 1000, 2000, 4096):
+        for k in (0, 1, 2, 8):
+            for stop in (1, 16, None):
+                x = _rows("uniform" if k % 2 else "normal", 3, n, 31 + k)
+                if stop is None and n > 256:
+                    x %= 61
+                xt = torch.from_numpy(x).to(dev)
+                dense = ops.colskip_sort_batched(xt, 32, k, stop_after=stop,
+                                                 packed=False)
+                packed = ops.colskip_sort_batched(xt, 32, k, stop_after=stop)
+                plain_dense = ref.sort_ref(torch.from_numpy(x), 32, k, stop,
+                                           packed=False)
+                torch.cuda.synchronize()
+                what = f"(3, {n}) k={k} stop={stop}"
+                worst["colskip_dense"] = max(
+                    worst["colskip_dense"],
+                    _hold(f"dense colskip kernel != plain dense at {what}",
+                          dense, plain_dense),
+                    _hold(f"dense colskip kernel != packed kernel at {what}",
+                          dense, packed))
+        print(f"dense colskip kernel == plain dense == packed kernel: (3, {n}) "
+              "w=32, k in {0, 1, 2, 8}, stop_after in {1, 16, N}")
     for b, n in ((5, 4096), (3, 32768)):
         x = torch.from_numpy(_rows("normal", b, n, 900 + b)).to(dev)
         worst["colskip"] = max(worst["colskip"], _hold(
@@ -299,7 +355,8 @@ def hold_radix(torch, np) -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
     worst = 0
-    cases = [(8, 128, 8), (8, 4096, 64), (8, 16384, 100), (13, 1000, 5)]
+    cases = [(8, 128, 8), (8, 4096, 64), (8, 16384, 100), (13, 1000, 5),
+             (8, 600, 600), (3, 4096, 4096)]       # k = N
     for b, n, k in cases:
         x = (rng.normal(size=(b, n)) * 100).astype(np.float32)
         x[1] = np.float32(-2.5)                # a constant row
@@ -318,6 +375,22 @@ def hold_radix(torch, np) -> int:
                       f"entry: max errors (thresh, visited) {errs}")
         print(f"radix kernel == plain version: ({b}, {n}) k={k}, float32 and "
               "sortable entries")
+    # rows past the kernel's shared memory stream from device memory on
+    # every pass (the sortable entry only: float32 rows stop at MAX_N)
+    for b, n, k in ((1, 65536, 50), (3, 20000, 20000)):
+        u = torch.from_numpy(rng.integers(0, 1 << 32, (b, n), dtype=np.uint64)
+                             .astype(np.uint32)).to(dev)
+        u[-1] = 7                              # a constant row
+        got = ops.threshold_sortable(u, k)
+        want = ref.threshold_ref(u.cpu(), k)
+        torch.cuda.synchronize()
+        errs = [_max_err(g, w) for g, w in zip(got, want)]
+        worst = max(worst, *errs)
+        if any(errs):
+            _fail(f"radix kernel != plain at ({b}, {n}) k={k}, streamed: max "
+                  f"errors (thresh, visited) {errs}")
+        print(f"radix kernel == plain version: ({b}, {n}) k={k}, sortable "
+              f"entry, streamed (rows past {ops.smem_n()} words)")
     return worst
 
 
@@ -389,6 +462,11 @@ def bench(torch) -> dict:
     if rc != 0 or doc["errors"]:
         _fail(f"benchmark suites failed: {doc['errors']}")
     for row in doc["rows"]:
+        if row["name"] in BEFORE_ROWS_US:
+            print(f"{row['name']}: {row['us_per_call']:.1f} us (before: "
+                  f"{BEFORE_ROWS_US[row['name']]} us) {row['derived']}")
+        if row["name"] == "packed/colskip_sim_1024/speedup":
+            print(f"packed_speedup band (>= 1.5): {row['derived']}")
         if "MISS" not in row["derived"]:
             continue
         broken = (row["name"].startswith(CORRECTNESS_ROWS)
@@ -463,21 +541,38 @@ def measure(torch, np, launches: dict, bench_launches: dict,
                          .astype(np.uint32)).to(dev)
     _, visited = radix_ops.threshold_sortable(u, k)
     # bound: one read of the tile and the (B,) outputs; the descent's
-    # word operations (map, compare, and, test, add per element per pass
-    # of this design) are printed beside it, not taken as the bound
-    passes = 1 + int(visited.max())
+    # word operations (compare, and, shift, mask, add per element per
+    # pass) are printed beside it, not taken as the bound.  The kernel's
+    # passes: the OR/AND pass, then one a digit of the visited planes.
+    # The launch floor: an empty kernel launched as one tile, timed alike
+    digit = radix_ops.digit_bits()
+    passes = 1 + -(-int(visited.max()) // digit)
     r_bytes = b * n * 4 + b * 8
+    # back to back the calls are bound by the host's enqueue (some tens of
+    # us a call), so each time is also taken on the device alone: calls
+    # queued behind a busy kernel run back to back on the card
     ms = _time_ms(lambda: radix_ops.threshold_sortable(u, k), 50)
+    floor_ms = _time_ms(radix_ops.empty_launch, 50)
     plain_ms = _time_ms(lambda: radix_ref.threshold_ref(u, k), 3)
     keys = as_words(u)
     lib_ms = _time_ms(lambda: torch.topk(keys, k, dim=-1), 50)
+    busy = lambda: colskip_ops.vote_chain(VOTE_ROUNDS)      # noqa: E731
+    device_ms, enqueue_ms = _queued_ms(
+        torch, lambda: radix_ops.threshold_sortable(u, k), 50, busy)
+    floor_device_ms, _ = _queued_ms(torch, radix_ops.empty_launch, 50, busy)
+    lib_device_ms, _ = _queued_ms(
+        torch, lambda: torch.topk(keys, k, dim=-1), 50, busy)
     rows.append(_row("radix_threshold",
                      "src/repro_torch/kernels/radix_topk/csrc/radix_threshold.cu",
                      "src/repro/kernels/radix_topk/kernel.py:48",
                      launches["radix_threshold"], errs["radix_threshold"], ms,
                      plain_ms, r_bytes, None, lib_ms,
                      shape=f"({b}, {n}) sortable uint32 k={k}",
-                     visited=int(visited.max()),
+                     visited=int(visited.max()), digit_bits=digit,
+                     kernel_passes=passes, launch_floor_ms=floor_ms,
+                     device_ms=device_ms, host_enqueue_ms=enqueue_ms,
+                     launch_floor_device_ms=floor_device_ms,
+                     library_device_ms=lib_device_ms,
                      descent_operations=b * n * 5 * passes))
 
     # dense colskip at the packed_bench shape: (8, 1024) mapreduce, beside
@@ -553,8 +648,9 @@ def _row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops_ms,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": ops_ms if by_ops else bytes_ms,
             "bound_by": "operations" if by_ops else "bytes",
-            "library_ms": library_ms, "bytes": nbytes, "bytes_ms": bytes_ms,
-            "operations_ms": ops_ms, **extra}
+            "library_ms": library_ms,
+            "bytes": nbytes, "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+            **extra}
 
 
 def main() -> int:
@@ -593,8 +689,10 @@ def main() -> int:
     spills = register_path_spills(logs.get("colskip", ""))
     print(f"colskip register-path spills (stores, loads): "
           f"{json.dumps(spills)}")
-    if not spills:
-        _fail("no register-path instance in the colskip ptxas report")
+    for kernel in ("colskip_sort_kernel", "colskip_dense_kernel"):
+        if not any(kernel in name for name in spills):
+            _fail(f"no register-path instance of {kernel} in the colskip "
+                  "ptxas report")
 
     # 3-4. hold each kernel against its plain version (and the hw model)
     t0 = time.perf_counter()
@@ -617,9 +715,19 @@ def main() -> int:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         print(f"{r['name']}: {r['ms']:.4f} ms/launch at {r['shape']} "
-              f"(plain {r['plain_ms']:.3f} ms, library {lib}, bound "
-              f"{r['bound_ms']:.6f} ms by {r['bound_by']}), "
-              f"{r['launches']} launches on its path")
+              f"(before: {BEFORE_MS[r['name']]} ms; plain "
+              f"{r['plain_ms']:.3f} ms, library {lib}, bound {r['bound_ms']:.6f} ms by "
+              f"{r['bound_by']}), {r['launches']} launches on its path")
+        if r["name"] == "radix_threshold":
+            print(f"radix_threshold: on the device {r['device_ms']:.5f} ms "
+                  f"(host enqueue {r['host_enqueue_ms']:.5f} ms a call; "
+                  f"torch.topk {r['library_device_ms']:.5f} ms); launch "
+                  f"floor {r['launch_floor_ms']:.5f} ms back to back, "
+                  f"{r['launch_floor_device_ms']:.5f} ms on the device (an "
+                  f"empty kernel launched as one tile); "
+                  f"{r['kernel_passes']} passes of the kernel "
+                  f"({r['digit_bits']}-plane digits) for {r['visited']} "
+                  "visited planes")
     spilled = {k: v for k, v in spills.items() if any(v)}
     if spilled:
         _fail(f"the colskip register path spills: {spilled}")

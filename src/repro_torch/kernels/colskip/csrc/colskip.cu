@@ -74,32 +74,40 @@
 // The dense carrier (colskip_dense_kernel) replaces the same Pallas kernel
 // on its dense path (_sort_kernel with packed=False, whose body is
 // _machine_dense, kernel.py:229-291).  Its outputs equal the packed
-// kernel's, as the reference's two carriers equal each other.  Design:
+// kernel's, as the reference's two carriers equal each other.  The carrier
+// stays dense: a column read is (v >> sig) & 1 of each alive element's
+// value, and the alive, sorted and table masks hold one flag per element
+// (a byte), never one bit of a packed word.  It shares the packed
+// kernel's chain and its shortening of it:
 //
-//   * one warp per row; lane l owns the contiguous chunk of C = ceil(N/32)
-//     elements [l*C, l*C + C), so a drain rank is the lane's running
-//     count plus a warp exclusive scan (the reference's cumsum runs in
-//     element order);
-//   * the row's values stay in shared memory, and the alive, sorted and
-//     k table masks are one byte per element there ((4 + 2 + kk) bytes an
-//     element: 28 KB at N=2048, k=8).  Storage is lane-interleaved:
-//     element l*C + i sits in slot i*32 + l, so the warp touches 32
-//     consecutive words or bytes at each step (no bank conflicts) and
-//     every lane reads and writes only its own slots (no barriers);
-//   * a column read is (v >> sig) & 1 over the lane's alive elements,
-//     then __any_sync on the saw-a-1 and saw-a-0 predicates;
-//   * table entries live in physical mask slots named by warp-uniform
-//     registers, so a push writes one mask and renames the rest.
-//
-// It walks one plane per round (two votes a CR), and each CR costs a lane
-// C shifts and byte reads instead of one word.  colskip_max_n() gives the
-// widest row its shared memory holds on the current card; a wider row is
-// refused, never split.
+//   * the same speculative fusion and resolution: each thread ORs
+//     1 << ((v >> base) & (2^F - 1)) over its alive elements, one
+//     __reduce_or_sync a block, and resolve_block() (shared with the
+//     packed kernel) gives the verdicts; the alive count rides in the same
+//     round, a walk stops at a lone element and drains it with no round;
+//   * a one-round load (each table entry's still-live bit is one bit of
+//     one reduction, the newest live entry __ffs of it) and a drain rank
+//     of a running count plus one scan, since thread t owns the
+//     contiguous elements t * c .. t * c + c - 1;
+//   * registers with a compile-time c (C = 4, 8, ... kDenseMaxC; rows up
+//     to kDenseRegN = 2048, the serving cap): a thread's values are a
+//     register array and its flags bytes of registers, four to a word, so
+//     every element loop is unrolled; the table masks too at k <= 2, in
+//     lane-interleaved shared memory above;
+//   * kDenseWarps = 4 warps a row: the warps meet once a round in shared
+//     memory behind one barrier, which costs less than the elements a lane
+//     no longer walks.  On an H100 four beat one and two, and eight on the
+//     harness's (8, 1024) tile (eight won by 1.4 % at (8, 2048); PERF.md);
+//   * wider rows take a rolled one-warp instance whose values and flag
+//     bytes live in shared memory ((4 + 2 + kk) bytes an element, slot
+//     [i][lane], no bank conflicts); colskip_max_n() gives the widest row
+//     it holds on the current card; a wider row is refused, never split.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -110,6 +118,13 @@ constexpr int kMaxK = 8;        // deepest state table the kernel holds
 #endif
 constexpr int kFuse = COLSKIP_FUSE;     // planes resolved per verdict round
 constexpr int kPlanes = 32;     // bit planes packed per row (w <= 32)
+constexpr int kDenseWarps = 4;     // dense: warps a row, registers
+constexpr int kDenseRegN = 2048;   // dense: widest row held in registers
+// dense: most elements a thread of a register instance holds
+constexpr int kDenseMaxC = kDenseRegN / (32 * kDenseWarps);
+static_assert(kDenseMaxC >= 4 && (kDenseMaxC & (kDenseMaxC - 1)) == 0,
+              "register instances of 4, 8, ... elements a thread");
+constexpr int kRegTable = 2;       // dense: table entries held in registers
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
@@ -143,6 +158,29 @@ __device__ __forceinline__ uint32_t pack_bits(uint32_t (&bits)[N]) {
 #pragma unroll
         for (int p = 0; p + d < N; p += 2 * d) bits[p] |= bits[p + d];
     return bits[0];
+}
+
+// The verdicts of one block of kFuse planes (plane i of the block is
+// base + F - 1 - i) from the set of F-bit patterns that the block's alive
+// elements show (plane i at bit F - 1 - i of a pattern).  Bit i of the
+// result is set when plane i is active (at or below `start`) and mixed:
+// the patterns still alive show both of its bits; a mixed plane then keeps
+// those with a 0 there.  Both carriers resolve their blocks here, as the
+// reference's carriers share _traverse_planes.
+__device__ __forceinline__ uint32_t resolve_block(uint32_t pats, int base,
+                                                  int start) {
+    uint32_t mixed = 0u;
+#pragma unroll
+    for (int i = 0; i < kFuse; ++i) {
+        const uint32_t has1 = pattern_mask(kFuse, kFuse - 1 - i);
+        const uint32_t ones = pats & has1;
+        const uint32_t zeros = pats & ~has1;
+        const bool on = base + kFuse - 1 - i <= start && ones != 0u &&
+                        zeros != 0u;
+        pats = on ? zeros : pats;
+        mixed |= (uint32_t)on << i;
+    }
+    return mixed;
 }
 
 // One warp per row.  WPL = packed words a lane holds (ceil(N/1024) rounded
@@ -290,7 +328,6 @@ colskip_sort_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ vals,
 #pragma unroll
             for (int q = 0; q < WPL; ++q) here += __popc(alive[q]);
             const bool alone = __reduce_add_sync(kFull, here) <= 1;
-            uint32_t mixed = 0u;           // bit i: plane i mixed
             // the set of F-bit patterns (plane i of the block at bit
             // F - 1 - i) that the alive elements show.  A plane is mixed
             // when the patterns still alive show both of its bits; it then
@@ -346,21 +383,13 @@ colskip_sort_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ vals,
 #pragma unroll
                 for (int p = 0; p < kPats; ++p) bits[p] = nonzero(t[p]);
             }
-            uint32_t seen_pats = __reduce_or_sync(kFull, pack_bits(bits));
+            const uint32_t seen_pats =
+                __reduce_or_sync(kFull, pack_bits(bits));
             if (alone) {
                 lone = true;
                 break;
             }
-#pragma unroll
-            for (int i = 0; i < F; ++i) {
-                const uint32_t has1 = pattern_mask(F, F - 1 - i);
-                const uint32_t ones = seen_pats & has1;
-                const uint32_t zeros = seen_pats & ~has1;
-                const bool on = base + F - 1 - i <= start && ones != 0u &&
-                                zeros != 0u;
-                seen_pats = on ? zeros : seen_pats;
-                mixed |= (uint32_t)on << i;
-            }
+            const uint32_t mixed = resolve_block(seen_pats, base, start);
             if (mixed == 0u) continue;     // uniform block: alive unchanged
             if (!fresh || k == 0) {
                 // no table push: exclude the 1s of every mixed plane at once
@@ -468,160 +497,335 @@ colskip_sort_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ vals,
 }
 
 
-// Dense carrier: masks as bytes in shared memory, one warp per row (see
-// the note at the head of this file).
-__global__ void __launch_bounds__(32)
+// Row-wide reductions of the dense carrier, whose row is W warps.  Each
+// warp reduces with one REDUX; W > 1 warps then meet once in shared memory
+// (`xch`, two buffers of [2][W] words) behind one barrier.  The buffers
+// alternate (`par`), so one barrier a round suffices: no warp rewrites a
+// buffer before every warp has passed the barrier after its last read.
+
+// OR of `bits` and sum of `cnt` over the row
+template <int W>
+__device__ __forceinline__ void row_or_add(uint32_t& bits, int& cnt,
+                                           uint32_t* xch, int& par) {
+    bits = __reduce_or_sync(kFull, bits);
+    cnt = __reduce_add_sync(kFull, cnt);
+    if (W > 1) {
+        uint32_t* xb = xch + par * 2 * W;
+        const int warp = threadIdx.x >> 5;
+        if ((threadIdx.x & 31) == 0) {
+            xb[warp] = bits;
+            xb[W + warp] = (uint32_t)cnt;
+        }
+        __syncthreads();
+        bits = 0u;
+        cnt = 0;
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+            bits |= xb[i];
+            cnt += (int)xb[W + i];
+        }
+        par ^= 1;
+    }
+}
+
+// OR of `bits` over the row
+template <int W>
+__device__ __forceinline__ uint32_t row_or(uint32_t bits, uint32_t* xch,
+                                           int& par) {
+    bits = __reduce_or_sync(kFull, bits);
+    if (W > 1) {
+        uint32_t* xb = xch + par * 2 * W;
+        if ((threadIdx.x & 31) == 0) xb[threadIdx.x >> 5] = bits;
+        __syncthreads();
+        bits = 0u;
+#pragma unroll
+        for (int i = 0; i < W; ++i) bits |= xb[i];
+        par ^= 1;
+    }
+    return bits;
+}
+
+// The row's sum of `mine` (into `total`) and this thread's exclusive
+// prefix of it in thread order: a drain's rank.  One warp skips the scan
+// when a single lane holds every survivor (a ballot says so)
+template <int W>
+__device__ __forceinline__ int row_rank(int mine, int& total, uint32_t* xch,
+                                        int& par) {
+    const int lane = threadIdx.x & 31;
+    if (W == 1) {
+        total = __reduce_add_sync(kFull, mine);
+        const uint32_t holders = __ballot_sync(kFull, mine != 0);
+        return (holders & (holders - 1u))
+                   ? warp_inclusive_scan(mine, lane) - mine : 0;
+    }
+    const int incl = warp_inclusive_scan(mine, lane);
+    uint32_t* xb = xch + par * 2 * W;
+    const int warp = threadIdx.x >> 5;
+    if (lane == 31) xb[warp] = (uint32_t)incl;
+    __syncthreads();
+    int before = 0;
+    total = 0;
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+        const int c = (int)xb[i];
+        total += c;
+        before += i < warp ? c : 0;
+    }
+    par ^= 1;
+    return before + incl - mine;
+}
+
+// Dense carrier (see the note at the head of this file).  Thread t of the
+// row's 32 * W holds elements t * c .. t * c + c - 1.  C = c at compile
+// time (a multiple of 4: values in registers, flags one byte an element,
+// four to a register), or 0 for the rolled instance (one warp; values and
+// flag bytes in shared memory, lane-interleaved).  kRegTab: the table
+// masks (k <= kRegTable) live in registers too, else in shared memory.
+template <int C, bool kRegTab, int W>
+__global__ void __launch_bounds__(32 * W)
 colskip_dense_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ vals,
                      int32_t* __restrict__ order, int32_t* __restrict__ crs_out,
                      int32_t* __restrict__ cyc_out, int n, int w, int k,
                      int stop) {
+    static_assert(C % 4 == 0 && (C > 0 || (W == 1 && !kRegTab)),
+                  "register instances hold whole flag words");
+    using Unit = typename std::conditional<C == 0, uint8_t, uint32_t>::type;
+    constexpr int T = 32 * W;              // threads a row
+    constexpr int E = C ? 4 : 1;           // elements a flag unit holds
+    constexpr uint32_t kOne = C ? 0x01010101u : 0x01u;  // a unit's flags
+    constexpr int kPats = 1 << kFuse;
+    constexpr int kTE = kRegTab ? kRegTable : 1;
     extern __shared__ uint32_t smem[];
     const int row = blockIdx.x;
-    const int lane = threadIdx.x;
-    const int c = (n + 31) >> 5;           // elements per lane
-    const int s = c * 32;                  // slots
+    const int t = threadIdx.x;
+    const int c = C ? C : (n + T - 1) / T;      // elements a thread
+    const int U = C ? C / 4 : c;                // flag units a thread
     const int kk = k > 0 ? k : 1;
-    uint32_t* sv = smem;                                   // [s] values
-    uint8_t* alive = reinterpret_cast<uint8_t*>(smem + s); // [s]
-    uint8_t* srt = alive + s;                              // [s] sorted
-    uint8_t* tm = srt + s;                                 // [kk][s] table
+    // shared memory: values, alive and sorted flags (rolled), the table
+    // (!kRegTab), the exchange words (W > 1); slot [i][t] is i * T + t
+    uint32_t* sv = smem;                                     // [c][T]
+    Unit* sa = reinterpret_cast<Unit*>(smem + (C ? 0 : c * T));  // [U][T]
+    Unit* ss = sa + (C ? 0 : U * T);                         // [U][T]
+    Unit* stab = ss + (C ? 0 : U * T);                       // [kk][U][T]
+    uint32_t* xch = reinterpret_cast<uint32_t*>(stab + (kRegTab ? 0 : kk * U * T));
     const uint32_t* xr = x + (size_t)row * n;
     int32_t* ordr = order + (size_t)row * stop;
+    const int first_el = t * c;
 
-    // element j (lane j / c, position j % c) -> slot (j % c) * 32 + j / c;
-    // padding slots count as sorted, so they are never alive
-    for (int j = lane; j < s; j += 32) {
-        const int q = (j % c) * 32 + j / c;
-        sv[q] = j < n ? xr[j] : 0u;
-        srt[q] = j < n ? 0 : 1;
-    }
-    __syncwarp();
+    uint32_t v[C ? C : 1];                 // values (register instances)
+    Unit ra[C ? C / 4 : 1], rs[C ? C / 4 : 1];    // alive, sorted flags
+    Unit rt[kTE][kRegTab ? C / 4 : 1];     // table masks (kRegTab)
+    // table entry e: its sig in byte e of tsig, its mask slot (shared
+    // table) in nibble e of tslot; scalars, so a push is a shift
+    uint64_t tsig = 0u;
+    uint32_t tslot = 0x76543210u;
+#define DV(e) (C ? v[C ? (e) : 0] : sv[(e) * T + t])
+#define DA(u) (C ? ra[C ? (u) : 0] : sa[(u) * T + t])
+#define DS(u) (C ? rs[C ? (u) : 0] : ss[(u) * T + t])
+#define DT(e, u) (kRegTab ? rt[kRegTab ? (e) : 0][kRegTab ? (u) : 0] \
+                          : stab[(((tslot >> (4 * (e))) & 15u) * U + (u)) * T + t])
 
-    int tsig[kMaxK], tslot[kMaxK];         // entry e -> (sig, mask slot)
+    if constexpr (C > 0) {
 #pragma unroll
-    for (int e = 0; e < kMaxK; ++e) {
-        tsig[e] = 0;
-        tslot[e] = e;
+        for (int e = 0; e < C; ++e) {
+            const int j = first_el + e;
+            v[e] = j < n ? xr[j] : 0u;
+        }
+    } else {
+        // coalesced: element j of the row is thread j / c's element j % c
+        for (int j = t; j < c * T; j += T)
+            sv[(j % c) * T + j / c] = j < n ? xr[j] : 0u;
     }
+    // padding elements count as sorted, so they are never alive
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+        uint32_t s = 0u;
+#pragma unroll
+        for (int j = 0; j < E; ++j)
+            if (first_el + u * E + j >= n) s |= 1u << (8 * j);
+        DS(u) = (Unit)s;
+    }
+    if (!C) __syncwarp();                  // values written across lanes
+
     uint32_t tvalid = 0u;                  // bit e: table entry e is valid
-    const uint32_t kkmask = (kk >= 32) ? kFull : ((1u << kk) - 1u);
-    int s_top = w - 1, count = 0, crs = 0, drains = 0;
+    const uint32_t kkmask = (1u << kk) - 1u;
+    const uint64_t sigmask = kk >= 8 ? ~0ull : (1ull << (8 * kk)) - 1u;
+    const uint32_t slotmask = kk >= 8 ? kFull : (1u << (4 * kk)) - 1u;
+    int s_top = w - 1, count = 0, crs = 0, drains = 0, par = 0;
+    bool fresh = true;
+    int start = 0;
 
     while (count < stop) {
-        // --- load: the newest live table entry, else a fresh search
-        int first = -1, fslot = 0, fsig = 0;
+        // --- load: the newest live table entry (one round), else fresh
+        uint32_t live = 0u;
+        if (tvalid != 0u) {
+            uint32_t hit = 0u;
 #pragma unroll
-        for (int e = 0; e < kMaxK; ++e) {
-            if (e < kk && first < 0 && ((tvalid >> e) & 1u)) {
-                const uint8_t* m = tm + (size_t)tslot[e] * s;
-                bool h = false;
-                for (int i = 0; i < c; ++i) {
-                    const int q = i * 32 + lane;
-                    h |= (m[q] & (srt[q] ^ 1)) != 0;
-                }
-                if (__any_sync(kFull, h)) {
-                    first = e;
-                    fslot = tslot[e];
-                    fsig = tsig[e];
+            for (int e = 0; e < (kRegTab ? kRegTable : kMaxK); ++e) {
+                if (e < kk) {
+                    uint32_t h = 0u;
+#pragma unroll
+                    for (int u = 0; u < U; ++u) h |= DT(e, u) & ~DS(u);
+                    hit |= nonzero(h) << e;
                 }
             }
+            live = tvalid & row_or<W>(hit, xch, par);
         }
-        int start;
-        bool fresh;
-        if (first >= 0) {
-            const uint8_t* m = tm + (size_t)fslot * s;
-            for (int i = 0; i < c; ++i) {
-                const int q = i * 32 + lane;
-                alive[q] = m[q] & (srt[q] ^ 1);
+        if (live != 0u) {
+            const int first = __ffs(live) - 1;
+            start = (int)((tsig >> (8 * first)) & 0xFFu) - 1;
+            if constexpr (kRegTab) {
+#pragma unroll
+                for (int e = 0; e < kRegTable; ++e)
+                    if (e == first) {
+#pragma unroll
+                        for (int u = 0; u < U; ++u)
+                            DA(u) = DT(e, u) & ~DS(u);
+                    }
+            } else {
+#pragma unroll
+                for (int u = 0; u < U; ++u) DA(u) = DT(first, u) & ~DS(u);
             }
-            start = fsig - 1;
             tvalid &= ~((1u << first) - 1u);   // drop the newer entries
             fresh = false;
         } else {
-            for (int i = 0; i < c; ++i) {
-                const int q = i * 32 + lane;
-                alive[q] = srt[q] ^ 1;
-            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) DA(u) = ~DS(u) & kOne;
             start = s_top;
             tvalid = 0u;
             fresh = true;
         }
 
-        // --- traverse planes start..0, one CR each
-        bool seen = false;
-        for (int sig = start; sig >= 0; --sig) {
-            bool t1 = false, t0 = false;
-            for (int i = 0; i < c; ++i) {
-                const int q = i * 32 + lane;
-                if (alive[q]) {
-                    const bool bit = (sv[q] >> sig) & 1u;
-                    t1 |= bit;
-                    t0 |= !bit;
+        crs += start + 1;                     // start >= -1
+        // --- traverse planes start..0 in blocks of kFuse, one round a
+        // block: each thread ORs the one-hot pattern of every alive
+        // element (a column read is (v >> sig) & 1 of its value), and the
+        // alive count rides in the same round
+        bool seen = false, lone = false;
+        for (int bi = start >= 0 ? start / kFuse : -1; bi >= 0; --bi) {
+            const int base = bi * kFuse;
+            uint32_t pats = 0u;
+            int here = 0;
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const uint32_t a = DA(u);
+                here += __popc(a);
+#pragma unroll
+                for (int j = 0; j < E; ++j)
+                    pats |= ((a >> (8 * j)) & 1u)
+                            << ((DV(u * E + j) >> base) & (kPats - 1));
+            }
+            row_or_add<W>(pats, here, xch, par);
+            // a lone element makes every plane from here down uniform
+            if (here <= 1) {
+                lone = true;
+                break;
+            }
+            const uint32_t mixed = resolve_block(pats, base, start);
+            if (mixed == 0u) continue;     // uniform block: alive unchanged
+            // mixed planes as bits of a pattern (plane i at F - 1 - i)
+            uint32_t mp = 0u;
+#pragma unroll
+            for (int i = 0; i < kFuse; ++i)
+                mp |= ((mixed >> i) & 1u) << (kFuse - 1 - i);
+            if (!fresh || k == 0) {
+                // no table push: exclude the 1s of every mixed plane at once
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    uint32_t keep = 0u;
+#pragma unroll
+                    for (int j = 0; j < E; ++j)
+                        keep |= (uint32_t)(((DV(u * E + j) >> base) & mp) == 0u)
+                                << (8 * j);
+                    DA(u) &= keep;
+                }
+            } else {
+#pragma unroll
+                for (int i = 0; i < kFuse; ++i) {
+                    if (((mixed >> i) & 1u) == 0u) continue;
+                    const int sig = base + kFuse - 1 - i;
+#pragma unroll
+                    for (int u = 0; u < U; ++u) {
+                        uint32_t keep = 0u;
+#pragma unroll
+                        for (int j = 0; j < E; ++j)
+                            keep |= (~(DV(u * E + j) >> sig) & 1u) << (8 * j);
+                        DA(u) &= keep;
+                    }
+                    // push (sig, alive) as entry 0: older entries shift on
+                    if constexpr (kRegTab) {
+#pragma unroll
+                        for (int e = kRegTable - 1; e > 0; --e)
+#pragma unroll
+                            for (int u = 0; u < U; ++u) DT(e, u) = DT(e - 1, u);
+#pragma unroll
+                        for (int u = 0; u < U; ++u) DT(0, u) = DA(u);
+                    } else {
+                        // the oldest entry's slot takes the new mask
+                        const uint32_t recycled =
+                            (tslot >> (4 * (kk - 1))) & 15u;
+                        tslot = ((tslot << 4) | recycled) & slotmask;
+#pragma unroll
+                        for (int u = 0; u < U; ++u) DT(0, u) = DA(u);
+                    }
+                    tsig = ((tsig << 8) | (uint64_t)sig) & sigmask;
+                    tvalid = ((tvalid << 1) | 1u) & kkmask;
                 }
             }
-            const bool p1 = __any_sync(kFull, t1);
-            const bool p0 = __any_sync(kFull, t0);
-            if (p1 && p0) {                   // mixed column: exclude the 1s
-                for (int i = 0; i < c; ++i) {
-                    const int q = i * 32 + lane;
-                    if (alive[q] && ((sv[q] >> sig) & 1u)) alive[q] = 0;
-                }
-                if (fresh) {
-                    if (k > 0) {              // push (sig, alive) as entry 0
-                        int recycled = 0;     // the oldest entry's slot
-#pragma unroll
-                        for (int e = 0; e < kMaxK; ++e)
-                            if (e == kk - 1) recycled = tslot[e];
-#pragma unroll
-                        for (int e = kMaxK - 1; e > 0; --e) {
-                            if (e < kk) {
-                                tsig[e] = tsig[e - 1];
-                                tslot[e] = tslot[e - 1];
-                            }
-                        }
-                        tsig[0] = sig;
-                        tslot[0] = recycled;
-                        uint8_t* m = tm + (size_t)recycled * s;
-                        for (int i = 0; i < c; ++i) {
-                            const int q = i * 32 + lane;
-                            m[q] = alive[q];
-                        }
-                        tvalid = ((tvalid << 1) | 1u) & kkmask;
-                    }
-                    if (!seen) {
-                        s_top = sig;
-                        seen = true;
-                    }
-                }
+            if (fresh && !seen) {
+                s_top = base + kFuse - __ffs(mixed);   // the first mixed plane
+                seen = true;
             }
         }
-        crs += start + 1;                     // start >= -1
 
-        // --- drain the survivors in element order, up to `stop`
+        // --- drain the survivors in element order, up to `stop`.  A walk
+        // that stopped at a lone element already knows the count (one) and
+        // the rank (0): its thread writes it, with no round
+        if (lone) {
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const uint32_t a = DA(u);
+                if (a != 0u)
+                    ordr[count] = first_el + u * E + ((__ffs(a) - 1) >> 3);
+                DS(u) |= a;
+            }
+            ++count;
+            continue;
+        }
         int mine = 0;
-        for (int i = 0; i < c; ++i) mine += alive[i * 32 + lane];
-        const int incl = warp_inclusive_scan(mine, lane);
-        const int m_tot = __shfl_sync(kFull, incl, 31);
+#pragma unroll
+        for (int u = 0; u < U; ++u) mine += __popc(DA(u));
+        int m_tot = 0;
+        int r = row_rank<W>(mine, m_tot, xch, par);   // rank of the first
         const int m_eff = min(m_tot, stop - count);
         if (m_eff <= 0) break;                // unreachable: a search always
                                               // keeps a survivor; never spin
-        int r = incl - mine;                  // rank of the lane's first
-        for (int i = 0; i < c && r < m_eff; ++i) {
-            const int q = i * 32 + lane;
-            if (alive[q]) {
-                ordr[count + r] = lane * c + i;
-                srt[q] = 1;
-                ++r;
+        if (mine != 0 && r < m_eff) {
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                uint32_t a = DA(u), kept = 0u;
+                while (a != 0u && r < m_eff) {
+                    const int bpos = __ffs(a) - 1;
+                    a &= a - 1u;
+                    ordr[count + r] = first_el + u * E + (bpos >> 3);
+                    kept |= 1u << bpos;
+                    ++r;
+                }
+                DS(u) |= kept;
             }
         }
         count += m_eff;
         drains += max(m_eff - 1, 0);
     }
+#undef DV
+#undef DA
+#undef DS
+#undef DT
 
-    __syncwarp();                             // order[] written by all lanes
+    if (W > 1) __syncthreads(); else __syncwarp();   // order[] written
     uint32_t* vr = vals + (size_t)row * stop;
-    for (int t = lane; t < stop; t += 32) vr[t] = xr[ordr[t]];
-    if (lane == 0) {
+    for (int j = t; j < stop; j += T) vr[j] = xr[ordr[j]];
+    if (t == 0) {
         crs_out[row] = crs;
         cyc_out[row] = crs + drains;
     }
@@ -661,6 +865,65 @@ int launch(const uint32_t* x, uint32_t* vals, int32_t* order, int32_t* crs,
     colskip_sort_kernel<WPL><<<b, 32, smem, stream>>>(x, vals, order, crs, cyc,
                                                       n, w, k, stop);
     return (int)cudaGetLastError();
+}
+
+template <int C, bool kRegTab, int W>
+int launch_dense_at(const uint32_t* x, uint32_t* vals, int32_t* order,
+                    int32_t* crs, int32_t* cyc, int b, int n, int w, int k,
+                    int stop, cudaStream_t stream) {
+    const int kk = k > 0 ? k : 1;
+    constexpr int T = 32 * W;
+    size_t smem = W > 1 ? 4 * W * sizeof(uint32_t) : 0;   // exchange words
+    if (C == 0) {
+        // values and (2 + kk) flag bytes an element, in shared memory
+        const int c = (n + T - 1) / T;
+        smem += (size_t)c * T * (4 + 2 + kk);
+        static std::atomic<bool> done[kMaxDevices];
+        int dev = 0, optin = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(
+                &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (err == cudaSuccess)
+            err = allow_smem(colskip_dense_kernel<C, kRegTab, W>, optin, done);
+        if (err != cudaSuccess) return (int)err;
+    } else if (!kRegTab) {
+        smem += (size_t)kk * C * T;        // table flag bytes
+    }
+    colskip_dense_kernel<C, kRegTab, W><<<b, T, smem, stream>>>(
+        x, vals, order, crs, cyc, n, w, k, stop);
+    return (int)cudaGetLastError();
+}
+
+// The dense register instance for the row: the smallest C (4, 8, ... up
+// to kDenseMaxC) that holds per = ceil(n / (32 * kDenseWarps)) elements
+template <int C, bool kRegTab>
+int launch_dense_reg(int per, const uint32_t* x, uint32_t* vals,
+                     int32_t* order, int32_t* crs, int32_t* cyc, int b, int n,
+                     int w, int k, int stop, cudaStream_t stream) {
+    if constexpr (C < kDenseMaxC) {
+        if (per > C)
+            return launch_dense_reg<2 * C, kRegTab>(
+                per, x, vals, order, crs, cyc, b, n, w, k, stop, stream);
+    }
+    return launch_dense_at<C, kRegTab, kDenseWarps>(
+        x, vals, order, crs, cyc, b, n, w, k, stop, stream);
+}
+
+// The dense instance for the row: registers up to kDenseRegN (the table
+// too at k <= kRegTable), the rolled one-warp instance past that
+int launch_dense(const uint32_t* x, uint32_t* vals, int32_t* order,
+                 int32_t* crs, int32_t* cyc, int b, int n, int w, int k,
+                 int stop, cudaStream_t stream) {
+    const int per = (n + 32 * kDenseWarps - 1) / (32 * kDenseWarps);
+    if (n > kDenseRegN)
+        return launch_dense_at<0, false, 1>(x, vals, order, crs, cyc, b, n,
+                                            w, k, stop, stream);
+    if (k > kRegTable)
+        return launch_dense_reg<4, false>(per, x, vals, order, crs, cyc, b,
+                                          n, w, k, stop, stream);
+    return launch_dense_reg<4, true>(per, x, vals, order, crs, cyc, b, n, w,
+                                     k, stop, stream);
 }
 
 // One warp, `rounds` dependent __any_sync votes: each predicate depends on
@@ -744,25 +1007,9 @@ int colskip_sort_launch(const void* x, void* vals, void* order, void* crs,
     auto cs = static_cast<int32_t*>(crs);
     auto ys = static_cast<int32_t*>(cyc);
     auto st = static_cast<cudaStream_t>(stream);
-    if (!packed) {
-        const int kk = k > 0 ? k : 1;
-        const size_t slots = (size_t)((n + 31) / 32) * 32;
-        const size_t smem = slots * (4 + 2 + kk);
-        static std::atomic<bool> done[kMaxDevices];
-        int dev = 0, optin = 0;
-        cudaError_t err = cudaGetDevice(&dev);
-        if (err == cudaSuccess)
-            err = cudaDeviceGetAttribute(
-                &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-        if (err == cudaSuccess)
-            err = allow_smem(colskip_dense_kernel, optin, done);
-        if (err != cudaSuccess) return (int)err;
-        colskip_dense_kernel<<<b, 32, smem, st>>>(xs, vs, os, cs, ys, n, w, k,
-                                                  stop);
-        return (int)cudaGetLastError();
-    }
-    const int wpl = ((n + 31) / 32 + 31) / 32;
 #define COLSKIP_ARGS xs, vs, os, cs, ys, b, n, w, k, stop, st
+    if (!packed) return launch_dense(COLSKIP_ARGS);
+    const int wpl = ((n + 31) / 32 + 31) / 32;
     if (wpl <= 1) return launch<1>(COLSKIP_ARGS);
     if (wpl <= 2) return launch<2>(COLSKIP_ARGS);
     if (wpl <= 4) return launch<4>(COLSKIP_ARGS);

@@ -12,8 +12,11 @@ the global top-k lies in the union of the bank top-ks).
 Two kernel entries: :func:`threshold_f32` takes float32 values and maps
 them to the sortable domain inside the kernel (the reference's
 ``threshold_pallas``); :func:`threshold_sortable` takes sortable uint32
-words (the serving radix backend's tiles).  ``launches`` counts the CUDA
-launches of either since import or the last :func:`reset_launches`.
+words (the serving radix backend's tiles), of any width: rows wider than
+the kernel's shared memory (:func:`smem_n` words) take its streamed
+instance.  ``launches`` counts the CUDA launches of either since import
+or the last :func:`reset_launches`; :func:`empty_launch` (an empty kernel
+launched as one tile, the card's launch floor) is not counted.
 """
 
 from __future__ import annotations
@@ -37,9 +40,12 @@ __all__ = [
     "MAX_N",
     "compact_sortable",
     "compact_topk",
+    "digit_bits",
+    "empty_launch",
     "radix_topk",
     "radix_topk_threshold",
     "reset_launches",
+    "smem_n",
     "threshold_f32",
     "threshold_sortable",
     "topk_mask_from_threshold",
@@ -61,7 +67,38 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.radix_threshold_launch.argtypes = [vp, vp, vp, i, i, i, i, vp]
         lib.radix_threshold_launch.restype = i
+        lib.radix_empty_launch.argtypes = [vp]
+        lib.radix_empty_launch.restype = i
+        for fn in (lib.radix_digit_bits, lib.radix_smem_n):
+            fn.argtypes = []
+            fn.restype = i
     return lib
+
+
+def digit_bits() -> int:
+    """Planes the CUDA kernel's digit descent resolves a pass."""
+    return _lib().radix_digit_bits()
+
+
+def smem_n() -> int:
+    """Widest row the CUDA kernel holds in shared memory; wider rows (the
+    sortable entry only) stream from device memory on every pass."""
+    return _lib().radix_smem_n()
+
+
+def empty_launch(device="cuda") -> None:
+    """Launch an empty kernel shaped as one tile of the threshold kernel
+    (no CPU version: it measures the card).  Time it to read the card's
+    launch floor."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("empty_launch measures the card; it has no CPU "
+                         "version")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().radix_empty_launch(stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
 def _launch(x: torch.Tensor, k: int, float_in: bool):

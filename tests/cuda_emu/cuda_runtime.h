@@ -1,10 +1,11 @@
 // CPU emulation of the CUDA subset that the port's kernels use, for the
 // CPU tests (tests/_cuda_emu.py): the CUDA threads of a cluster are fibers
 // on the launching thread, and each runs until it waits at a barrier;
-// warp collectives (ballot, any, reduce, shuffles) and __syncwarp meet at
+// warp collectives (ballot, any, all, reduce, shuffles) and __syncwarp meet at
 // a barrier of the warp's threads, __syncthreads at one of the block's,
 // and cluster.sync at one of the cluster's; the blocks of a cluster run
-// together, clusters one after another.  It checks a kernel's logic and
+// together, clusters one after another.  A fiber runs until it waits, so
+// a shared-memory atomic is a plain update.  It checks a kernel's logic and
 // its barrier pairing (a mismatched barrier aborts with a message), not
 // its speed, and knows nothing of memory ordering or bank conflicts.
 #pragma once
@@ -144,12 +145,21 @@ inline unsigned __ballot_sync(unsigned mask, int p) {
     return r;
 }
 inline int __any_sync(unsigned mask, int p) { return __ballot_sync(mask, p) != 0; }
+inline int __all_sync(unsigned mask, int p) { return __ballot_sync(mask, p) == mask; }
 inline unsigned __reduce_or_sync(unsigned mask, unsigned v) {
     emu::check_mask(mask);
     uint64_t all[32];
     const int n = emu::exchange(v, all, 1);
     unsigned r = 0;
     for (int i = 0; i < n; ++i) r |= (unsigned)all[i];
+    return r;
+}
+inline unsigned __reduce_and_sync(unsigned mask, unsigned v) {
+    emu::check_mask(mask);
+    uint64_t all[32];
+    const int n = emu::exchange(v, all, 1);
+    unsigned r = 0xFFFFFFFFu;
+    for (int i = 0; i < n; ++i) r &= (unsigned)all[i];
     return r;
 }
 inline int __reduce_add_sync(unsigned mask, int v) {
@@ -170,9 +180,20 @@ template <class T> T __shfl_up_sync(unsigned mask, T v, int d) {
     const int src = emu::lane() - d;
     return emu::shuffle(mask, v, src < 0 ? emu::lane() : src);
 }
+template <class T> T __shfl_down_sync(unsigned mask, T v, int d) {
+    const int src = emu::lane() + d;
+    return emu::shuffle(mask, v, src > 31 ? emu::lane() : src);
+}
 inline void __syncwarp(unsigned = 0xFFFFFFFFu) { emu::warp()->bar->arrive_and_wait(); }
 inline void __syncthreads() { emu::block->bar->arrive_and_wait(); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }
+// the fibers of a launch run one at a time, so an atomic is a plain update
+template <class T> T atomicAdd(T* p, T v) {
+    const T old = *p;
+    *p = old + v;
+    return old;
+}
 inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
 inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
 inline unsigned max(unsigned a, unsigned b) { return a > b ? a : b; }

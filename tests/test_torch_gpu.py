@@ -89,6 +89,21 @@ def test_radix_kernel_equals_plain(cuda, b, n, k):
     assert torch.equal(v1.cpu(), v2) and torch.equal(i1.cpu(), i2)
 
 
+@pytest.mark.parametrize("b,n,k", [(1, 65536, 50), (3, 20000, 20000),
+                                   (9, 16385, 1)])
+def test_radix_kernel_streams_wide_sortable_rows(cuda, b, n, k):
+    # rows past the kernel's shared memory re-read device memory each pass
+    from repro_torch.kernels.radix_topk import ops, ref
+    assert n > ops.smem_n()
+    rng = np.random.default_rng(b + n)
+    u = rng.integers(0, 1 << 32, (b, n), dtype=np.uint64).astype(np.uint32)
+    u[-1] = 5                                  # a constant row
+    got = ops.threshold_sortable(torch.from_numpy(u).to(cuda), k)
+    want = ref.threshold_ref(torch.from_numpy(u), k)
+    for g, v in zip(got, want):
+        assert torch.equal(_words(g), _words(v))
+
+
 def test_engine_on_cuda_reproduces_golden(cuda):
     from repro_torch.kernels.colskip import ops as colskip_ops
     from repro_torch.kernels.radix_topk import ops as radix_ops
@@ -150,6 +165,10 @@ def test_bitonic_kernel_refuses_a_width_not_a_power_of_two(cuda):
     (8, 64, 32, 2, None), (3, 100, 16, 0, None), (5, 256, 32, 4, 17),
     (8, 2048, 32, 2, 16), (2, 4096, 32, 2, 64), (1, 33, 8, 8, None),
     (4, 1024, 32, 2, None), (3, 17, 16, 1, 7),
+    # every register instance (C = 4, 8, 16 elements a thread) with the
+    # table in registers (k <= 2) and in shared memory, the rolled one
+    (3, 500, 32, 8, None), (2, 1000, 32, 8, 16), (5, 2000, 32, 1, None),
+    (2, 1900, 32, 8, 1), (3, 2100, 32, 0, None), (2, 6000, 32, 8, 16),
 ])
 def test_dense_kernel_equals_packed_kernel_and_plain(cuda, b, n, w, k, stop):
     from repro_torch.kernels.colskip import ops, ref

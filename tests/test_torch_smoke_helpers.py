@@ -1,8 +1,9 @@
 """The CPU-side helpers of ``chip_smoke.py`` that gate and price a chip run.
 
-  * ``register_path_spills`` reads the spill bytes of the packed colskip
-    kernel's register-path instances (WPL 1 and 2) from an ``-Xptxas -v``
-    report and ignores every other kernel, so a spill there fails the run;
+  * ``register_path_spills`` reads the spill bytes of the colskip
+    kernels' register instances (packed: WPL 1 and 2; dense: C = 4 .. 64
+    elements a thread) from an ``-Xptxas -v`` report and ignores every
+    other kernel and instance, so a spill there fails the run;
   * ``_searches`` counts the min searches a full sort of each row makes
     (its distinct values), the factor of the restated colskip bound;
   * the build keeps each library's ``-Xptxas -v`` report beside it, so a
@@ -49,6 +50,20 @@ def test_register_path_spills_reads_only_the_register_instances(
         assert got == {}
     else:
         assert got == {name: (12, 8) if spilled else (0, 0)}
+
+
+@pytest.mark.parametrize("c,reg_table,spilled", [
+    (64, 1, False), (4, 0, True), (32, 1, True), (0, 0, None)])
+def test_register_path_spills_reads_the_dense_register_instances(
+        smoke, c, reg_table, spilled):
+    name = (f"_ZN12_GLOBAL__N_120colskip_dense_kernelILi{c}ELb{reg_table}"
+            "ELi1EEEvPKjPjPiS4_S4_iiii")
+    got = smoke.register_path_spills(_entry(name, 4 if spilled else 0,
+                                            4 if spilled else 0))
+    if spilled is None:                        # the rolled instance
+        assert got == {}
+    else:
+        assert got == {name: (4, 4) if spilled else (0, 0)}
 
 
 def test_searches_count_distinct_values_per_row(smoke):
