@@ -33,19 +33,35 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      (exact) at the reference's test shapes, at N in {1, 2, 8}, at every
      cluster size (N = 2^11 .. 2^15), past one cluster (2^16, 2^20: the
      global-memory split) and at ragged B;
+     Then hold the mesh kernels of both carriers (``colskip_mesh.cu``: a
+     thread-block cluster of D CTAs a row, each a bank of the §IV
+     manager) against the local packed kernel (exact) for D in {2, 4, 8}
+     up to N = D x 2048 (and shards on the shared-memory instances), fuse
+     in {1, 2, 4}, k in {0, 2, 8}, stop_after in {1, 16, N}, against the
+     plain mesh on the host at widths up to 256 and against the numpy
+     hardware model; the round count per row must stay within the
+     reference's static account;
   5. the main path: serve the default ``--smoke`` workload (200 requests,
      lengths 64-4096, seed 0, sim_width_cap 2048) through
      ``repro_torch.launch.sortserve`` on ``cuda``, every response checked
      against the numpy oracle, with both serving kernels' launch counts
-     reset just before and read just after: each must be above 0;
-  6. the benchmark path: run the port's eight benchmark suites
+     reset just before and read just after: each must be above 0.  Then
+     the same workload with ``--mesh --fuse 2`` and with ``--mesh --dense
+     --fuse 2`` (the carrier's mesh kernel's launch count must be above 0;
+     the local fallback's, the ``collectives`` section and the kernel's
+     own rounds beside the static account are printed), the double buffer
+     on the card (six tiles at once: 4 copies staged on the side stream, 4
+     hits), and a ``--replicas 2 --rolling-restart --warm-state`` fleet (0
+     sheds, 2 restarts), run twice so the second run reloads the artifact
+     the first wrote;
+  6. the benchmark path: run the port's ten benchmark suites
      (``repro_torch.benchmarks.run --out``) on ``cuda`` with every launch
      count reset just before and read just after: no suite may fail, no
      correctness predicate may MISS (sorted output, threshold and index
-     equality, CR parity), and every kernel must have launched; a MISS of
-     a performance or paper band is printed as a finding; the rows of the
-     redesigned dense colskip and radix kernels are printed beside their
-     times before that redesign;
+     equality, CR parity, ``distserve``'s ``cycle_parity=ok``), and every
+     kernel must have launched; a MISS of a performance or paper band is
+     printed as a finding; the rows of the redesigned dense colskip and
+     radix kernels are printed beside their times before that redesign;
   7. time each kernel with CUDA events at a path shape beside its plain
      version, the library yardstick where one exists and its bound, and
      print them as one JSON line (``{"kernels": [...]}``) of this run's
@@ -59,6 +75,10 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      row's min searches (one per distinct value) times one dependent warp
      round, the cheaper of the ``vote_chain`` and ``redux_chain`` probes,
      with the older chain (CRs + drains rounds) as ``unfused_chain_ms``;
+     each carrier's mesh kernel at (8, 2048) uniform for D in {2, 4, 8} x
+     fuse in {1, 2, 4} beside its local kernel on the same tile, bound by
+     the slowest row's min searches times one dependent cross-bank round
+     (the ``mesh_chain`` probe at that D);
   8. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Exact integer outputs: every tolerance is equality (``max_abs_err`` 0).
@@ -83,6 +103,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # dependent warp rounds timed to price one step of a colskip row's chain
 VOTE_ROUNDS = 1 << 20
+# dependent cross-bank rounds timed to price one step of a mesh row's chain
+MESH_ROUNDS = 1 << 16
 # each kernel row's time (ms) before the dense colskip carrier and the
 # radix kernel were redesigned, printed on its own line beside this run's
 # and kept out of the kernels line: one H100 80GB HBM3 at 700 W (PERF.md)
@@ -394,6 +416,65 @@ def hold_radix(torch, np) -> int:
     return worst
 
 
+def hold_mesh(torch, np) -> dict:
+    """The mesh kernels (both carriers) against the local packed kernel
+    (exact), the plain mesh of their carrier on the host (widths up to 256:
+    on the card the plain machine is launch-bound) and the numpy hardware
+    model; each row's exchange rounds within the reference's static
+    account.  Returns the worst error per carrier."""
+    from repro_torch.core.colskip import colskip_sort
+    from repro_torch.dist.bankmesh import collective_rounds
+    from repro_torch.kernels.colskip import ops, ref
+    dev = torch.device("cuda")
+    worst = {"colskip_mesh": 0, "colskip_mesh_dense": 0}
+    cases = []
+    for banks in (2, 4, 8):
+        for fuse in (1, 2, 4):
+            cases += [(banks, fuse, 8, banks * 32, 2, None, "mapreduce"),
+                      (banks, fuse, 8, banks * 2048, 2, None, "uniform"),
+                      (banks, fuse, 3, banks * 2048, 8, 16, "normal"),
+                      (banks, fuse, 5, banks * 512, 0, 1, "kruskal")]
+        cases += [(banks, 2, 8, 256, k, stop, data)
+                  for k, stop, data in ((0, None, "clustered"),
+                                        (8, 16, "uniform"),
+                                        (2, 1, "mapreduce"))]
+        cases.append((banks, 4, 2, banks * 4096, 2, 16, "uniform"))  # smem
+    cases = [(packed,) + c for c in cases for packed in (True, False)]
+    for packed, banks, fuse, b, n, k, stop, data in cases:
+        x = _rows(data, b, n, 17 * banks + fuse + k)
+        xt = torch.from_numpy(x).to(dev)
+        got = ops.colskip_sort_mesh_batched(xt, banks, 32, k, stop_after=stop,
+                                            packed=packed, fuse=fuse,
+                                            return_rounds=True)
+        local = ops.colskip_sort_batched(xt, 32, k, stop_after=stop)
+        torch.cuda.synchronize()
+        name = "colskip_mesh" if packed else "colskip_mesh_dense"
+        what = (f"{'packed' if packed else 'dense'} D={banks} fuse={fuse} "
+                f"({b}, {n}) k={k} stop={stop} {data}")
+        worst[name] = max(worst[name], _hold(
+            f"mesh kernel != local kernel at {what}", got[:4], local))
+        s = n if stop is None else min(stop, n)
+        rounds, acct = int(got[4].max()), collective_rounds(32, s, fuse)
+        if not 0 < rounds <= acct["rounds"]:
+            _fail(f"mesh kernel made {rounds} rounds at {what}, static "
+                  f"account {acct['rounds']}")
+        if n <= 256:
+            worst[name] = max(worst[name], _hold(
+                f"mesh kernel != plain mesh at {what}", got[:4],
+                ref.sort_mesh_ref(torch.from_numpy(x), banks, 32, k, s,
+                                  packed=packed, fuse=fuse)))
+        if data == "uniform" and stop is None:
+            out = [t.cpu() for t in got[:4]]
+            _hold_model(np, colskip_sort, x[0], 32, k, None, 0, out,
+                        f"mesh kernel at {what}")
+    print(f"colskip mesh kernels (packed, dense) == local packed kernel (and "
+          f"plain mesh at N <= 256, numpy model on uniform rows): "
+          f"{len(cases)} cases, D in {{2, 4, 8}}, fuse in {{1, 2, 4}}, k in "
+          "{0, 2, 8}, stop_after in {1, 16, N}, N up to D x 4096; rounds "
+          "within the static account")
+    return worst
+
+
 def serve(torch) -> dict:
     from repro_torch.kernels.colskip import ops as colskip_ops
     from repro_torch.kernels.radix_topk import ops as radix_ops
@@ -430,10 +511,140 @@ def serve(torch) -> dict:
     return launches
 
 
+def serve_mesh(torch, dense: bool = False) -> dict:
+    """The smoke workload through ``--mesh --fuse 2`` (``--dense``: on the
+    dense carrier): the mesh kernel's launches (and the local fallback's),
+    the collectives section and the kernel's own rounds beside the static
+    account."""
+    from repro_torch.kernels.colskip import ops as colskip_ops
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    from repro_torch.launch import sortserve
+    from repro_torch.sortserve.backends import ShardedColskipBackend
+    out = ROOT / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    label = "dense mesh" if dense else "mesh"
+    telem_path = out / f"{label.replace(' ', '_')}_telemetry.json"
+    colskip_ops.reset_launches()
+    radix_ops.reset_launches()
+    t0 = time.perf_counter()
+    rc = sortserve.main(["--smoke", "--device", "cuda", "--mesh", "--fuse",
+                         "2", "--requests", "200", "--min_len", "64",
+                         "--max_len", "4096", "--seed", "0",
+                         "--sim_width_cap", "2048", "--json", str(telem_path)]
+                        + (["--dense"] if dense else []))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernel = "colskip_mesh_dense" if dense else "colskip_mesh"
+    launches = {kernel: (colskip_ops.launches_mesh_dense if dense
+                         else colskip_ops.launches_mesh),
+                "one-bank fallback": (colskip_ops.launches_dense if dense
+                                      else colskip_ops.launches),
+                "radix_threshold": radix_ops.launches}
+    rounds = {"kernel": ShardedColskipBackend.kernel_rounds,
+              "static": ShardedColskipBackend.static_rounds}
+    if rc != 0:
+        _fail(f"sortserve --mesh smoke ({label}) returned {rc}")
+    telem = json.loads(telem_path.read_text())
+    print(f"{label} smoke took {wall:.3f} s wall for {telem['requests']} "
+          "requests on cuda")
+    print(f"{label} smoke tiles and wall seconds per backend: " + json.dumps(
+        {k: {"tiles": v["tiles"], "wall_s": v["wall_s"]}
+         for k, v in sorted(telem["per_backend"].items())}))
+    print(f"kernel launches in the {label} smoke: {json.dumps(launches)}")
+    print(f"{label} smoke collectives (the reference's static account): "
+          f"{json.dumps(telem['collectives'])}")
+    print(f"{label} kernel's own exchange rounds (slowest row of each tile, "
+          f"summed): {rounds['kernel']} of a static account of "
+          f"{rounds['static']}")
+    if launches[kernel] <= 0 or launches["radix_threshold"] <= 0:
+        _fail(f"the {label} smoke launched {launches}")
+    if dense:
+        return launches
+    # the double buffer on the card: six whole-pool tiles arrive at vt 0,
+    # so each admit after the first stages its successor's copy on the
+    # side stream and the successor runs on it (the reference's check)
+    import numpy as np
+    from repro_torch.sortserve import EngineConfig, SortServeEngine
+    from repro_torch.sortserve.batcher import Tile
+    eng = SortServeEngine(EngineConfig(
+        backends=("colskip_mesh",), mesh=True, mesh_hosts=2, fuse=2,
+        tile_rows=4, min_bucket=8, banks=4, bank_width=64, bank_rows=4,
+        sim_width_cap=4096, cache_size=0, device="cuda"))
+    rng = np.random.default_rng(5)
+    tiles = [Tile(op="sort", data=rng.integers(0, 1 << 32, (4, 256),
+                                               dtype=np.uint64)
+                  .astype(np.uint32), k=None, entries=[], pad_rows=4)
+             for _ in range(6)]
+    results = {}
+    eng.scheduler.feed(tiles, eng._execute, at=0.0,
+                       sink=lambda tile, res, exc: results.update(
+                           {id(tile): (res, exc)}))
+    eng.scheduler.pump()
+    coll = eng.telemetry()["collectives"]
+    print(f"double buffer on the card (6 tiles at vt 0): staged "
+          f"{coll['prefetch_staged']}, hits {coll['prefetch_hits']}")
+    for tile in tiles:
+        res, exc = results[id(tile)]
+        if exc is not None or not np.array_equal(
+                res.values, np.sort(tile.data, -1)):
+            _fail(f"a prefetched mesh tile came back wrong: {exc}")
+    if (coll["prefetch_staged"], coll["prefetch_hits"]) != (4, 4):
+        _fail(f"double buffer staged/hit {coll}")
+    if not 0 < rounds["kernel"] <= rounds["static"] == \
+            telem["collectives"]["rounds"]:
+        _fail(f"mesh kernel rounds {rounds} against the collectives section "
+              f"{telem['collectives']}")
+    return launches
+
+
+def serve_fleet(torch) -> None:
+    """Two replicas with a rolling restart and a warm-state artifact: the
+    first run writes the artifact, the second reloads it."""
+    from repro_torch.kernels.colskip import ops as colskip_ops
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    from repro_torch.launch import sortserve
+    from repro_torch.sortserve import load_warm_state
+    out = ROOT / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    warm = out / "fleet_warm_state.json"
+    warm.unlink(missing_ok=True)
+    for run, requests in (("first", "200"), ("second", "80")):
+        telem_path = out / f"fleet_{run}.json"
+        colskip_ops.reset_launches()
+        radix_ops.reset_launches()
+        t0 = time.perf_counter()
+        rc = sortserve.main(["--smoke", "--device", "cuda", "--replicas", "2",
+                             "--rolling-restart", "--warm-state", str(warm),
+                             "--requests", requests, "--min_len", "64",
+                             "--max_len", "4096", "--seed", "0",
+                             "--sim_width_cap", "2048",
+                             "--json", str(telem_path)])
+        torch.cuda.synchronize()
+        fleet = json.loads(telem_path.read_text())
+        launches = {"colskip": colskip_ops.launches,
+                    "radix_threshold": radix_ops.launches}
+        print(f"fleet smoke ({run} run, {requests} requests): "
+              f"{time.perf_counter() - t0:.3f} s wall, shed={fleet['shed']} "
+              f"restarts={fleet['restarts']} failed={fleet['failed']}, "
+              f"kernel launches {json.dumps(launches)}")
+        if rc != 0 or fleet["shed"] or fleet["restarts"] != 2 \
+                or fleet["failed"]:
+            _fail(f"fleet smoke ({run} run) returned {rc}: {fleet}")
+        if min(launches.values()) <= 0:
+            _fail(f"the fleet smoke launched {launches}")
+        art = load_warm_state(str(warm))
+        print(f"warm-state artifact after the {run} run: "
+              f"{len(art['priors'])} priors, "
+              f"{sum(len(m) for m in art['menus'].values())} signatures, "
+              f"{len(art['calibration'])} calibration rows")
+
+
 # Rows whose PASS is a correctness predicate of the output (sorted values,
 # threshold or index equality, carrier parity); every other PASS/MISS is a
 # performance or paper band.
-CORRECTNESS_ROWS = ("kernel/", "serving/")
+CORRECTNESS_ROWS = ("kernel/", "serving/", "streaming/session_",
+                    "streaming/degraded_", "streaming/fleet_steady",
+                    "streaming/fleet_rolling")
 
 
 def bench(torch) -> dict:
@@ -452,6 +663,7 @@ def bench(torch) -> dict:
     wall = time.perf_counter() - t0
     launches = {"colskip": colskip_ops.launches,
                 "colskip_dense": colskip_ops.launches_dense,
+                "colskip_mesh": colskip_ops.launches_mesh,
                 "radix_threshold": radix_ops.launches,
                 "bitonic": bitonic_ops.launches}
     doc = json.loads(out.read_text())
@@ -461,12 +673,23 @@ def bench(torch) -> dict:
     print(f"kernel launches in the benchmark run: {json.dumps(launches)}")
     if rc != 0 or doc["errors"]:
         _fail(f"benchmark suites failed: {doc['errors']}")
+    suites = {r["name"].split("/")[0].split("_")[0] for r in doc["rows"]}
+    if len(bench_run.SUITES) != 10 or "distserve" not in suites:
+        _fail(f"expected the ten suites, got {bench_run.SUITES}")
     for row in doc["rows"]:
         if row["name"] in BEFORE_ROWS_US:
             print(f"{row['name']}: {row['us_per_call']:.1f} us (before: "
                   f"{BEFORE_ROWS_US[row['name']]} us) {row['derived']}")
         if row["name"] == "packed/colskip_sim_1024/speedup":
             print(f"packed_speedup band (>= 1.5): {row['derived']}")
+        if row["name"].startswith(("distserve_", "streaming/session_",
+                                   "streaming/fleet_")):
+            print(f"{row['name']}: {row['us_per_call']:.1f} us "
+                  f"{row['derived']}")
+        if row["name"].startswith("distserve_") and \
+                not row["derived"].endswith("cycle_parity=ok"):
+            _fail(f"distserve cycle parity broken: {row['name']} "
+                  f"{row['derived']}")
         if "MISS" not in row["derived"]:
             continue
         broken = (row["name"].startswith(CORRECTNESS_ROWS)
@@ -481,6 +704,62 @@ def bench(torch) -> dict:
             _fail(f"the benchmark run launched the {name} kernel {count} "
                   "times")
     return launches
+
+
+def measure_mesh(torch, np, mesh_launches: int, err: int,
+                 packed: bool = True) -> dict:
+    """The carrier's mesh kernel row: (8, 2048) uniform at D in {2, 4, 8} x
+    fuse in {1, 2, 4} beside the carrier's local kernel on the same tile;
+    the row's own numbers at D = 4, fuse = 2 (the ``--mesh --fuse 2``
+    smoke's)."""
+    from repro_torch.dist.bankmesh import collective_rounds
+    from repro_torch.kernels.colskip import ops, ref
+    dev = torch.device("cuda")
+    b, n, w, k = 8, 2048, 32, 2
+    x = torch.from_numpy(_rows("uniform", b, n, 5)).to(dev)
+    searches = max(_searches(x))
+    name = "colskip_mesh" if packed else "colskip_mesh_dense"
+    local_ms = _time_ms(lambda: ops.colskip_sort_batched(
+        x, w, k, packed=packed), 10)
+    table = []
+    for banks in (2, 4, 8):
+        ops.mesh_chain(1000, banks)
+        chain_ms = _time_ms(lambda: ops.mesh_chain(MESH_ROUNDS, banks), 3)
+        round_ns = chain_ms * 1e6 / MESH_ROUNDS
+        for fuse in (1, 2, 4):
+            out = ops.colskip_sort_mesh_batched(x, banks, w, k, fuse=fuse,
+                                                packed=packed,
+                                                return_rounds=True)
+            ms = _time_ms(lambda: ops.colskip_sort_mesh_batched(
+                x, banks, w, k, fuse=fuse, packed=packed), 5)
+            rounds = int(out[4].max())
+            table.append({"banks": banks, "fuse": fuse, "ms": ms,
+                          "rounds_max_row": rounds,
+                          "static_rounds": collective_rounds(w, n, fuse)[
+                              "rounds"],
+                          "round_ns": round_ns,
+                          "bound_ms": searches * round_ns * 1e-6,
+                          "chain_ms": rounds * round_ns * 1e-6})
+            print(f"{name} D={banks} fuse={fuse}: {ms:.4f} ms at "
+                  f"({b}, {n}) uniform (the carrier's local kernel "
+                  f"{local_ms:.4f} ms); {rounds} exchange rounds on the "
+                  f"slowest row "
+                  f"(static account {table[-1]['static_rounds']}); one "
+                  f"cross-bank round {round_ns:.1f} ns")
+    main = next(r for r in table if r["banks"] == 4 and r["fuse"] == 2)
+    plain_ms = _host_ms(lambda: ref.sort_mesh_ref(x.cpu(), 4, w, k, fuse=2,
+                                                  packed=packed))
+    return _row(name,
+                "src/repro_torch/kernels/colskip/csrc/colskip_mesh.cu",
+                "src/repro/dist/bankmesh.py:126 (not a Pallas kernel)",
+                mesh_launches, err, main["ms"], plain_ms,
+                b * n * 4 + b * n * 8 + b * 12, main["bound_ms"], None,
+                shape=f"({b}, {n}) uint32 w={w} k={k} uniform, D=4 banks, "
+                      "fuse=2", plain_device="cpu", local_kernel_ms=local_ms,
+                searches_max_row=searches, round_ns=main["round_ns"],
+                rounds_max_row=main["rounds_max_row"],
+                static_rounds=main["static_rounds"],
+                rounds_chain_ms=main["chain_ms"], table=table)
 
 
 def measure(torch, np, launches: dict, bench_launches: dict,
@@ -686,6 +965,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     for name, log in sorted(logs.items()):
         print(f"--- nvcc -Xptxas -v: {name}\n{log.strip()}")
+    mesh_spills = [line.strip() for line in
+                   logs.get("colskip_mesh", "").splitlines()
+                   if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+    print(f"colskip_mesh instances that spill: {mesh_spills or 'none'}")
     spills = register_path_spills(logs.get("colskip", ""))
     print(f"colskip register-path spills (stores, loads): "
           f"{json.dumps(spills)}")
@@ -700,9 +983,18 @@ def main() -> int:
             "radix_threshold": hold_radix(torch, np),
             "bitonic": hold_bitonic(torch, np)}
     print(f"phases 3-4 (holds) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs.update(hold_mesh(torch, np))
+    print(f"phase 4 (mesh holds) took {time.perf_counter() - t0:.1f} s")
 
-    # 5. the main path: the sortserve smoke on the card
+    # 5. the main path: the sortserve smoke on the card, then through the
+    # mesh bank pool, then a two-replica fleet
     launches = serve(torch)
+    t0 = time.perf_counter()
+    mesh_launches = {**serve_mesh(torch), **serve_mesh(torch, dense=True)}
+    serve_fleet(torch)
+    print(f"phase 5 (mesh and fleet smokes) took "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # 6. the benchmark path: the port's eight suites on the card
     bench_launches = bench(torch)
@@ -710,12 +1002,18 @@ def main() -> int:
     # 7. timings at the paths' shapes
     t0 = time.perf_counter()
     rows = measure(torch, np, launches, bench_launches, errs)
+    for packed, name in ((True, "colskip_mesh"),
+                         (False, "colskip_mesh_dense")):
+        rows.append(measure_mesh(torch, np, mesh_launches[name], errs[name],
+                                 packed))
     print(f"phase 7 (timings) took {time.perf_counter() - t0:.1f} s")
     for r in rows:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
+        before = (f"{BEFORE_MS[r['name']]} ms" if r["name"] in BEFORE_MS
+                  else "none, new kernel")
         print(f"{r['name']}: {r['ms']:.4f} ms/launch at {r['shape']} "
-              f"(before: {BEFORE_MS[r['name']]} ms; plain "
+              f"(before: {before}; plain "
               f"{r['plain_ms']:.3f} ms, library {lib}, bound {r['bound_ms']:.6f} ms by "
               f"{r['bound_by']}), {r['launches']} launches on its path")
         if r["name"] == "radix_threshold":

@@ -1,4 +1,5 @@
-"""Time the dense colskip and radix kernels against another checkout's.
+"""Time the colskip (both carriers) and radix kernels against another
+checkout's.
 
     python3 scripts/kernel_variants.py --parent DIR [--iters 20]
 
@@ -7,7 +8,7 @@ Needs an NVIDIA card and nvcc (the port's build flags, ``sm_90a``).
 archive`` of an earlier commit.  Its ``colskip.cu`` and
 ``radix_threshold.cu`` are built as they are (both nvcc processes started
 together) into ``build/kernel_variants/`` and held against the package's
-own kernels (``colskip_sort_batched(packed=False)``,
+own kernels (``colskip_sort_batched`` on both carriers,
 ``threshold_sortable``, ``threshold_f32``: every output equal).  Each
 pair is timed with CUDA events in the order (package, parent, parent,
 package), so that drift shows as a gap between a build's two readings,
@@ -15,9 +16,9 @@ two ways: back to back (the host's enqueue of each call included) and on
 the device alone (the calls queued behind a busy kernel of some
 milliseconds, so that they run back to back on the card).  Shapes:
 
-  * dense colskip (w=32, k=2, full sort): the (8, 1024) mapreduce tile of
-    the harness's ``packed_bench`` and an (8, 2048) uniform tile, the
-    serving cap;
+  * colskip, dense and packed carriers (w=32, k=2, full sort): the
+    (8, 1024) mapreduce tile of the harness's ``packed_bench`` and an
+    (8, 2048) uniform tile, the serving cap;
   * radix threshold: the (8, 4096) k=32 sortable tile that
     ``chip_smoke.py`` times, the ``kernel_bench`` rows' (64, 128) float32
     k=8 inputs (softmax router probabilities, wide logits), the bank
@@ -27,9 +28,9 @@ milliseconds, so that they run back to back on the card).  Shapes:
     default smoke serves (recorded as ``scripts/radix_profile.py`` records
     them), one call launching all of them, so its time is their sum.
 
-The packed kernel's times on the dense shapes and the card's launch floor
-(an empty kernel launched as one radix tile) are printed beside them.  It
-prints one line per shape and the card's name and power limit.
+The card's launch floor (an empty kernel launched as one radix tile) is
+printed beside them.  It prints one line per shape and the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -66,7 +67,8 @@ def build_parent(parent: Path) -> dict:
         path = next(parent.glob(f"src/repro_torch/**/csrc/{src}.cu"))
         so = OUT / f"lib{src}_parent.so"
         procs[src] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(path)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(path.parent),
+             "-o", str(so), str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for src, (so, proc) in procs.items():
@@ -82,17 +84,17 @@ def build_parent(parent: Path) -> dict:
     return libs
 
 
-def run_dense(lib, x, w, k):
+def run_colskip(lib, x, w, k, packed):
     b, n = x.shape
     outs = (torch.empty((b, n), dtype=torch.uint32, device=x.device),
             torch.empty((b, n), dtype=torch.int32, device=x.device),
             torch.empty((b,), dtype=torch.int32, device=x.device),
             torch.empty((b,), dtype=torch.int32, device=x.device))
     err = lib.colskip_sort_launch(
-        x.data_ptr(), *(o.data_ptr() for o in outs), b, n, w, k, n, 0,
-        torch.cuda.current_stream().cuda_stream)
+        x.data_ptr(), *(o.data_ptr() for o in outs), b, n, w, k, n,
+        int(packed), torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"dense colskip launch failed: CUDA error {err}")
+        raise RuntimeError(f"colskip launch failed: CUDA error {err}")
     return outs
 
 
@@ -196,27 +198,26 @@ def main(argv=None) -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "?"
     print(card)
     parent = build_parent(args.parent)
-    dense = {"package": colskip_ops._lib(), "parent": parent["colskip"]}
+    colskip = {"package": colskip_ops._lib(), "parent": parent["colskip"]}
     radix = {"package": radix_ops._lib(),
              "parent": parent["radix_threshold"]}
     print("ms per call, each build timed twice (in order, then reversed)")
 
-    # dense colskip, full sorts at w=32, k=2
+    # colskip on both carriers, full sorts at w=32, k=2
     for name, b, n, seed in (("mapreduce", 8, 1024, 0),
                              ("uniform", 8, 2048, 5)):
         x = rows(name, b, n, seed)
-        want = colskip_ops.colskip_sort_batched(x, 32, 2, packed=False)
-        if not same(run_dense(parent["colskip"], x, 32, 2), want):
-            raise RuntimeError(f"the parent's dense kernel differs at {name}")
-        # the parent's dense kernel may take milliseconds a tile: fewer
-        # calls keep the busy kernel ahead of the queue
-        compare(f"dense ({b}, {n}) {name} w=32 k=2", dense,
-                lambda lib: run_dense(lib, x, 32, 2),
-                max(2, args.iters // 4))
-        compare(f"packed kernel ({b}, {n}) {name} w=32 k=2",
-                {"packed": None},
-                lambda _: colskip_ops.colskip_sort_batched(x, 32, 2),
-                args.iters)
+        for packed, carrier in ((False, "dense"), (True, "packed")):
+            want = colskip_ops.colskip_sort_batched(x, 32, 2, packed=packed)
+            if not same(run_colskip(parent["colskip"], x, 32, 2, packed),
+                        want):
+                raise RuntimeError(f"the parent's {carrier} kernel differs "
+                                   f"at {name}")
+            # a kernel of milliseconds a tile: fewer calls keep the busy
+            # kernel ahead of the queue
+            compare(f"{carrier} ({b}, {n}) {name} w=32 k=2", colskip,
+                    lambda lib: run_colskip(lib, x, 32, 2, packed),
+                    max(2, args.iters // 4))
 
     # radix threshold
     rng = np.random.default_rng(11)

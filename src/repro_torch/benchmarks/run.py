@@ -24,10 +24,9 @@ import sys
 
 from repro_torch._device import resolve_device
 
-# The reference's suites not ported yet, and what each waits on:
-# streaming_bench on the fleet (ROADMAP Queue 1 item 9), distserve_bench
-# on the mesh (item 10), hw_bench on the XLA flags and the compile cache,
-# which have no counterpart in the port yet.
+# Ten of the reference's eleven suites.  Not ported: hw_bench, which
+# tunes XLA flags and jax's persistent compilation cache, neither of
+# which has a counterpart in the port yet (ROADMAP Queue 1 item 12).
 SUITES = [
     "repro_torch.benchmarks.fig6_speedup",
     "repro_torch.benchmarks.fig7_area_power",
@@ -37,6 +36,8 @@ SUITES = [
     "repro_torch.benchmarks.serving_bench",
     "repro_torch.benchmarks.sortserve_bench",
     "repro_torch.benchmarks.packed_bench",
+    "repro_torch.benchmarks.streaming_bench",
+    "repro_torch.benchmarks.distserve_bench",
 ]
 
 

@@ -64,6 +64,13 @@
 // order[count + rank] = column directly, and the values are gathered from
 // the input after the row finishes.
 //
+// Both carriers' row bodies (packed_row, dense_row) live in
+// colskip_body.cuh, written against a Gate (the §IV manager's combine
+// points), so the mesh kernels of colskip_mesh.cu run the same bodies
+// with the gates between the CTAs of a cluster.  Here, on one bank, the
+// gates are warp reductions (WarpGate) and, for the dense carrier's
+// warps, one shared-memory meeting behind one barrier (BlockGate).
+//
 // Exactness notes (line numbers in the Pallas kernel file): fresh rows
 // start at s_top (:111, :184); `seen` resets on each traversal; a push
 // shifts table entries toward older slots (:144-149); a load takes the
@@ -109,726 +116,165 @@
 #include <atomic>
 #include <type_traits>
 
+#include "colskip_body.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kMaxK = 8;        // deepest state table the kernel holds
 #ifndef COLSKIP_FUSE
 #define COLSKIP_FUSE 2
 #endif
 constexpr int kFuse = COLSKIP_FUSE;     // planes resolved per verdict round
-constexpr int kPlanes = 32;     // bit planes packed per row (w <= 32)
 constexpr int kDenseWarps = 4;     // dense: warps a row, registers
 constexpr int kDenseRegN = 2048;   // dense: widest row held in registers
 // dense: most elements a thread of a register instance holds
 constexpr int kDenseMaxC = kDenseRegN / (32 * kDenseWarps);
 static_assert(kDenseMaxC >= 4 && (kDenseMaxC & (kDenseMaxC - 1)) == 0,
               "register instances of 4, 8, ... elements a thread");
-constexpr int kRegTable = 2;       // dense: table entries held in registers
 constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-        int t = __shfl_up_sync(kFull, v, o);
-        if (lane >= o) v += t;
+// One bank, one warp a row (the packed carrier): every gate is a warp
+// reduction.
+struct WarpGate {
+    static constexpr int bank = 0, banks = 1;
+    __device__ __forceinline__ uint32_t any(uint32_t bits) {
+        return __reduce_or_sync(kFull, bits);
     }
-    return v;
-}
-
-// 1 if any bit of `t` is set, else 0 (one IMNMX, no compare and select)
-__device__ __forceinline__ uint32_t nonzero(uint32_t t) { return min(t, 1u); }
-
-// The F-bit patterns (plane i of a block at bit F - 1 - i) whose bit j is
-// set, as a 2^F-bit mask.
-__host__ __device__ constexpr uint32_t pattern_mask(int f, int j) {
-    uint32_t m = 0u;
-    for (int p = 0; p < (1 << f); ++p)
-        if ((p >> j) & 1) m |= 1u << p;
-    return m;
-}
-
-// OR of bits[p] << p over p < n, as a balanced tree (no serial chain)
-template <int N>
-__device__ __forceinline__ uint32_t pack_bits(uint32_t (&bits)[N]) {
-#pragma unroll
-    for (int p = 0; p < N; ++p) bits[p] <<= p;
-#pragma unroll
-    for (int d = 1; d < N; d <<= 1)
-#pragma unroll
-        for (int p = 0; p + d < N; p += 2 * d) bits[p] |= bits[p + d];
-    return bits[0];
-}
-
-// The verdicts of one block of kFuse planes (plane i of the block is
-// base + F - 1 - i) from the set of F-bit patterns that the block's alive
-// elements show (plane i at bit F - 1 - i of a pattern).  Bit i of the
-// result is set when plane i is active (at or below `start`) and mixed:
-// the patterns still alive show both of its bits; a mixed plane then keeps
-// those with a 0 there.  Both carriers resolve their blocks here, as the
-// reference's carriers share _traverse_planes.
-__device__ __forceinline__ uint32_t resolve_block(uint32_t pats, int base,
-                                                  int start) {
-    uint32_t mixed = 0u;
-#pragma unroll
-    for (int i = 0; i < kFuse; ++i) {
-        const uint32_t has1 = pattern_mask(kFuse, kFuse - 1 - i);
-        const uint32_t ones = pats & has1;
-        const uint32_t zeros = pats & ~has1;
-        const bool on = base + kFuse - 1 - i <= start && ones != 0u &&
-                        zeros != 0u;
-        pats = on ? zeros : pats;
-        mixed |= (uint32_t)on << i;
+    __device__ __forceinline__ void patterns(uint32_t& pats, int& cnt) {
+        cnt = __reduce_add_sync(kFull, cnt);
+        pats = __reduce_or_sync(kFull, pats);
     }
-    return mixed;
-}
+    // a drain whose survivors sit in one lane skips the scan (a ballot
+    // says so)
+    __device__ __forceinline__ int rank(int mine, int& total) {
+        total = __reduce_add_sync(kFull, mine);
+        const uint32_t holders = __ballot_sync(kFull, mine != 0);
+        return (holders & (holders - 1u))
+                   ? warp_inclusive_scan(mine, threadIdx.x & 31) - mine : 0;
+    }
+    __device__ __forceinline__ void done() { __syncwarp(); }
+    __device__ __forceinline__ bool lead() const { return threadIdx.x == 0; }
+};
+
+// One bank of W warps a row (the dense carrier).  Each warp reduces with
+// one REDUX; W > 1 warps then meet once in shared memory (`xch`, two
+// buffers of [2][W] words) behind one barrier.  The buffers alternate
+// (`par`), so one barrier a round suffices: no warp rewrites a buffer
+// before every warp has passed the barrier after its last read.
+template <int W>
+struct BlockGate {
+    static constexpr int bank = 0, banks = 1;
+    static constexpr int kWords = W > 1 ? 4 * W : 0;   // shared words
+    uint32_t* xch;
+    int par = 0;
+    __device__ explicit BlockGate(uint32_t* x) : xch(x) {}
+
+    __device__ __forceinline__ uint32_t any(uint32_t bits) {
+        bits = __reduce_or_sync(kFull, bits);
+        if (W > 1) {
+            uint32_t* xb = xch + par * 2 * W;
+            if ((threadIdx.x & 31) == 0) xb[threadIdx.x >> 5] = bits;
+            __syncthreads();
+            bits = 0u;
+#pragma unroll
+            for (int i = 0; i < W; ++i) bits |= xb[i];
+            par ^= 1;
+        }
+        return bits;
+    }
+    __device__ __forceinline__ void patterns(uint32_t& bits, int& cnt) {
+        bits = __reduce_or_sync(kFull, bits);
+        cnt = __reduce_add_sync(kFull, cnt);
+        if (W > 1) {
+            uint32_t* xb = xch + par * 2 * W;
+            const int warp = threadIdx.x >> 5;
+            if ((threadIdx.x & 31) == 0) {
+                xb[warp] = bits;
+                xb[W + warp] = (uint32_t)cnt;
+            }
+            __syncthreads();
+            bits = 0u;
+            cnt = 0;
+#pragma unroll
+            for (int i = 0; i < W; ++i) {
+                bits |= xb[i];
+                cnt += (int)xb[W + i];
+            }
+            par ^= 1;
+        }
+    }
+    // one warp skips the scan when a single lane holds every survivor
+    __device__ __forceinline__ int rank(int mine, int& total) {
+        const int lane = threadIdx.x & 31;
+        if (W == 1) {
+            total = __reduce_add_sync(kFull, mine);
+            const uint32_t holders = __ballot_sync(kFull, mine != 0);
+            return (holders & (holders - 1u))
+                       ? warp_inclusive_scan(mine, lane) - mine : 0;
+        }
+        const int incl = warp_inclusive_scan(mine, lane);
+        uint32_t* xb = xch + par * 2 * W;
+        const int warp = threadIdx.x >> 5;
+        if (lane == 31) xb[warp] = (uint32_t)incl;
+        __syncthreads();
+        int before = 0;
+        total = 0;
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+            const int c = (int)xb[i];
+            total += c;
+            before += i < warp ? c : 0;
+        }
+        par ^= 1;
+        return before + incl - mine;
+    }
+    __device__ __forceinline__ void done() {
+        if (W > 1) __syncthreads(); else __syncwarp();
+    }
+    __device__ __forceinline__ bool lead() const { return threadIdx.x == 0; }
+};
 
 // One warp per row.  WPL = packed words a lane holds (ceil(N/1024) rounded
 // up to a power of two).  Up to WPL = 2 the planes and the table masks
 // live in registers and the block walk is unrolled; wider rows keep them
-// in shared memory and take the walk rolled.
+// in shared memory and take the walk rolled (packed_row, colskip_body.cuh).
 template <int WPL>
 __global__ void __launch_bounds__(32)
 colskip_sort_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ vals,
                     int32_t* __restrict__ order, int32_t* __restrict__ crs_out,
                     int32_t* __restrict__ cyc_out, int n, int w, int k,
                     int stop) {
-    constexpr int F = kFuse;
-    static_assert(kPlanes % F == 0, "blocks tile the 32 planes");
-    constexpr bool kRegs = WPL <= 2;       // planes and table in registers
-    constexpr int kStride = 32 * WPL;      // shared words of one mask
-    constexpr int kPR = kRegs ? kPlanes : 1, kPC = kRegs ? WPL : 1;
-    constexpr int kTR = kRegs ? kMaxK : 1, kTC = kRegs ? WPL : 1;
     extern __shared__ uint32_t smem[];
     const int row = blockIdx.x;
-    const int lane = threadIdx.x;
-    const int nw = (n + 31) >> 5;
-    const int kk = k > 0 ? k : 1;
-    uint32_t* splanes = smem;              // [32][kStride] (!kRegs)
-    uint32_t* stable = smem + (kRegs ? 0 : kPlanes * kStride);  // [kk][kStride]
     const uint32_t* xr = x + (size_t)row * n;
     int32_t* ordr = order + (size_t)row * stop;
-
-    uint32_t pl[kPR][kPC];                 // planes (register path)
-    uint32_t tm[kTR][kTC];                 // table masks (register path)
-#pragma unroll
-    for (int s = 0; s < kPR; ++s)
-#pragma unroll
-        for (int q = 0; q < kPC; ++q) pl[s][q] = 0u;
-
-    // pack the bit planes: word i = o * WPL + q is owned by lane o; the
-    // ballot of bit s over the word's 32 elements is its plane-s word
-    for (int o = 0; o * WPL < nw; ++o) {
-#pragma unroll
-        for (int q = 0; q < WPL; ++q) {
-            const int i = o * WPL + q;
-            if (i >= nw) break;
-            const int j = i * 32 + lane;
-            const uint32_t v = j < n ? xr[j] : 0u;
-            uint32_t mine = 0u;
-#pragma unroll
-            for (int s = 0; s < kPlanes; ++s) {
-                const uint32_t bits = __ballot_sync(kFull, (v >> s) & 1u);
-                if (kRegs) {
-                    if (lane == o) pl[kRegs ? s : 0][kRegs ? q : 0] = bits;
-                } else if (lane == s) {
-                    mine = bits;
-                }
-            }
-            if (!kRegs) splanes[lane * kStride + q * 32 + o] = mine;
-        }
-    }
-    __syncwarp();
-
-    uint32_t alive[WPL], srt[WPL], vmask[WPL];
-#pragma unroll
-    for (int q = 0; q < WPL; ++q) {
-        const int i = lane * WPL + q;
-        const int rem = n - i * 32;        // valid bits of word i
-        vmask[q] = i >= nw ? 0u : (rem >= 32 ? kFull : ((1u << rem) - 1u));
-        srt[q] = 0u;
-        alive[q] = 0u;
-        if (kRegs) {
-#pragma unroll
-            for (int e = 0; e < kTR; ++e) tm[e][kRegs ? q : 0] = 0u;
-        }
-    }
-    // table entry e: its sig in byte e of tsig, its mask slot (shared path)
-    // in nibble e of tslot; scalars, so a push is a shift
-    uint64_t tsig = 0u;
-    uint32_t tslot = 0x76543210u;
-    uint32_t tvalid = 0u;                  // bit e: table entry e is valid
-    const uint32_t kkmask = (1u << kk) - 1u;
-    const uint64_t sigmask = kk >= 8 ? ~0ull : (1ull << (8 * kk)) - 1u;
-    const uint32_t slotmask = kk >= 8 ? kFull : (1u << (4 * kk)) - 1u;
-    int s_top = w - 1, count = 0, crs = 0, drains = 0;
-
-    // plane s, the lane's word q; table entry e's mask word q (compile-time
-    // indices on the register path: the walk below is unrolled there)
-#define COL(s, q) (kRegs ? pl[kRegs ? (s) : 0][kRegs ? (q) : 0] \
-                         : splanes[(s) * kStride + (q) * 32 + lane])
-#define TMASK(e, q) (kRegs ? tm[kRegs ? (e) : 0][kRegs ? (q) : 0] \
-                           : stable[((tslot >> (4 * (e))) & 15u) * kStride \
-                                    + (q) * 32 + lane])
-    constexpr int kWalkUnroll = kRegs ? kPlanes / F : 1;
-    constexpr int kPats = 1 << F;          // patterns of a block's planes
-    bool fresh = true, seen = false;
-    int start = 0;
-
-    while (count < stop) {
-        // --- load: the newest live table entry (one round), else fresh
-        uint32_t live = 0u;
-        if (tvalid != 0u) {
-            uint32_t hit = 0u;
-#pragma unroll
-            for (int e = 0; e < kMaxK; ++e) {
-                if (e < kk) {
-                    uint32_t h = 0u;
-#pragma unroll
-                    for (int q = 0; q < WPL; ++q) h |= TMASK(e, q) & ~srt[q];
-                    hit |= nonzero(h) << e;
-                }
-            }
-            live = tvalid & __reduce_or_sync(kFull, hit);
-        }
-        if (live != 0u) {
-            const int first = __ffs(live) - 1;
-            start = (int)((tsig >> (8 * first)) & 0xFFu) - 1;
-#pragma unroll
-            for (int e = 0; e < kMaxK; ++e) {
-                if (e == first) {
-#pragma unroll
-                    for (int q = 0; q < WPL; ++q)
-                        alive[q] = TMASK(e, q) & ~srt[q];
-                }
-            }
-            tvalid &= ~((1u << first) - 1u);   // drop the newer entries
-            fresh = false;
-        } else {
-#pragma unroll
-            for (int q = 0; q < WPL; ++q) alive[q] = ~srt[q] & vmask[q];
-            start = s_top;
-            tvalid = 0u;
-            fresh = true;
-        }
-
-        crs += start + 1;                     // start >= -1
-        // --- traverse planes start..0 in blocks of F, one round a block
-        // (plane i of the block is base + F - 1 - i)
-        seen = false;
-        bool lone = false;                 // the walk stopped at one element
-#pragma unroll (kWalkUnroll)
-        for (int bi = kPlanes / F - 1; bi >= 0; --bi) {
-            if (bi * F > start) continue;
-            const int base = bi * F;
-            // in the same round as the verdicts: the alive count.  A lone
-            // element makes every plane from here down uniform, so the rest
-            // of the walk would change nothing (its CRs are counted above)
-            int here = 0;
-#pragma unroll
-            for (int q = 0; q < WPL; ++q) here += __popc(alive[q]);
-            const bool alone = __reduce_add_sync(kFull, here) <= 1;
-            // the set of F-bit patterns (plane i of the block at bit
-            // F - 1 - i) that the alive elements show.  A plane is mixed
-            // when the patterns still alive show both of its bits; it then
-            // keeps those with a 0 there
-            uint32_t bits[kPats];
-            if (kRegs) {
-                uint32_t pm[kPats][WPL];
-#pragma unroll
-                for (int q = 0; q < WPL; ++q) pm[0][q] = alive[q];
-#pragma unroll
-                for (int i = 0; i < F; ++i) {
-                    const int s = base + F - 1 - i;
-#pragma unroll
-                    for (int p = kPats - 1; p >= 0; --p) {
-                        if (p >= (1 << i)) continue;
-#pragma unroll
-                        for (int q = 0; q < WPL; ++q) {
-                            const uint32_t v = pm[p][q];
-                            pm[(2 * p + 1) % kPats][q] = v & COL(s, q);
-                            pm[(2 * p) % kPats][q] = v & ~COL(s, q);
-                        }
-                    }
-                }
-#pragma unroll
-                for (int p = 0; p < kPats; ++p) {
-                    uint32_t t = 0u;
-#pragma unroll
-                    for (int q = 0; q < WPL; ++q) t |= pm[p][q];
-                    bits[p] = nonzero(t);
-                }
-            } else {
-                uint32_t t[kPats];
-#pragma unroll
-                for (int p = 0; p < kPats; ++p) t[p] = 0u;
-#pragma unroll
-                for (int q = 0; q < WPL; ++q) {
-                    uint32_t pm[kPats];
-                    pm[0] = alive[q];
-#pragma unroll
-                    for (int i = 0; i < F; ++i) {
-                        const uint32_t c = COL(base + F - 1 - i, q);
-#pragma unroll
-                        for (int p = kPats - 1; p >= 0; --p) {
-                            if (p >= (1 << i)) continue;
-                            const uint32_t v = pm[p];
-                            pm[(2 * p + 1) % kPats] = v & c;
-                            pm[(2 * p) % kPats] = v & ~c;
-                        }
-                    }
-#pragma unroll
-                    for (int p = 0; p < kPats; ++p) t[p] |= pm[p];
-                }
-#pragma unroll
-                for (int p = 0; p < kPats; ++p) bits[p] = nonzero(t[p]);
-            }
-            const uint32_t seen_pats =
-                __reduce_or_sync(kFull, pack_bits(bits));
-            if (alone) {
-                lone = true;
-                break;
-            }
-            const uint32_t mixed = resolve_block(seen_pats, base, start);
-            if (mixed == 0u) continue;     // uniform block: alive unchanged
-            if (!fresh || k == 0) {
-                // no table push: exclude the 1s of every mixed plane at once
-#pragma unroll
-                for (int q = 0; q < WPL; ++q) {
-                    uint32_t ones = 0u;
-#pragma unroll
-                    for (int i = 0; i < F; ++i)
-                        if ((mixed >> i) & 1u) ones |= COL(base + F - 1 - i, q);
-                    alive[q] &= ~ones;
-                }
-            } else {
-#pragma unroll
-                for (int i = 0; i < F; ++i) {
-                    if (((mixed >> i) & 1u) == 0u) continue;
-                    const int sig = base + F - 1 - i;
-#pragma unroll
-                    for (int q = 0; q < WPL; ++q) alive[q] &= ~COL(sig, q);
-                    // push (sig, alive) as entry 0: older entries shift on
-                    if (kRegs) {
-#pragma unroll
-                        for (int e = kMaxK - 1; e > 0; --e) {
-                            if (e < kk) {
-#pragma unroll
-                                for (int q = 0; q < WPL; ++q)
-                                    tm[kRegs ? e : 0][kRegs ? q : 0] =
-                                        tm[kRegs ? e - 1 : 0]
-                                          [kRegs ? q : 0];
-                            }
-                        }
-#pragma unroll
-                        for (int q = 0; q < WPL; ++q)
-                            tm[0][kRegs ? q : 0] = alive[q];
-                    } else {
-                        // the oldest entry's slot takes the new mask
-                        const uint32_t recycled =
-                            (tslot >> (4 * (kk - 1))) & 15u;
-                        tslot = ((tslot << 4) | recycled) & slotmask;
-#pragma unroll
-                        for (int q = 0; q < WPL; ++q)
-                            stable[recycled * kStride + q * 32 + lane] =
-                                alive[q];
-                    }
-                    tsig = ((tsig << 8) | (uint64_t)sig) & sigmask;
-                    tvalid = ((tvalid << 1) | 1u) & kkmask;
-                }
-            }
-            if (fresh && !seen) {
-                s_top = base + F - __ffs(mixed);   // the first mixed plane
-                seen = true;
-            }
-        }
-
-        // --- drain the survivors in element order, up to `stop`.  A walk
-        // that stopped at a lone element already knows the count (one) and
-        // the rank (0): its lane writes it, with no warp round
-        if (lone) {
-#pragma unroll
-            for (int q = 0; q < WPL; ++q) {
-                if (alive[q] != 0u)
-                    ordr[count] = (lane * WPL + q) * 32 + __ffs(alive[q]) - 1;
-                srt[q] |= alive[q];
-            }
-            ++count;
-            continue;
-        }
-        int mine = 0;
-#pragma unroll
-        for (int q = 0; q < WPL; ++q) mine += __popc(alive[q]);
-        const int m_tot = __reduce_add_sync(kFull, mine);
-        const uint32_t holders = __ballot_sync(kFull, mine != 0);
-        const int m_eff = min(m_tot, stop - count);
-        if (m_eff <= 0) break;                // unreachable: a search always
-                                              // keeps a survivor; never spin
-        int r = 0;                            // rank of the lane's first
-        if (holders & (holders - 1u))         // survivors in several lanes
-            r = warp_inclusive_scan(mine, lane) - mine;
-        if (mine != 0 && r < m_eff) {
-#pragma unroll
-            for (int q = 0; q < WPL; ++q) {
-                uint32_t a = alive[q], kept = 0u;
-                while (a != 0u && r < m_eff) {
-                    const int bpos = __ffs(a) - 1;
-                    a &= a - 1u;
-                    ordr[count + r] = (lane * WPL + q) * 32 + bpos;
-                    kept |= 1u << bpos;
-                    ++r;
-                }
-                srt[q] |= kept;
-            }
-        }
-        count += m_eff;
-        drains += max(m_eff - 1, 0);
-    }
-
-#undef COL
-#undef TMASK
-    __syncwarp();                             // order[] written by all lanes
-    uint32_t* vr = vals + (size_t)row * stop;
-    for (int t = lane; t < stop; t += 32) vr[t] = xr[ordr[t]];
-    if (lane == 0) {
-        crs_out[row] = crs;
-        cyc_out[row] = crs + drains;
-    }
+    WarpGate g;
+    int crs = 0, drains = 0;
+    packed_row<WPL, kFuse>(g, xr, ordr, n, 0, w, k, stop, smem, crs, drains);
+    g.done();                                 // order[] written by all lanes
+    finish_row(g, xr, vals + (size_t)row * stop, ordr, stop, crs, drains,
+               crs_out, cyc_out, row);
 }
 
-
-// Row-wide reductions of the dense carrier, whose row is W warps.  Each
-// warp reduces with one REDUX; W > 1 warps then meet once in shared memory
-// (`xch`, two buffers of [2][W] words) behind one barrier.  The buffers
-// alternate (`par`), so one barrier a round suffices: no warp rewrites a
-// buffer before every warp has passed the barrier after its last read.
-
-// OR of `bits` and sum of `cnt` over the row
-template <int W>
-__device__ __forceinline__ void row_or_add(uint32_t& bits, int& cnt,
-                                           uint32_t* xch, int& par) {
-    bits = __reduce_or_sync(kFull, bits);
-    cnt = __reduce_add_sync(kFull, cnt);
-    if (W > 1) {
-        uint32_t* xb = xch + par * 2 * W;
-        const int warp = threadIdx.x >> 5;
-        if ((threadIdx.x & 31) == 0) {
-            xb[warp] = bits;
-            xb[W + warp] = (uint32_t)cnt;
-        }
-        __syncthreads();
-        bits = 0u;
-        cnt = 0;
-#pragma unroll
-        for (int i = 0; i < W; ++i) {
-            bits |= xb[i];
-            cnt += (int)xb[W + i];
-        }
-        par ^= 1;
-    }
-}
-
-// OR of `bits` over the row
-template <int W>
-__device__ __forceinline__ uint32_t row_or(uint32_t bits, uint32_t* xch,
-                                           int& par) {
-    bits = __reduce_or_sync(kFull, bits);
-    if (W > 1) {
-        uint32_t* xb = xch + par * 2 * W;
-        if ((threadIdx.x & 31) == 0) xb[threadIdx.x >> 5] = bits;
-        __syncthreads();
-        bits = 0u;
-#pragma unroll
-        for (int i = 0; i < W; ++i) bits |= xb[i];
-        par ^= 1;
-    }
-    return bits;
-}
-
-// The row's sum of `mine` (into `total`) and this thread's exclusive
-// prefix of it in thread order: a drain's rank.  One warp skips the scan
-// when a single lane holds every survivor (a ballot says so)
-template <int W>
-__device__ __forceinline__ int row_rank(int mine, int& total, uint32_t* xch,
-                                        int& par) {
-    const int lane = threadIdx.x & 31;
-    if (W == 1) {
-        total = __reduce_add_sync(kFull, mine);
-        const uint32_t holders = __ballot_sync(kFull, mine != 0);
-        return (holders & (holders - 1u))
-                   ? warp_inclusive_scan(mine, lane) - mine : 0;
-    }
-    const int incl = warp_inclusive_scan(mine, lane);
-    uint32_t* xb = xch + par * 2 * W;
-    const int warp = threadIdx.x >> 5;
-    if (lane == 31) xb[warp] = (uint32_t)incl;
-    __syncthreads();
-    int before = 0;
-    total = 0;
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-        const int c = (int)xb[i];
-        total += c;
-        before += i < warp ? c : 0;
-    }
-    par ^= 1;
-    return before + incl - mine;
-}
-
-// Dense carrier (see the note at the head of this file).  Thread t of the
-// row's 32 * W holds elements t * c .. t * c + c - 1.  C = c at compile
-// time (a multiple of 4: values in registers, flags one byte an element,
-// four to a register), or 0 for the rolled instance (one warp; values and
-// flag bytes in shared memory, lane-interleaved).  kRegTab: the table
-// masks (k <= kRegTable) live in registers too, else in shared memory.
+// Dense carrier (see the note at the head of this file): a row of W warps
+// (dense_row, colskip_body.cuh); C elements a thread in registers, or the
+// rolled one-warp instance (C = 0) in shared memory.
 template <int C, bool kRegTab, int W>
 __global__ void __launch_bounds__(32 * W)
 colskip_dense_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ vals,
                      int32_t* __restrict__ order, int32_t* __restrict__ crs_out,
                      int32_t* __restrict__ cyc_out, int n, int w, int k,
                      int stop) {
-    static_assert(C % 4 == 0 && (C > 0 || (W == 1 && !kRegTab)),
-                  "register instances hold whole flag words");
-    using Unit = typename std::conditional<C == 0, uint8_t, uint32_t>::type;
-    constexpr int T = 32 * W;              // threads a row
-    constexpr int E = C ? 4 : 1;           // elements a flag unit holds
-    constexpr uint32_t kOne = C ? 0x01010101u : 0x01u;  // a unit's flags
-    constexpr int kPats = 1 << kFuse;
-    constexpr int kTE = kRegTab ? kRegTable : 1;
     extern __shared__ uint32_t smem[];
     const int row = blockIdx.x;
-    const int t = threadIdx.x;
-    const int c = C ? C : (n + T - 1) / T;      // elements a thread
-    const int U = C ? C / 4 : c;                // flag units a thread
-    const int kk = k > 0 ? k : 1;
-    // shared memory: values, alive and sorted flags (rolled), the table
-    // (!kRegTab), the exchange words (W > 1); slot [i][t] is i * T + t
-    uint32_t* sv = smem;                                     // [c][T]
-    Unit* sa = reinterpret_cast<Unit*>(smem + (C ? 0 : c * T));  // [U][T]
-    Unit* ss = sa + (C ? 0 : U * T);                         // [U][T]
-    Unit* stab = ss + (C ? 0 : U * T);                       // [kk][U][T]
-    uint32_t* xch = reinterpret_cast<uint32_t*>(stab + (kRegTab ? 0 : kk * U * T));
     const uint32_t* xr = x + (size_t)row * n;
     int32_t* ordr = order + (size_t)row * stop;
-    const int first_el = t * c;
-
-    uint32_t v[C ? C : 1];                 // values (register instances)
-    Unit ra[C ? C / 4 : 1], rs[C ? C / 4 : 1];    // alive, sorted flags
-    Unit rt[kTE][kRegTab ? C / 4 : 1];     // table masks (kRegTab)
-    // table entry e: its sig in byte e of tsig, its mask slot (shared
-    // table) in nibble e of tslot; scalars, so a push is a shift
-    uint64_t tsig = 0u;
-    uint32_t tslot = 0x76543210u;
-#define DV(e) (C ? v[C ? (e) : 0] : sv[(e) * T + t])
-#define DA(u) (C ? ra[C ? (u) : 0] : sa[(u) * T + t])
-#define DS(u) (C ? rs[C ? (u) : 0] : ss[(u) * T + t])
-#define DT(e, u) (kRegTab ? rt[kRegTab ? (e) : 0][kRegTab ? (u) : 0] \
-                          : stab[(((tslot >> (4 * (e))) & 15u) * U + (u)) * T + t])
-
-    if constexpr (C > 0) {
-#pragma unroll
-        for (int e = 0; e < C; ++e) {
-            const int j = first_el + e;
-            v[e] = j < n ? xr[j] : 0u;
-        }
-    } else {
-        // coalesced: element j of the row is thread j / c's element j % c
-        for (int j = t; j < c * T; j += T)
-            sv[(j % c) * T + j / c] = j < n ? xr[j] : 0u;
-    }
-    // padding elements count as sorted, so they are never alive
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-        uint32_t s = 0u;
-#pragma unroll
-        for (int j = 0; j < E; ++j)
-            if (first_el + u * E + j >= n) s |= 1u << (8 * j);
-        DS(u) = (Unit)s;
-    }
-    if (!C) __syncwarp();                  // values written across lanes
-
-    uint32_t tvalid = 0u;                  // bit e: table entry e is valid
-    const uint32_t kkmask = (1u << kk) - 1u;
-    const uint64_t sigmask = kk >= 8 ? ~0ull : (1ull << (8 * kk)) - 1u;
-    const uint32_t slotmask = kk >= 8 ? kFull : (1u << (4 * kk)) - 1u;
-    int s_top = w - 1, count = 0, crs = 0, drains = 0, par = 0;
-    bool fresh = true;
-    int start = 0;
-
-    while (count < stop) {
-        // --- load: the newest live table entry (one round), else fresh
-        uint32_t live = 0u;
-        if (tvalid != 0u) {
-            uint32_t hit = 0u;
-#pragma unroll
-            for (int e = 0; e < (kRegTab ? kRegTable : kMaxK); ++e) {
-                if (e < kk) {
-                    uint32_t h = 0u;
-#pragma unroll
-                    for (int u = 0; u < U; ++u) h |= DT(e, u) & ~DS(u);
-                    hit |= nonzero(h) << e;
-                }
-            }
-            live = tvalid & row_or<W>(hit, xch, par);
-        }
-        if (live != 0u) {
-            const int first = __ffs(live) - 1;
-            start = (int)((tsig >> (8 * first)) & 0xFFu) - 1;
-            if constexpr (kRegTab) {
-#pragma unroll
-                for (int e = 0; e < kRegTable; ++e)
-                    if (e == first) {
-#pragma unroll
-                        for (int u = 0; u < U; ++u)
-                            DA(u) = DT(e, u) & ~DS(u);
-                    }
-            } else {
-#pragma unroll
-                for (int u = 0; u < U; ++u) DA(u) = DT(first, u) & ~DS(u);
-            }
-            tvalid &= ~((1u << first) - 1u);   // drop the newer entries
-            fresh = false;
-        } else {
-#pragma unroll
-            for (int u = 0; u < U; ++u) DA(u) = ~DS(u) & kOne;
-            start = s_top;
-            tvalid = 0u;
-            fresh = true;
-        }
-
-        crs += start + 1;                     // start >= -1
-        // --- traverse planes start..0 in blocks of kFuse, one round a
-        // block: each thread ORs the one-hot pattern of every alive
-        // element (a column read is (v >> sig) & 1 of its value), and the
-        // alive count rides in the same round
-        bool seen = false, lone = false;
-        for (int bi = start >= 0 ? start / kFuse : -1; bi >= 0; --bi) {
-            const int base = bi * kFuse;
-            uint32_t pats = 0u;
-            int here = 0;
-#pragma unroll
-            for (int u = 0; u < U; ++u) {
-                const uint32_t a = DA(u);
-                here += __popc(a);
-#pragma unroll
-                for (int j = 0; j < E; ++j)
-                    pats |= ((a >> (8 * j)) & 1u)
-                            << ((DV(u * E + j) >> base) & (kPats - 1));
-            }
-            row_or_add<W>(pats, here, xch, par);
-            // a lone element makes every plane from here down uniform
-            if (here <= 1) {
-                lone = true;
-                break;
-            }
-            const uint32_t mixed = resolve_block(pats, base, start);
-            if (mixed == 0u) continue;     // uniform block: alive unchanged
-            // mixed planes as bits of a pattern (plane i at F - 1 - i)
-            uint32_t mp = 0u;
-#pragma unroll
-            for (int i = 0; i < kFuse; ++i)
-                mp |= ((mixed >> i) & 1u) << (kFuse - 1 - i);
-            if (!fresh || k == 0) {
-                // no table push: exclude the 1s of every mixed plane at once
-#pragma unroll
-                for (int u = 0; u < U; ++u) {
-                    uint32_t keep = 0u;
-#pragma unroll
-                    for (int j = 0; j < E; ++j)
-                        keep |= (uint32_t)(((DV(u * E + j) >> base) & mp) == 0u)
-                                << (8 * j);
-                    DA(u) &= keep;
-                }
-            } else {
-#pragma unroll
-                for (int i = 0; i < kFuse; ++i) {
-                    if (((mixed >> i) & 1u) == 0u) continue;
-                    const int sig = base + kFuse - 1 - i;
-#pragma unroll
-                    for (int u = 0; u < U; ++u) {
-                        uint32_t keep = 0u;
-#pragma unroll
-                        for (int j = 0; j < E; ++j)
-                            keep |= (~(DV(u * E + j) >> sig) & 1u) << (8 * j);
-                        DA(u) &= keep;
-                    }
-                    // push (sig, alive) as entry 0: older entries shift on
-                    if constexpr (kRegTab) {
-#pragma unroll
-                        for (int e = kRegTable - 1; e > 0; --e)
-#pragma unroll
-                            for (int u = 0; u < U; ++u) DT(e, u) = DT(e - 1, u);
-#pragma unroll
-                        for (int u = 0; u < U; ++u) DT(0, u) = DA(u);
-                    } else {
-                        // the oldest entry's slot takes the new mask
-                        const uint32_t recycled =
-                            (tslot >> (4 * (kk - 1))) & 15u;
-                        tslot = ((tslot << 4) | recycled) & slotmask;
-#pragma unroll
-                        for (int u = 0; u < U; ++u) DT(0, u) = DA(u);
-                    }
-                    tsig = ((tsig << 8) | (uint64_t)sig) & sigmask;
-                    tvalid = ((tvalid << 1) | 1u) & kkmask;
-                }
-            }
-            if (fresh && !seen) {
-                s_top = base + kFuse - __ffs(mixed);   // the first mixed plane
-                seen = true;
-            }
-        }
-
-        // --- drain the survivors in element order, up to `stop`.  A walk
-        // that stopped at a lone element already knows the count (one) and
-        // the rank (0): its thread writes it, with no round
-        if (lone) {
-#pragma unroll
-            for (int u = 0; u < U; ++u) {
-                const uint32_t a = DA(u);
-                if (a != 0u)
-                    ordr[count] = first_el + u * E + ((__ffs(a) - 1) >> 3);
-                DS(u) |= a;
-            }
-            ++count;
-            continue;
-        }
-        int mine = 0;
-#pragma unroll
-        for (int u = 0; u < U; ++u) mine += __popc(DA(u));
-        int m_tot = 0;
-        int r = row_rank<W>(mine, m_tot, xch, par);   // rank of the first
-        const int m_eff = min(m_tot, stop - count);
-        if (m_eff <= 0) break;                // unreachable: a search always
-                                              // keeps a survivor; never spin
-        if (mine != 0 && r < m_eff) {
-#pragma unroll
-            for (int u = 0; u < U; ++u) {
-                uint32_t a = DA(u), kept = 0u;
-                while (a != 0u && r < m_eff) {
-                    const int bpos = __ffs(a) - 1;
-                    a &= a - 1u;
-                    ordr[count + r] = first_el + u * E + (bpos >> 3);
-                    kept |= 1u << bpos;
-                    ++r;
-                }
-                DS(u) |= kept;
-            }
-        }
-        count += m_eff;
-        drains += max(m_eff - 1, 0);
-    }
-#undef DV
-#undef DA
-#undef DS
-#undef DT
-
-    if (W > 1) __syncthreads(); else __syncwarp();   // order[] written
-    uint32_t* vr = vals + (size_t)row * stop;
-    for (int j = t; j < stop; j += T) vr[j] = xr[ordr[j]];
-    if (t == 0) {
-        crs_out[row] = crs;
-        cyc_out[row] = crs + drains;
-    }
+    BlockGate<W> g(smem);                  // exchange words at the head
+    int crs = 0, drains = 0;
+    dense_row<C, kRegTab, W, kFuse>(g, xr, ordr, n, 0, w, k, stop,
+                                    smem + BlockGate<W>::kWords, crs, drains);
+    g.done();                                 // order[] written by all
+    finish_row(g, xr, vals + (size_t)row * stop, ordr, stop, crs, drains,
+               crs_out, cyc_out, row);
 }
 
 // Opt `kernel` in to `bytes` of dynamic shared memory on the current

@@ -131,28 +131,42 @@ class _Dense:
         return bits
 
 
-def sort_ref(x: torch.Tensor, w: int = 32, k: int = 2,
-             stop_after: int | None = None, packed: bool = True,
-             fuse: int = 1):
-    """``(B, N)`` 32-bit words -> ``(values, order, column_reads, cycles)``.
+def colskip_machine(u: torch.Tensor, w: int, k: int, stop: int, *,
+                    or_any=None, drain_counts=None, packed: bool = True,
+                    fuse: int = 1):
+    """Batched §III state machine over the bank gates: the reference's
+    ``colskip_machine`` (``repro/kernels/colskip/kernel.py:54-90``).
 
-    ``values`` ``(B, stop)`` uint32, ``order`` ``(B, stop)`` int32, the
-    per-row CR and cycle counts ``(B,)`` int32 (cycles = CRs + drains).
-    ``x`` may be uint32, int32 (bit patterns) or an int64 carrier.
-    ``packed`` picks the mask carrier and ``fuse`` the planes walked per
-    verdict round (the speculative tree); the outputs depend on neither."""
+    ``u`` is one bank's ``(B, N_local)`` column shard of 32-bit words (the
+    whole tile when run as one bank; a bank-stacked tile for the plain
+    mesh, :func:`sort_mesh_ref`).  The two multi-bank-manager combine
+    points are injectable, with the reference's contract:
+
+      * ``or_any(bits)`` ORs the per-row predicate stacks across banks,
+        ``(B, P)`` bool -> ``(B, P)`` bool: a fused block's saw-a-1 /
+        saw-a-0 pairs (one call a block) and the SL gate's per-entry hit
+        bits (one call a load); identity for one bank;
+      * ``drain_counts(m_local) -> (m_total, before)``: the global survivor
+        count and this bank's exclusive bank-major prefix; ``(m, 0)`` for
+        one bank.
+
+    Returns ``(sorted_mask (B, N_local) bool, out_pos (B, N_local) int64,
+    crs (B,) int64, drains (B,) int64)``; callers assemble values and
+    order from them.  ``stop`` is the number of elements to drain (at most
+    the row's global width)."""
     if not 1 <= w <= 32:
         raise ValueError(f"w={w} out of range [1, 32]")
     if k < 0:
         raise ValueError(f"k={k} must be >= 0")
     if not 1 <= fuse <= 8:
         raise ValueError(f"fuse={fuse} out of range [1, 8]")
-    b, n = x.shape
-    stop = n if stop_after is None else min(int(stop_after), n)
-    if stop < 1:
-        raise ValueError(f"stop_after={stop_after} must be >= 1")
-    dev = x.device
-    u = as_words(x)
+    gated = or_any is not None
+    if or_any is None:
+        or_any = lambda bits: bits                      # noqa: E731
+    if drain_counts is None:
+        drain_counts = lambda m: (m, torch.zeros_like(m))   # noqa: E731
+    b, n = u.shape
+    dev = u.device
     kk = max(1, k)
     cm = (_Packed if packed else _Dense)(u, w)
     i64 = dict(dtype=torch.int64, device=dev)
@@ -174,9 +188,11 @@ def sort_ref(x: torch.Tensor, w: int = 32, k: int = 2,
         if bool(done.all()):
             break
         # --- load: newest live table entry, else a fresh search at s_top
+        # (the SL gate: a table entry is live when some bank still holds
+        # one of its elements unsorted)
         unsorted = cm.unsorted(sorted_m)
         hit = cm.any(masks & unsorted[:, None, :])
-        live = valid & hit
+        live = valid & or_any(hit)
         exists = live.any(-1)
         first = torch.argmax(live.to(torch.int64), -1)
         valid = torch.where(exists[:, None], valid & (idx >= first[:, None]),
@@ -204,10 +220,12 @@ def sort_ref(x: torch.Tensor, w: int = 32, k: int = 2,
                     pairs.append(cm.any(cm.zeros_of(cols[i], h)))
                 if i + 1 < fuse:
                     hyps = hyps + [cm.zeros_of(cols[i], h) for h in hyps]
-            verdicts = torch.stack(pairs, -1) if fuse > 1 else None
+            # one manager round a block: every pair of the tree
+            verdicts = (or_any(torch.stack(pairs, -1))
+                        if gated or fuse > 1 else None)
             branch = torch.zeros((b,), **i64)
             for i, sig in enumerate(sigs_b):
-                if i == 0:                             # one hypothesis
+                if verdicts is None:                   # one hypothesis
                     p1, p0 = pairs[0], pairs[1]
                 else:
                     at = (2 * ((1 << i) - 1) + 2 * branch)[:, None]
@@ -232,23 +250,102 @@ def sort_ref(x: torch.Tensor, w: int = 32, k: int = 2,
                                     s_top)
                 seen = seen | rec
                 alive = new_alive
-        # --- drain the survivors (finished rows drain nothing)
+        # --- drain the survivors (finished rows drain nothing), bank-major
+        # with the k-early exit: only the still-needed elements
         alive = torch.where(done[:, None], torch.zeros_like(alive), alive)
         crs = crs + torch.where(done, 0, crs2)
-        m_eff = torch.minimum(cm.count(alive), stop - count)
-        rank = cm.rank(alive)
+        m_tot, before = drain_counts(cm.count(alive))
+        m_eff = torch.minimum(m_tot, stop - count)
+        rank = before[:, None] + cm.rank(alive)
         keep = cm.bits(alive) & (rank < m_eff[:, None])
         out_pos = torch.where(keep, count[:, None] + rank, out_pos)
         sorted_m = sorted_m | cm.pack(keep)
         count = count + m_eff
         drains = drains + torch.clamp(m_eff - 1, min=0)
+    return cm.bits(sorted_m), out_pos, crs, drains
 
+
+def sort_ref(x: torch.Tensor, w: int = 32, k: int = 2,
+             stop_after: int | None = None, packed: bool = True,
+             fuse: int = 1):
+    """``(B, N)`` 32-bit words -> ``(values, order, column_reads, cycles)``.
+
+    ``values`` ``(B, stop)`` uint32, ``order`` ``(B, stop)`` int32, the
+    per-row CR and cycle counts ``(B,)`` int32 (cycles = CRs + drains).
+    ``x`` may be uint32, int32 (bit patterns) or an int64 carrier.
+    ``packed`` picks the mask carrier and ``fuse`` the planes walked per
+    verdict round (the speculative tree); the outputs depend on neither."""
+    b, n = x.shape
+    stop = n if stop_after is None else min(int(stop_after), n)
+    if stop < 1:
+        raise ValueError(f"stop_after={stop_after} must be >= 1")
+    u = as_words(x)
+    sorted_mask, out_pos, crs, drains = colskip_machine(
+        u, w, k, stop, packed=packed, fuse=fuse)
     # --- epilogue: order[pos] = column; undrained columns are dropped
-    pos = torch.where(cm.bits(sorted_m), out_pos, stop)
-    order = torch.zeros((b, stop + 1), **i64)
+    dev = u.device
+    pos = torch.where(sorted_mask, out_pos, stop)
+    order = torch.zeros((b, stop + 1), dtype=torch.int64, device=dev)
     cols = torch.arange(n, device=dev).expand(b, n)
     order.scatter_(1, pos, cols)
     order = order[:, :stop]
     vals = torch.gather(u, 1, order)
+    return (to_uint32(vals), order.to(torch.int32),
+            crs.to(torch.int32), (crs + drains).to(torch.int32))
+
+
+def bank_hooks(banks: int):
+    """The manager gates of a tile stacked bank-major as ``(banks * B, ...)``
+    rows (bank ``d``'s shard of row ``r`` at row ``d * B + r``): ``or_any``
+    ORs each row's predicates over the banks and gives every bank the
+    result; ``drain_counts`` gives every bank the row's survivor total and
+    its exclusive bank-major prefix.  The plain realization of the
+    reference's ``psum`` / ``all_gather`` gates
+    (``repro/dist/bankmesh.py:143-158``)."""
+
+    def or_any(bits):
+        stacked = bits.reshape(banks, -1, *bits.shape[1:])
+        return stacked.any(0).repeat(banks, *([1] * (bits.dim() - 1)))
+
+    def drain_counts(m):
+        per = m.reshape(banks, -1)
+        before = torch.cumsum(per, 0) - per
+        return per.sum(0).repeat(banks), before.reshape(-1)
+
+    return or_any, drain_counts
+
+
+def sort_mesh_ref(x: torch.Tensor, banks: int, w: int = 32, k: int = 2,
+                  stop_after: int | None = None, packed: bool = True,
+                  fuse: int = 1):
+    """The plain mesh: the rows of ``x`` ``(B, N)`` split into ``banks``
+    contiguous column shards of ``N / banks``, each a bank of the §IV
+    manager, through :func:`colskip_machine` with :func:`bank_hooks`.
+    Returns :func:`sort_ref`'s outputs, assembled as the reference's
+    ``_colskip_tile_local`` assembles them (``bankmesh.py:168-179``): each
+    bank places its drained elements at their global positions, with
+    columns in global numbering ``bank * N / banks + j``."""
+    b, n = x.shape
+    if banks < 1 or n % banks:
+        raise ValueError(f"N={n} not divisible over {banks} mesh banks")
+    stop = n if stop_after is None else min(int(stop_after), n)
+    if stop < 1:
+        raise ValueError(f"stop_after={stop_after} must be >= 1")
+    u = as_words(x)
+    n_loc = n // banks
+    shards = u.reshape(b, banks, n_loc).transpose(0, 1).reshape(-1, n_loc)
+    or_any, drain_counts = bank_hooks(banks)
+    sorted_mask, out_pos, crs, drains = colskip_machine(
+        shards, w, k, stop, or_any=or_any, drain_counts=drain_counts,
+        packed=packed, fuse=fuse)
+    dev = u.device
+    # every bank scatters its drained elements into the global result
+    pos = torch.where(sorted_mask, out_pos, stop).reshape(banks, b, n_loc)
+    pos = pos.transpose(0, 1).reshape(b, n)
+    order = torch.zeros((b, stop + 1), dtype=torch.int64, device=dev)
+    order.scatter_(1, pos, torch.arange(n, device=dev).expand(b, n))
+    order = order[:, :stop]
+    vals = torch.gather(u, 1, order)
+    crs, drains = crs[:b], drains[:b]          # every bank holds the same
     return (to_uint32(vals), order.to(torch.int32),
             crs.to(torch.int32), (crs + drains).to(torch.int32))

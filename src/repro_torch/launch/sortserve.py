@@ -2,6 +2,9 @@
 
     PYTHONPATH=src python -m repro_torch.launch.sortserve --smoke
     PYTHONPATH=src python -m repro_torch.launch.sortserve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.sortserve --smoke --mesh --fuse 2
+    PYTHONPATH=src python -m repro_torch.launch.sortserve --smoke \
+        --replicas 2 --rolling-restart --warm-state warm.json
 
 The torch port of ``repro.launch.sortserve``.  Generates a seeded stream of
 sort / argsort / topk / kmin requests over uint32 / int32 / float32
@@ -9,14 +12,20 @@ payloads with log-uniform lengths, serves it through the port's engine on
 ``--device`` (default ``cuda``: the CUDA kernels; ``cpu``: their plain
 torch versions), checks every result bit-identical against the numpy
 oracle, and prints the aggregate telemetry (optionally to ``--json``).
-The mesh, fleet, hardware-profile and compile-cache flags of the reference
-are not ported yet.
+``--mesh`` serves colskip tiles through the mesh bank pool (on the card
+the mesh kernel: a thread-block cluster a row, a CTA a bank); ``--replicas
+N`` through a fleet of N engine replicas behind a ``FleetRouter``, with
+``--warm-state`` and ``--rolling-restart``.  The hardware-profile and
+compile-cache flags of the reference (XLA flags and jax's persistent
+cache) have no counterpart yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -69,6 +78,75 @@ def check_against_oracle(req: SortRequest, resp) -> bool:
     return True
 
 
+def _serve_fleet(args, router, reqs) -> int:
+    """Serve the workload through a :class:`FleetRouter` fleet.
+
+    With ``--rolling-restart`` the workload goes through in chunks and
+    each replica slot is restarted in turn at a chunk boundary, prewarmed
+    from the fleet's merged warm-state artifact, while the siblings keep
+    serving — the smoke gate is every request served oracle-correct with
+    zero fleet-level sheds."""
+    n_chunks = max(6, args.replicas + 2) if args.rolling_restart else 1
+    csize = (len(reqs) + n_chunks - 1) // n_chunks
+    restart_before = ({1 + j: j for j in range(args.replicas)}
+                      if args.rolling_restart else {})
+    t0 = time.time()
+    resps, fails = [], []
+    for ci in range(n_chunks):
+        slot = restart_before.get(ci)
+        if slot is not None:
+            router.restart(slot, warm_state=router.save_warm_state())
+        got, bad = router.serve(reqs[ci * csize:(ci + 1) * csize])
+        resps += got
+        fails += bad
+    dt = time.time() - t0
+
+    n_served = sum(r is not None for r in resps)
+    mismatches = sum(r is not None and not check_against_oracle(q, r)
+                     for q, r in zip(reqs, resps))
+    fleet = router.telemetry()
+    backends_used = sorted({b for rep in router.replicas
+                            for b in rep.engine.telemetry()["per_backend"]})
+    print(f"device: {args.device}")
+    print(f"served {n_served} requests in {dt:.2f}s "
+          f"({n_served / dt:.1f} req/s incl kernel builds) "
+          f"across {fleet['replicas']} replicas"
+          + (f"  [{len(fails)} failed fleet-wide]" if fails else ""))
+    print(f"ops: {','.join(sorted({q.op for q in reqs}))}  "
+          f"backends: {','.join(backends_used)}")
+    print(f"oracle mismatches: {mismatches}")
+    print(f"fleet: shed={fleet['shed']} failovers={fleet['failovers']} "
+          f"redirects={fleet['redirects']} restarts={fleet['restarts']} "
+          f"quarantines={fleet['health']['quarantines']}")
+    for name, row in fleet["per_replica"].items():
+        print(f"  {name}: {row['state']} routed={row['routed']} "
+              f"served={row['served']} shed={row['shed']} "
+              f"queue_depth={row['queue_depth']}")
+    if args.warm_state:
+        router.save_warm_state(args.warm_state)
+        print(f"warm state -> {args.warm_state}")
+    if args.snapshot_out:
+        router.dump_snapshot(args.snapshot_out)
+        print(f"snapshot -> {args.snapshot_out}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(fleet, f, indent=2, sort_keys=True)
+        print(f"telemetry -> {args.json}")
+
+    if args.smoke:
+        assert mismatches == 0, f"{mismatches} responses differ from oracle"
+        assert n_served == len(reqs), \
+            f"served {n_served}/{len(reqs)} (fleet failures: {fails[:3]})"
+        assert fleet["shed"] == 0, f"{fleet['shed']} fleet-level sheds"
+        if args.rolling_restart:
+            assert fleet["restarts"] == args.replicas, \
+                f"{fleet['restarts']} restarts != {args.replicas} replicas"
+            print("ROLLING RESTART SMOKE OK")
+        print("FLEET SMOKE OK")
+        print("SMOKE OK")
+    return 0 if mismatches == 0 and n_served == len(reqs) else 1
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true",
@@ -81,6 +159,19 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="where the backends run: cuda (the CUDA kernels) "
                          "or cpu (their plain torch versions)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="serve through the mesh-sharded bank pool "
+                         "(repro_torch.dist.bankmesh): colskip tiles via the "
+                         "colskip_mesh backend, whose banks are the CTAs of "
+                         "a thread-block cluster on the card")
+    ap.add_argument("--mesh_hosts", type=int, default=1,
+                    help="with --mesh: fold the banks into a hierarchical "
+                         "hosts x banks 2-axis mesh")
+    ap.add_argument("--fuse", type=int, default=1,
+                    help="bit planes fused per manager OR round on the mesh "
+                         "path (1-8; the card's kernel is built for 1, 2 "
+                         "and 4); results are fuse-invariant, only "
+                         "collectives.rounds changes")
     ap.add_argument("--tile_rows", type=int, default=8)
     ap.add_argument("--banks", type=int, default=8)
     ap.add_argument("--bank_width", type=int, default=1024)
@@ -107,6 +198,20 @@ def main(argv=None):
     ap.add_argument("--fault_rate", type=float, default=0.05,
                     help="per-execution transient fault probability under "
                          "--chaos (default 0.05)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve through a FleetRouter over N independent "
+                         "engine replicas (telemetry-driven placement, "
+                         "RetryAfter-aware failover); 1 = single engine")
+    ap.add_argument("--warm-state", default="", dest="warm_state",
+                    help="warm-state artifact path: loaded (if it exists) "
+                         "to prewarm every replica before serving, and "
+                         "written back (merged across replicas) after")
+    ap.add_argument("--rolling-restart", action="store_true",
+                    dest="rolling_restart",
+                    help="with --replicas >= 2: restart each replica slot "
+                         "in turn midway through the workload, prewarmed "
+                         "from the fleet's merged warm state, while the "
+                         "siblings keep serving")
     ap.add_argument("--json", default="", help="write telemetry JSON here")
     ap.add_argument("--trace", default="",
                     help="enable the flight recorder and write the Chrome "
@@ -119,15 +224,40 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     backends = tuple(s for s in args.backends.split(",") if s)
+    if args.mesh_hosts > 1 and not args.mesh:
+        ap.error("--mesh_hosts needs --mesh (the hosts axis shards the "
+                 "mesh bank pool)")
+    if args.fuse > 1 and not args.mesh:
+        ap.error("--fuse needs --mesh (plane fusion batches the mesh "
+                 "manager's OR rounds; the local engine has no collectives)")
+    if args.mesh:
+        # the mesh-sharded simulator replaces the local one; §V.C cycle
+        # invariance keeps every telemetry assertion identical
+        backends = tuple("colskip_mesh" if b == "colskip" else b
+                         for b in backends)
     if args.shed_overload and not args.high_watermark:
         ap.error("--shed_overload needs --high_watermark N")
+    if args.replicas < 1:
+        ap.error("--replicas must be >= 1")
+    if args.rolling_restart and args.replicas < 2:
+        ap.error("--rolling-restart needs --replicas >= 2 (a sibling must "
+                 "absorb traffic while a slot restarts)")
+    if args.replicas > 1 and (args.mesh or args.trace or args.metrics_out
+                              or args.chaos is not None):
+        ap.error("--replicas > 1 drives independent local engines; use "
+                 "--mesh/--trace/--metrics-out/--chaos one engine at a time")
 
-    admission = None
-    if args.high_watermark:
+    def make_admission():
+        if not args.high_watermark:
+            return None
         from repro_torch.sortserve import WatermarkPolicy
-        admission = WatermarkPolicy(high_watermark=args.high_watermark,
-                                    low_watermark=args.low_watermark,
-                                    shed=args.shed_overload)
+        # admission policies carry hysteresis state: one fresh instance
+        # per engine, never shared across replicas
+        return WatermarkPolicy(high_watermark=args.high_watermark,
+                               low_watermark=args.low_watermark,
+                               shed=args.shed_overload)
+
+    admission = make_admission()
     tracer = None
     if args.trace:
         from repro_torch.obs import Tracer
@@ -152,15 +282,45 @@ def main(argv=None):
         bank_width=args.bank_width,
         bank_rows=max(args.tile_rows, 8),
         sim_width_cap=args.sim_width_cap,
+        mesh=args.mesh,
+        mesh_hosts=args.mesh_hosts,
+        fuse=args.fuse,
         packed=not args.dense,
         adaptive_policy=not args.static_policy,
         admission=admission,
         faults=faults,
         device=args.device,
     )
+    if args.replicas > 1:
+        from repro_torch.sortserve import FleetRouter
+
+        def fresh_engine():
+            return SortServeEngine(
+                dataclasses.replace(cfg, admission=make_admission()))
+
+        router = FleetRouter([fresh_engine() for _ in range(args.replicas)],
+                             engine_factory=fresh_engine, seed=args.seed)
+        if args.warm_state and os.path.exists(args.warm_state):
+            stats = router.load_warm_state(args.warm_state)
+            print(f"warm state <- {args.warm_state} "
+                  f"({stats['signatures']} signatures, "
+                  f"{stats['priors']} priors, {stats['prewarmed']} prewarmed)")
+        reqs = make_workload(args.requests, args.min_len, args.max_len,
+                             args.seed)
+        return _serve_fleet(args, router, reqs)
+
     engine = SortServeEngine(cfg)
+    if args.warm_state and os.path.exists(args.warm_state):
+        from repro_torch.sortserve import load_warm_state
+        stats = engine.apply_warm_state(load_warm_state(args.warm_state))
+        print(f"warm state <- {args.warm_state} "
+              f"({stats['signatures']} signatures, "
+              f"{stats['priors']} priors, {stats['prewarmed']} prewarmed)")
     reqs = make_workload(args.requests, args.min_len, args.max_len, args.seed)
 
+    if args.mesh:
+        from repro_torch.sortserve.backends import ShardedColskipBackend
+        ShardedColskipBackend.reset_rounds()
     t0 = time.time()
     shed = []
     if args.shed_overload:
@@ -200,6 +360,15 @@ def main(argv=None):
     print(f"executor cache: {telem['executor_cache']['hits']} hits / "
           f"{telem['executor_cache']['misses']} builds "
           f"(hit-rate {telem['executor_cache']['hit_rate']:.2f})")
+    coll = telem.get("collectives", {})
+    if args.mesh and coll.get("rounds"):
+        print(f"collectives: {coll['rounds']} rounds / {coll['planes']} "
+              f"planes (round CR {coll['round_cr']:.2f}x, fuse={args.fuse})  "
+              f"prefetch {coll['prefetch_hits']}/{coll['prefetch_staged']}")
+        if ShardedColskipBackend.static_rounds:
+            print(f"mesh kernel: {ShardedColskipBackend.kernel_rounds} "
+                  "exchange rounds on the tiles' slowest rows, of a static "
+                  f"account of {ShardedColskipBackend.static_rounds}")
     print(f"scheduler drains: {telem['scheduler']['drains']}  "
           f"oversized waves: {telem['scheduler']['oversized_waves']}  "
           f"mid-wave admissions: {telem['scheduler']['mid_wave_admissions']}")
@@ -235,6 +404,10 @@ def main(argv=None):
         engine.dump_snapshot(args.snapshot_out,
                              source="repro_torch.launch.sortserve")
         print(f"snapshot -> {args.snapshot_out}")
+    if args.warm_state:
+        from repro_torch.sortserve import save_warm_state
+        save_warm_state(engine, args.warm_state)
+        print(f"warm state -> {args.warm_state}")
     if args.json:
         engine.dump_telemetry(args.json)
         print(f"telemetry -> {args.json}")

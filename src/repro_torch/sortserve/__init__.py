@@ -1,7 +1,7 @@
 """sortserve — sort-as-a-service over the column-skipping engines.
 
-The torch port of :mod:`repro.sortserve` (everything but the fleet, which
-is not ported yet); the backends run the port's CUDA kernels.
+The torch port of :mod:`repro.sortserve`; the backends run the port's
+CUDA kernels.
 
 The paper's §IV multi-bank manager turns one physical sorter into a pool of
 synchronized sub-sorters; this package applies the same structure one level
@@ -30,7 +30,10 @@ up, turning the repo's sorting engines into a request-level service:
     event-clock admission + overload stats),
   * :mod:`faults`    — seeded bank fault injection (:class:`FaultPlan`),
     the result-verification guard, and the :class:`BankHealth`
-    quarantine/probation tracker behind ``EngineConfig(faults=...)``.
+    quarantine/probation tracker behind ``EngineConfig(faults=...)``,
+  * :mod:`fleet`     — N engine replicas behind a telemetry-driven
+    :class:`FleetRouter` (failover, shed redirect, rolling restart) and
+    the versioned warm-state artifact shared with the reference package.
 """
 
 from .backends import BACKENDS, CostPolicy, resolve_backends, solve_numpy
@@ -42,6 +45,17 @@ from .engine import (
     RetryAfter,
     SortServeEngine,
     SortSession,
+)
+from .fleet import (
+    WARM_STATE_VERSION,
+    FleetError,
+    FleetRouter,
+    FleetSaturated,
+    NoReplicaAvailable,
+    WarmStateError,
+    load_warm_state,
+    merge_warm_states,
+    save_warm_state,
 )
 from .faults import (
     BankDeadError,
@@ -79,6 +93,10 @@ __all__ = [
     "FaultError",
     "FaultInjector",
     "FaultPlan",
+    "FleetError",
+    "FleetRouter",
+    "FleetSaturated",
+    "NoReplicaAvailable",
     "OP_KINDS",
     "RecoveryPolicy",
     "RetryAfter",
@@ -89,10 +107,15 @@ __all__ = [
     "SortSession",
     "Tile",
     "TransientFaultError",
+    "WARM_STATE_VERSION",
+    "WarmStateError",
     "WatermarkPolicy",
     "encode_payload",
+    "load_warm_state",
+    "merge_warm_states",
     "pow2_bucket",
     "resolve_backends",
+    "save_warm_state",
     "solve_numpy",
     "verify_tile_result",
 ]

@@ -5,23 +5,26 @@ The torch port of :mod:`repro.sortserve.backends`.  A backend executes one
 the sortable domain — and returns values/indices plus whatever hardware
 telemetry it can model:
 
-  ==============  ======================  =================================
-  backend         ops                     telemetry
-  ==============  ======================  =================================
-  ``colskip``     sort, argsort, kmin     exact per-row CRs + cycles from the
+  ================  ====================  =================================
+  backend           ops                   telemetry
+  ================  ====================  =================================
+  ``colskip``       sort, argsort, kmin   exact per-row CRs + cycles from the
                                           §III machine (the colskip CUDA
                                           kernel; its plain torch version on
                                           the CPU)
-  ``radix_topk``  topk, kmin              per-row discriminating-plane reads;
+  ``colskip_mesh``  sort, argsort, kmin   the same, over a bank mesh (the
+                                          mesh kernel on the card, the plain
+                                          mesh on the CPU)
+  ``radix_topk``    topk, kmin            per-row discriminating-plane reads;
                                           thresholds from the radix CUDA
                                           kernel (plain torch on the CPU)
-  ``jaxsort``     sort, argsort, kmin     none (a stable comparison sort;
+  ``jaxsort``       sort, argsort, kmin   none (a stable comparison sort;
                                           serves widths beyond the
                                           simulation cap — the name is kept
                                           so priors and telemetry cross
                                           between the packages)
-  ``numpy``       all                     none (reference oracle)
-  ==============  ======================  =================================
+  ``numpy``         all                   none (reference oracle)
+  ================  ====================  =================================
 
 The torch backends run on ``device`` (default ``"cuda"``; it raises with
 no card, and ``"cpu"`` runs the plain versions).  Selection is the
@@ -305,6 +308,180 @@ class ColskipBackend(Backend):
         stop = k if op == "kmin" else None
         _, hit = _colskip_launcher(b, n, self.w, self.state_k, stop,
                                    self.packed, self.device)
+        return not hit
+
+
+@register_backend
+class ShardedColskipBackend(Backend):
+    """Column-skipping sorter over a bank mesh (§IV on one card).
+
+    Executes each tile through
+    :func:`repro_torch.dist.bankmesh.colskip_sort_mesh`: a row's columns
+    split over the mesh's banks, the mixed-column judgement one OR-gate
+    exchange per fused block of planes — on the card the mesh kernel (a
+    thread-block cluster a row, a CTA a bank), on the CPU the plain mesh.
+    Values, order, and CR/cycle telemetry are bit-identical to
+    :class:`ColskipBackend` — §V.C's invariance of column skipping under
+    multi-bank management — so the cost policy treats both simulators
+    interchangeably.  Tiles whose width does not divide over the mesh run
+    on one bank, the local colskip kernel (same telemetry, by the same
+    invariance; ``meta["mesh_banks"] == 1``).
+
+    ``kernel_rounds`` / ``static_rounds`` (class-wide, reset by
+    :meth:`reset_rounds`) sum over the mesh tiles run on the card the
+    exchanges the kernel made on the tile's slowest row and the
+    reference's static account (:func:`collective_rounds`), which the
+    engine's ``collectives`` telemetry reports.
+    """
+
+    name = "colskip_mesh"
+    ops = frozenset(("sort", "argsort", "kmin"))
+    kernel_rounds = 0
+    static_rounds = 0
+
+    def __init__(self, w: int = 32, state_k: int = 2, mesh=None,
+                 axis_name="banks", packed: bool = True, fuse: int = 1,
+                 device="cuda"):
+        from repro_torch.dist.bankmesh import (
+            make_bank_mesh,
+            topology_fingerprint,
+        )
+        self.w = w
+        self.state_k = state_k
+        self.axis_name = axis_name
+        self.packed = packed
+        self.fuse = fuse
+        self.mesh = mesh if mesh is not None else make_bank_mesh(
+            axis_name=axis_name, device=device)
+        self.device = self.mesh.device
+        if self.device.type == "cuda" and fuse not in colskip_ops.MESH_FUSES:
+            # refuse what the mesh kernel is not built for now, not at the
+            # first mesh tile
+            raise NotImplementedError(
+                f"fuse={fuse}: the mesh kernel is built for fuse in "
+                f"{colskip_ops.MESH_FUSES} (ROADMAP Queue 1)")
+        # launcher keys carry the topology fingerprint, NOT the mesh object:
+        # an equal mesh rebuilt after a restart must hit, not rebuild
+        self._fingerprint = topology_fingerprint(self.mesh)
+        # double buffer: id(tile) -> (tile, staged tensor, copy event)
+        # staged by prefetch() while the previous tile runs.  Two slots,
+        # FIFO-evicted: admitting tile X stages its successor Y before X
+        # executes, so X's own staged entry must survive one more staging
+        self._staged: dict = {}
+        self._copy_stream = None
+
+    @classmethod
+    def reset_rounds(cls) -> None:
+        cls.kernel_rounds = cls.static_rounds = 0
+
+    @property
+    def n_devices(self) -> int:
+        from repro_torch.dist.bankmesh import mesh_banks
+        return mesh_banks(self.mesh, self.axis_name)
+
+    def _on_mesh(self, n: int) -> bool:
+        return n % self.n_devices == 0 and self.n_devices > 1
+
+    def _mesh_launcher(self, b: int, n: int, stop_eff: int):
+        from repro_torch.dist.bankmesh import colskip_sort_mesh
+        key = ("colskip_mesh", b, n, self.w, self.state_k, stop_eff,
+               self.packed, self.fuse, self.n_devices, self._fingerprint)
+
+        def build():
+            if self.device.type == "cuda":
+                colskip_ops._mesh_lib()       # load (or compile) the kernel
+            return functools.partial(
+                colskip_sort_mesh, mesh=self.mesh, w=self.w, k=self.state_k,
+                axis_name=self.axis_name, stop_after=stop_eff,
+                packed=self.packed, fuse=self.fuse)
+        # built through the executor cache (like the local backends), so a
+        # cold mesh tile is visible as a cache miss — the engine's
+        # warm-only EMA gate depends on that
+        return EXECUTOR_CACHE.get(key, build)
+
+    def _stage(self, data: np.ndarray):
+        """The tile on the mesh's device: on the card a host-to-device copy
+        from pinned memory on a side stream, with the event that marks its
+        end; on the CPU the tensor itself."""
+        host = torch.from_numpy(np.ascontiguousarray(data, np.uint32))
+        if self.device.type != "cuda":
+            return host, None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=self.device)
+        pinned = host.pin_memory()
+        with torch.cuda.stream(self._copy_stream):
+            staged = pinned.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        return staged, done
+
+    def prefetch(self, tile: Tile) -> bool:
+        """Stage the next tile's device transfer (double buffering).
+
+        Called by the scheduler right before the current tile executes:
+        the copy runs on a side stream while the current tile traverses
+        planes, and :meth:`run` waits on its event before launching.  Two
+        slots, oldest evicted; restaging a tile refreshes it.  Returns
+        True when a transfer was staged."""
+        if not self._on_mesh(tile.data.shape[1]):
+            return False                 # one-bank fallback: nothing to hide
+        self._staged.pop(id(tile), None)
+        self._staged[id(tile)] = (tile, *self._stage(tile.data))
+        while len(self._staged) > 2:
+            del self._staged[next(iter(self._staged))]
+        return True
+
+    def run(self, tile: Tile) -> TileResult:
+        from repro_torch.dist.bankmesh import collective_rounds
+        b, n = tile.data.shape
+        stop = tile.k if tile.op == "kmin" else None
+        staged = self._staged.pop(id(tile), None)
+        # the identity re-check guards id() reuse after a staged tile died
+        prefetch_hit = staged is not None and staged[0] is tile
+        coll = {"coll_rounds": 0, "coll_planes": 0, "coll_unfused_rounds": 0}
+        if self._on_mesh(n):
+            stop_eff = min(stop, n) if stop is not None else n
+            fn, warm = self._mesh_launcher(b, n, stop_eff)
+            if prefetch_hit:
+                arr, done = staged[1], staged[2]
+                if done is not None:
+                    cur = torch.cuda.current_stream(self.device)
+                    cur.wait_event(done)
+                    arr.record_stream(cur)
+            else:
+                arr = _tensor(tile.data, self.device)
+            vals, order, crs, cycles, rounds = fn(arr, return_rounds=True)
+            banks_used = self.n_devices
+            acct = collective_rounds(self.w, stop_eff, self.fuse)
+            coll = {"coll_rounds": acct["rounds"],
+                    "coll_planes": acct["planes"],
+                    "coll_unfused_rounds": acct["unfused_rounds"]}
+            if rounds is not None:
+                cls = type(self)
+                cls.kernel_rounds += int(rounds.max())
+                cls.static_rounds += acct["rounds"]
+        else:
+            fn, warm = _colskip_launcher(b, n, self.w, self.state_k, stop,
+                                         self.packed, self.device)
+            vals, order, crs, cycles = fn(_tensor(tile.data, self.device))
+            banks_used = 1
+        return TileResult(vals.cpu().numpy(), order.cpu().numpy(),
+                          crs.cpu().numpy().astype(np.int64),
+                          cycles.cpu().numpy().astype(np.int64), self.name,
+                          meta={"w": self.w, "state_k": self.state_k,
+                                "stop_after": stop, "mesh_banks": banks_used,
+                                "packed": self.packed, "exec_warm": warm,
+                                "fuse": self.fuse,
+                                "prefetch_hit": prefetch_hit, **coll})
+
+    def warm(self, b: int, n: int, op: str, k: int | None) -> bool:
+        stop = k if op == "kmin" else None
+        if self._on_mesh(n):
+            stop_eff = min(stop, n) if stop is not None else n
+            _, hit = self._mesh_launcher(b, n, stop_eff)
+        else:
+            _, hit = _colskip_launcher(b, n, self.w, self.state_k, stop,
+                                       self.packed, self.device)
         return not hit
 
 

@@ -2,10 +2,13 @@
 
 The torch port of :mod:`repro.sortserve.engine`: the same engine, whose
 backends run the port's kernels on ``EngineConfig.device`` (default
-``"cuda"``; ``"cpu"`` runs the plain torch versions).  The mesh bank pool,
-plane fusion and the persistent compilation cache are not ported yet
-(ROADMAP Queue 1); asking for them raises :class:`NotImplementedError`.
-:func:`config_from_reference` builds a config from the reference's.
+``"cuda"``; ``"cpu"`` runs the plain torch versions).  ``mesh=True``
+serves through :class:`~repro_torch.dist.bankmesh.MeshBankPool`, whose
+``colskip_mesh`` backend runs the mesh kernel on the card (a thread-block
+cluster a row, a CTA a bank) and the plain mesh on the CPU.  The
+persistent compilation cache has no counterpart yet; asking for it raises
+:class:`NotImplementedError`.  :func:`config_from_reference` builds a
+config from the reference's.
 
 The data path is session-shaped (the continuous core is the only core):
 
@@ -130,10 +133,14 @@ class EngineConfig:
     state_k: int = 2                # colskip state-recording entries
     sim_width_cap: int = 2048       # width prior for the cycle-exact sim
     verify: bool = False            # cross-check every response vs the oracle
-    mesh: bool = False              # mesh bank pool: not ported yet
-    mesh_hosts: int = 1             # hosts axis of the mesh: not ported yet
-    fuse: int = 1                   # mesh plane fusion: not ported yet
-    compile_cache: str | None = None  # persistent compile cache: not ported
+    mesh: bool = False              # MeshBankPool: shard groups on the banks
+                                    # of a mesh (a cluster's CTAs on the card)
+    mesh_hosts: int = 1             # >1: hierarchical 2-axis hosts x banks
+                                    # mesh (the same banks, folded)
+    fuse: int = 1                   # bit planes per fused manager round on
+                                    # the mesh path (results fuse-invariant)
+    compile_cache: str | None = None  # persistent compile cache: no
+                                      # counterpart in the port yet
     cache_size: int = 1024          # result-cache entries (0 disables)
     packed: bool = True             # lane-packed masks in the §III machine
                                     # (False: the dense carrier)
@@ -162,15 +169,17 @@ class EngineConfig:
             raise ValueError(
                 f"tile_rows={self.tile_rows} exceeds bank_rows={self.bank_rows}; "
                 "tiles would never fit a bank")
-        unported = {"mesh": self.mesh, "mesh_hosts > 1": self.mesh_hosts > 1,
-                    "fuse != 1": self.fuse != 1,
-                    "compile_cache": bool(self.compile_cache)}
-        asked = [name for name, on in unported.items() if on]
-        if asked:
+        if not 1 <= self.fuse <= 8:
+            raise ValueError(f"fuse={self.fuse} out of range [1, 8]")
+        if self.mesh_hosts < 1:
+            raise ValueError(f"mesh_hosts={self.mesh_hosts} must be >= 1")
+        if self.mesh_hosts > 1 and not self.mesh:
+            raise ValueError("mesh_hosts > 1 needs mesh=True (the hosts "
+                             "axis only exists on the mesh pool)")
+        if self.compile_cache:
             raise NotImplementedError(
-                f"{', '.join(asked)}: not ported yet (ROADMAP Queue 1: the "
-                "mesh pool and fusion are item 10; the compile cache has no "
-                "counterpart)")
+                "compile_cache: the persistent compilation cache has no "
+                "counterpart in the port yet (ROADMAP Queue 1)")
         resolve_device(self.device)
 
 
@@ -185,20 +194,32 @@ class SortServeEngine:
         # w/state_k are owned by EngineConfig (the CostPolicy and telemetry
         # are computed from them); a conflicting per-backend override would
         # silently desync simulated cycles from the modeled hardware
-        clash = {"w", "state_k"} & set(kwargs.get("colskip", {}))
-        if clash:
-            raise ValueError(f"set {sorted(clash)} via EngineConfig, "
-                             "not backend_kwargs['colskip']")
-        kwargs["colskip"] = {**kwargs.get("colskip", {}),
-                             "w": self.config.w,
-                             "state_k": self.config.state_k}
-        # engine-level execution flags; explicit backend_kwargs win
-        kwargs["colskip"].setdefault("packed", self.config.packed)
-        for name in ("colskip", "radix_topk", "jaxsort"):
+        for sim in ("colskip", "colskip_mesh"):
+            clash = {"w", "state_k"} & set(kwargs.get(sim, {}))
+            if clash:
+                raise ValueError(
+                    f"set {sorted(clash)} via EngineConfig, "
+                    f"not backend_kwargs[{sim!r}]")
+            kwargs[sim] = {**kwargs.get(sim, {}),
+                           "w": self.config.w, "state_k": self.config.state_k}
+            # engine-level execution flags; explicit backend_kwargs win
+            kwargs[sim].setdefault("packed", self.config.packed)
+        for name in ("colskip", "colskip_mesh", "radix_topk", "jaxsort"):
             kwargs[name] = {**kwargs.get(name, {})}
             kwargs[name].setdefault("device", self.config.device)
-        self.pool = BankPool(self.config.banks, self.config.bank_width,
-                             self.config.bank_rows)
+        if self.config.mesh:
+            from repro_torch.dist.bankmesh import MeshBankPool
+            self.pool = MeshBankPool(self.config.banks, self.config.bank_width,
+                                     self.config.bank_rows,
+                                     hosts=self.config.mesh_hosts,
+                                     device=self.config.device)
+            # the mesh backend executes on the pool's own bank mesh
+            kwargs["colskip_mesh"].setdefault("mesh", self.pool.mesh)
+            kwargs["colskip_mesh"].setdefault("axis_name", self.pool.axis_name)
+            kwargs["colskip_mesh"].setdefault("fuse", self.config.fuse)
+        else:
+            self.pool = BankPool(self.config.banks, self.config.bank_width,
+                                 self.config.bank_rows)
         self.backends = resolve_backends(self.config.backends, **kwargs)
         self.policy = CostPolicy(self.backends,
                                  sim_width_cap=self.config.sim_width_cap,
@@ -236,7 +257,8 @@ class SortServeEngine:
                       if self._tracer is not None else None),
             health=self._health,
             recovery=(plan.recovery if plan is not None
-                      else RecoveryPolicy()))
+                      else RecoveryPolicy()),
+            prefetch=self._prefetch_tile)
         # serializes sessions/submits over the shared scheduler + telemetry
         # (the async front door feeds from its collector thread)
         self._lock = threading.RLock()
@@ -261,8 +283,7 @@ class SortServeEngine:
             # mesh collective-round accounting (§IV manager rounds; the
             # mesh-side CR analogue): fixed shape, zeros off the mesh path.
             # Living inside _agg puts it under submit's all-or-nothing
-            # snapshot/rollback for free.  The prefetch counters stay zero:
-            # the double-buffer hook waits for the sharded colskip backend.
+            # snapshot/rollback for free.
             "collectives": {"rounds": 0, "planes": 0, "unfused_rounds": 0,
                             "prefetch_staged": 0, "prefetch_hits": 0},
         }
@@ -457,6 +478,21 @@ class SortServeEngine:
                 return be
         return None
 
+    def _prefetch_tile(self, tile: Tile) -> None:
+        """Scheduler double-buffer hook: stage the next queued tile's device
+        transfer on the backend that will (most likely) execute it, so the
+        host->device copy overlaps the current tile's plane traversal.
+        Best-effort — routing may differ at execute time, and a stale slot
+        is simply unused; only backends with a ``prefetch`` method (the
+        mesh backend) participate."""
+        try:
+            backend = self.policy.choose(tile)
+        except (KeyError, ValueError):
+            return                      # unroutable here; execute will raise
+        pf = getattr(backend, "prefetch", None)
+        if pf is not None and pf(tile):
+            self._agg["collectives"]["prefetch_staged"] += 1
+
     def _execute(self, tile: Tile,
                  traffic_class: str | None = None) -> TileResult:
         backend = self.policy.choose(tile, traffic_class=traffic_class)
@@ -542,6 +578,8 @@ class SortServeEngine:
         coll["planes"] += int(result.meta.get("coll_planes", 0))
         coll["unfused_rounds"] += int(result.meta.get("coll_unfused_rounds",
                                                       0))
+        if result.meta.get("prefetch_hit"):
+            coll["prefetch_hits"] += 1
         n = tile.shape[1]
         if str(n) not in self._agg["modeled_hw"]:   # compute once per width
             self._agg["modeled_hw"][str(n)] = \
@@ -765,9 +803,9 @@ class SortServeEngine:
         """The raw warm-state blocks — per-traffic-class tile-signature
         menus, measured :class:`CostPolicy` EMAs (class rows included),
         and calibration profile rows — taken under the engine lock.  The
-        blocks carry only JSON-native values, sorted deterministically (the
-        reference's fleet module wraps them in a versioned envelope; it is
-        not ported yet)."""
+        blocks carry only JSON-native values, sorted deterministically.
+        :func:`repro_torch.sortserve.fleet.save_warm_state` wraps this in
+        the versioned artifact envelope."""
         with self._lock:
             menus = {cls: [list(sig) for sig in sorted(sigs, key=repr)]
                      for cls, sigs in sorted(self._class_menus.items())}
@@ -1418,8 +1456,9 @@ def config_from_reference(d: dict, *, device="cuda") -> EngineConfig:
     ``use_pallas``/``interpret`` (Pallas switches), objects of the
     reference package in ``admission``/``tracer``/``slo``/``faults`` (build
     the port's own and pass them to :class:`EngineConfig`), and the
-    unported mesh, fusion and compile-cache options
-    (:class:`NotImplementedError`)."""
+    compile-cache option, which has no counterpart yet
+    (:class:`NotImplementedError`).  ``mesh``, ``mesh_hosts`` and ``fuse``
+    cross as they are."""
     d = dict(d)
     for name in _PALLAS_ONLY:
         value = d.pop(name, None)

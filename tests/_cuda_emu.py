@@ -3,7 +3,8 @@
 The CPU has no nvcc and no card, so a CUDA kernel cannot run here.  This
 helper rewrites the three constructs plain C++ lacks (``extern
 __shared__`` arrays, ``<<<...>>>`` launches, ``#pragma unroll``) and
-compiles the source with g++ against ``tests/cuda_emu/cuda_runtime.h``,
+compiles the source with g++ against ``tests/cuda_emu/cuda_runtime.h``
+(the source's own directory on the include path, for its ``.cuh``),
 where the CUDA threads of a cluster are fibers on the calling thread and
 warp collectives meet at barriers.  The library keeps the kernel's plain
 C interface, so a test calls it with ctypes on CPU tensors exactly as the
@@ -45,6 +46,7 @@ def build(cu: Path, out_dir: Path, defines=()) -> ctypes.CDLL:
     cpp.write_text(translate(cu.read_text()))
     subprocess.run([compiler(), "-std=c++20", "-O1", "-shared", "-fPIC",
                     "-pthread", *(f"-D{d}" for d in defines), "-I", str(EMU),
+                    "-I", str(cu.parent),
                     "-o", str(so), str(cpp)],
                    check=True, capture_output=True, text=True, timeout=300)
     return ctypes.CDLL(str(so))

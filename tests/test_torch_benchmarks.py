@@ -9,6 +9,10 @@
     planes visited read bits);
   * the copied ``core/multibank.py`` equals the reference's at the fig8b
     input, values and cycles;
+  * the streaming and distserve suites on ``cpu`` (their CPU sizes): the
+    reference's row names; the cycle-domain rows (arrival disciplines,
+    overload, fleet scale-out) give the reference's derived text; every
+    correctness band passes and ``cycle_parity=ok``;
   * the runner keeps the reference's document and exit code, and asks for
     the card by default.
 """
@@ -27,7 +31,9 @@ from repro.core import multibank_colskip_sort as ref_multibank
 from repro.core.datasets import make_dataset
 from repro.kernels.colskip import colskip_sort_batched as ref_sort_batched
 from repro.kernels.radix_topk.kernel import threshold_pallas
-from repro_torch.benchmarks import kernel_bench, run as bench_run
+from repro_torch.benchmarks import distserve_bench, kernel_bench
+from repro_torch.benchmarks import run as bench_run
+from repro_torch.benchmarks import streaming_bench
 from repro_torch.core.multibank import multibank_colskip_sort
 
 TIMES = re.compile(r"\b(dense_us|radix|torch_topk|lax|cold_us)=\S+")
@@ -108,10 +114,60 @@ def test_runner_document_and_exit_code(tmp_path, capsys, monkeypatch):
 
 
 def test_runner_ports_eight_suites_and_asks_for_the_card(monkeypatch):
+    # eight suites at first; streaming and distserve since: ten of eleven
     names = [m.rsplit(".", 1)[1] for m in bench_run.SUITES]
     assert names == ["fig6_speedup", "fig7_area_power", "fig8a_summary",
                      "fig8b_multibank", "kernel_bench", "serving_bench",
-                     "sortserve_bench", "packed_bench"]
+                     "sortserve_bench", "packed_bench", "streaming_bench",
+                     "distserve_bench"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         bench_run.main(["--only", "fig8a"])
+
+
+# cycle-domain rows: a deterministic simulation, the same text in both
+_MODEL_ROWS = ("streaming/poisson_", "streaming/bursty_",
+               "streaming/overload_", "streaming/fleet_1replica",
+               "streaming/fleet_2replica", "streaming/fleet_scaleout")
+
+
+def test_streaming_suite_on_cpu_matches_reference_rows():
+    from benchmarks import streaming_bench as ref
+    got = dict(_rows(streaming_bench.run, device="cpu"))
+    want = []
+    for part in (ref._bench_overload, ref._bench_fleet):
+        part(lambda name, us_per_call, derived: want.append((name, derived)))
+    for discipline, trace, window in (
+            ("poisson", ref.poisson_trace(400, seed=11, mean_gap=2400.0),
+             4000.0),
+            ("bursty", ref.bursty_trace(40, gap=40_000.0), 8000.0)):
+        ref._bench_discipline(
+            lambda name, us_per_call, derived: want.append((name, derived)),
+            discipline, trace, window)
+    names = ["poisson_continuous", "poisson_flush", "poisson_speedup",
+             "bursty_continuous", "bursty_flush", "bursty_speedup",
+             "overload_off", "overload_defer", "overload_shed",
+             "overload_backpressure", "session_local", "tracing_overhead",
+             "export_overhead", "degraded_healthy", "degraded_dead_bank",
+             "degraded_transient_storm", "degraded_recovery",
+             "fleet_1replica", "fleet_2replica", "fleet_scaleout",
+             "fleet_steady", "fleet_rolling", "fleet_rolling_restart",
+             "session_mesh"]
+    assert list(got) == [f"streaming/{n}" for n in names]
+    for name, derived in want:
+        assert name.startswith(_MODEL_ROWS)
+        assert got[name] == derived, name
+    # correctness bands: every request served (sessions, the degraded
+    # ladder, the fleet); the wall-clock overhead bands are not asserted
+    for name in ("session_local", "session_mesh", "degraded_recovery",
+                 "fleet_rolling_restart", "fleet_scaleout"):
+        assert got[f"streaming/{name}"].endswith("PASS"), name
+
+
+def test_distserve_suite_on_cpu_keeps_cycle_parity():
+    got = dict(_rows(distserve_bench.run, device="cpu"))
+    assert list(got) == ["distserve_local_pool", "distserve_mesh_pool"]
+    for derived in got.values():
+        assert derived.endswith("cycle_parity=ok")
+    assert got["distserve_local_pool"].split()[1:4] == \
+        got["distserve_mesh_pool"].split()[1:4]       # req, cycles, banks

@@ -11,8 +11,11 @@ every instance (registers at C = 4, 8, 16 elements a thread, the table
 in registers or shared memory, and the rolled one-warp shared-memory
 instance), also built at those fusion depths; the chain probes; the radix
 threshold kernel (a cluster of 8 blocks a tile, both entries, the
-streamed instance); and the bitonic kernel in one block and in clusters of 2 and 4 blocks.  Every
-output must equal the plain version's exactly.  Shapes are small: an
+streamed instance); the bitonic kernel in one block and in clusters of 2 and 4 blocks; and the
+mesh kernel (a cluster of 2, 4 or 8 CTAs a row, each a bank, the gates
+an exchange through the cluster's shared memory) against the plain mesh
+and its chain probe.  Every output must equal the plain version's
+exactly.  Shapes are small: an
 emulated warp round costs microseconds of barriers.
 """
 
@@ -25,6 +28,7 @@ import torch
 
 from _cuda_emu import build, compiler
 from repro_torch.core.topk import to_sortable_uint
+from repro_torch.dist.bankmesh import collective_rounds
 from repro_torch.kernels import _build
 from repro_torch.kernels.colskip import ref as colskip_ref
 from repro_torch.kernels.radix_topk import ref as radix_ref
@@ -41,7 +45,8 @@ def libs(tmp_path_factory):
     jobs = {"colskip": ("colskip", []), "bitonic": ("bitonic", []),
             "fuse1": ("colskip", ["COLSKIP_FUSE=1"]),
             "fuse4": ("colskip", ["COLSKIP_FUSE=4"]),
-            "radix": ("radix_threshold", [])}
+            "radix": ("radix_threshold", []),
+            "mesh": ("colskip_mesh", [])}
     with ThreadPoolExecutor(3) as pool:        # g++ runs outside the GIL
         built = dict(zip(jobs, pool.map(
             lambda job: build(srcs[job[0]], out, job[1]), jobs.values())))
@@ -60,8 +65,11 @@ def libs(tmp_path_factory):
     radix.emu_rounds.argtypes = [I]
     radix.emu_rounds.restype = ctypes.c_long
     assert radix.radix_digit_bits() == 8
+    mesh = built["mesh"]
+    mesh.colskip_mesh_launch.argtypes = [VP] * 6 + [I] * 8 + [VP]
+    mesh.colskip_mesh_chain_launch.argtypes = [VP, ctypes.c_uint, I, I, VP]
     return {"colskip": colskip, "bitonic": bitonic, "fused": fused,
-            "dense": dense, "radix": radix}
+            "dense": dense, "radix": radix, "mesh": mesh}
 
 
 def _colskip(lib, x: np.ndarray, w: int, k: int, stop: int, packed=True):
@@ -272,3 +280,73 @@ def test_emulated_radix_kernel_descends_by_digits(libs):
         assert visited.max() == planes
     one = rounds[16] - rounds[8]
     assert one > 0 and rounds[32] - rounds[8] == 3 * one
+
+
+def _mesh(lib, x: np.ndarray, banks: int, w: int, k: int, stop: int,
+          fuse: int, packed: bool = True):
+    b, n = x.shape
+    xt = torch.from_numpy(x.view(np.int32)).contiguous()
+    vals = torch.zeros((b, stop), dtype=torch.int32)
+    order = torch.zeros((b, stop), dtype=torch.int32)
+    crs, cyc, rounds = (torch.zeros((b,), dtype=torch.int32)
+                        for _ in range(3))
+    assert lib.colskip_mesh_launch(
+        xt.data_ptr(), vals.data_ptr(), order.data_ptr(), crs.data_ptr(),
+        cyc.data_ptr(), rounds.data_ptr(), b, n, banks, w, k, stop, fuse,
+        int(packed), None) == 0
+    return [vals.view(torch.uint32), order, crs, cyc], rounds
+
+
+# the mesh kernels: clusters of 2, 4 and 8 CTAs (and 3, a cluster size
+# that is not a power of two), fuse in {1, 2, 4}, k in {0, 1, 2, 8},
+# stop_after in {1, 16, N}, duplicates; the packed carrier's register path
+# (shards up to 2048) and shared path (a shard of 2500), the dense
+# carrier's register instances (four warps a bank, C = 4, 8, 16; the
+# table in registers at k <= 2) and its rolled shared-memory instance
+# (one warp, shards past 2048); against the plain mesh, exactly
+@pytest.mark.parametrize("packed,banks,fuse,k,stop,b,n,dupes", [
+    (True, 2, 1, 2, None, 2, 64, False), (True, 4, 2, 0, None, 2, 128, True),
+    (True, 8, 4, 8, 16, 3, 256, False), (True, 2, 4, 1, 1, 2, 96, True),
+    (True, 4, 1, 8, None, 1, 200, True), (True, 8, 2, 2, None, 2, 128, False),
+    (True, 3, 2, 2, 16, 2, 96, False), (True, 8, 1, 0, 1, 1, 64, False),
+    (True, 4, 4, 2, None, 2, 160, True), (True, 2, 2, 8, 16, 1, 5000, False),
+    (True, 2, 1, 1, None, 1, 192, False), (True, 4, 2, 2, 16, 2, 4096, True),
+    (False, 2, 2, 2, None, 2, 128, False),         # C = 4
+    (False, 4, 1, 8, None, 2, 160, True),          # table in shared memory
+    (False, 8, 4, 0, 16, 3, 256, False), (False, 3, 2, 1, 1, 2, 96, True),
+    (False, 2, 2, 2, 16, 2, 2048, False),          # C = 8
+    (False, 2, 4, 8, 16, 1, 4096, True),           # C = 16
+    (False, 2, 1, 2, 16, 1, 4200, False),          # rolled, shards of 2100
+    (False, 4, 2, 1, None, 1, 8400, True),         # rolled, full sort
+])
+def test_emulated_mesh_kernel_equals_plain_mesh(libs, packed, banks, fuse, k,
+                                                stop, b, n, dupes):
+    x = _rows(b, n, 32, dupes, 11 * banks + fuse + k)
+    s = n if stop is None else stop
+    got, rounds = _mesh(libs["mesh"], x, banks, 32, k, s, fuse, packed)
+    _same(got, colskip_ref.sort_mesh_ref(torch.from_numpy(x), banks, 32, k,
+                                         s, packed=packed, fuse=fuse))
+    # the kernel's own exchanges stay within the reference's static account
+    assert 0 < int(rounds.max()) <= collective_rounds(32, s, fuse)["rounds"]
+
+
+def test_emulated_mesh_kernel_fuses_rounds(libs):
+    # the same rows at fuse 1, 2, 4: the same outputs, fewer exchanges
+    x = _rows(2, 128, 32, False, 5)
+    outs, rounds = zip(*(_mesh(libs["mesh"], x, 4, 32, 2, 128, f)
+                         for f in (1, 2, 4)))
+    for out in outs[1:]:
+        _same(out, outs[0])
+    r = [int(t.sum()) for t in rounds]
+    assert r[0] > r[1] > r[2] > 0
+
+
+@pytest.mark.parametrize("banks", [1, 2, 8])
+def test_emulated_mesh_chain_probe(libs, banks):
+    out = torch.zeros((1,), dtype=torch.int32)
+    assert libs["mesh"].colskip_mesh_chain_launch(out.data_ptr(), 5, 100,
+                                                  banks, None) == 0
+    acc = 0                           # the chain's words, ORed over banks
+    for r in range(100):
+        acc += max((((5 >> (r & 31)) ^ acc ^ d) & 1) for d in range(banks))
+    assert int(out[0]) == acc

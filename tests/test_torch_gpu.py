@@ -210,3 +210,113 @@ def test_engine_on_cuda_dense_reproduces_golden(cuda):
     live = golden_text(golden_payload(engine))
     assert live.strip() == GOLDEN.read_text().strip()
     assert colskip_ops.launches == c0 and colskip_ops.launches_dense > d0
+
+
+@pytest.mark.parametrize("packed,banks,fuse,b,n,k,stop", [
+    (True, 2, 1, 8, 256, 2, None), (True, 4, 2, 8, 1024, 0, 16),
+    (True, 8, 4, 3, 2048, 8, None), (True, 4, 4, 8, 8192, 2, None),
+    (True, 8, 2, 2, 65536, 2, 16), (True, 3, 2, 5, 96, 1, 1),
+    (True, 2, 2, 2, 4096 + 2048, 8, 16),   # shards past the register path
+    (False, 2, 1, 8, 256, 2, None), (False, 4, 2, 8, 1024, 8, 16),
+    (False, 8, 4, 3, 16384, 2, 16), (False, 4, 2, 2, 4096, 0, None),
+    (False, 2, 2, 2, 4096 + 2048, 2, 16),  # the rolled dense instance
+])
+def test_mesh_kernel_equals_local_kernel_and_plain_mesh(cuda, packed, banks,
+                                                        fuse, b, n, k, stop):
+    from repro_torch.dist.bankmesh import collective_rounds
+    from repro_torch.kernels.colskip import ops, ref
+    rng = np.random.default_rng(banks * n + k)
+    x = rng.integers(0, 1 << 32, (b, n), dtype=np.uint64).astype(np.uint32)
+    x[0] %= 5                                  # duplicate-heavy drains
+    xt = torch.from_numpy(x).to(cuda)
+    before = (ops.launches, ops.launches_mesh, ops.launches_mesh_dense)
+    got = ops.colskip_sort_mesh_batched(xt, banks, 32, k, stop_after=stop,
+                                        packed=packed, fuse=fuse,
+                                        return_rounds=True)
+    assert (ops.launches, ops.launches_mesh, ops.launches_mesh_dense) == (
+        before[0], before[1] + packed, before[2] + (not packed))
+    # past the local kernel's widest row the host's plain machine holds it
+    local = (ops.colskip_sort_batched(xt, 32, k, stop_after=stop)
+             if n <= ops.max_n(True, k)
+             else ref.sort_ref(torch.from_numpy(x), 32, k, stop))
+    torch.cuda.synchronize()
+    for g, v in zip(got[:4], local):
+        assert g.device.type == "cuda" and g.dtype == v.dtype
+        assert torch.equal(_words(g), _words(v))
+    s = n if stop is None else stop
+    assert 0 < int(got[4].max()) <= collective_rounds(32, s, fuse)["rounds"]
+    if n <= 256:       # the plain mesh on the host (launch-bound on the card)
+        want = ref.sort_mesh_ref(torch.from_numpy(x), banks, 32, k, s,
+                                 packed=packed, fuse=fuse)
+        for g, v in zip(got[:4], want):
+            assert torch.equal(_words(g), _words(v))
+
+
+def test_mesh_kernel_refuses_what_it_is_not_built_for(cuda):
+    from repro_torch.kernels.colskip import ops
+    x = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    for packed in (True, False):
+        with pytest.raises(NotImplementedError, match="fuse"):
+            ops.colskip_sort_mesh_batched(x, 4, fuse=3, packed=packed)
+        wide = ops.mesh_shard_max(packed, 2) * 2 + 64
+        with pytest.raises(ValueError, match="shard"):
+            ops.colskip_sort_mesh_batched(
+                torch.zeros((1, wide), dtype=torch.int32, device=cuda), 2,
+                packed=packed)
+    with pytest.raises(ValueError, match="banks"):
+        ops.colskip_sort_mesh_batched(torch.zeros((1, 90), dtype=torch.int32,
+                                                  device=cuda), 9)
+    assert ops.mesh_shard_max(False, 8) < ops.mesh_shard_max(False, 2)
+
+
+def test_mesh_chain_probe_runs_uncounted(cuda):
+    from repro_torch.kernels.colskip import ops
+    before = ops.launches_mesh
+    out = ops.mesh_chain(1000, 4)
+    torch.cuda.synchronize()
+    assert int(out[0]) == 1000       # banks 0 and 1 post opposite words
+    assert ops.launches_mesh == before
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_engine_on_cuda_mesh_reproduces_golden(cuda, packed):
+    from repro_torch.kernels.colskip import ops as colskip_ops
+    from repro_torch.sortserve import EngineConfig, SortServeEngine
+    from _torch_golden import GOLDEN, GOLDEN_CFG, golden_payload, \
+        golden_text
+    cfg = {**GOLDEN_CFG, "backends": tuple(
+        "colskip_mesh" if b == "colskip" else b
+        for b in GOLDEN_CFG["backends"])}
+    m0 = colskip_ops.launches_mesh + colskip_ops.launches_mesh_dense
+    engine = SortServeEngine(EngineConfig(**cfg, mesh=True, fuse=2,
+                                          packed=packed, device="cuda"))
+    payload = golden_payload(engine)
+    for r in payload["responses"]:
+        if r["backend"] == "colskip_mesh":
+            r["backend"] = "colskip"
+    assert golden_text(payload).strip() == GOLDEN.read_text().strip()
+    assert colskip_ops.launches_mesh + colskip_ops.launches_mesh_dense > m0
+
+
+def test_mesh_double_buffer_stages_on_a_side_stream(cuda):
+    # six whole-pool tiles at vt 0: each admit after the first stages its
+    # successor's host-to-device copy; the successor runs on it
+    from repro_torch.sortserve import EngineConfig, SortServeEngine
+    from repro_torch.sortserve.batcher import Tile
+    eng = SortServeEngine(EngineConfig(
+        backends=("colskip_mesh",), mesh=True, mesh_hosts=2, fuse=2,
+        tile_rows=4, min_bucket=8, banks=4, bank_width=64, bank_rows=4,
+        sim_width_cap=4096, cache_size=0, device="cuda"))
+    rng = np.random.default_rng(5)
+    tiles = [Tile(op="sort", data=rng.integers(0, 1 << 32, (4, 256),
+                                               dtype=np.uint64)
+                  .astype(np.uint32), k=None, entries=[], pad_rows=4)
+             for _ in range(6)]
+    out = {}
+    eng.scheduler.feed(tiles, eng._execute, at=0.0,
+                       sink=lambda t, res, exc: out.update({id(t): res}))
+    eng.scheduler.pump()
+    coll = eng.telemetry()["collectives"]
+    assert (coll["prefetch_staged"], coll["prefetch_hits"]) == (4, 4)
+    for t in tiles:
+        assert np.array_equal(out[id(t)].values, np.sort(t.data, -1))

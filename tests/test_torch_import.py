@@ -34,13 +34,18 @@ names = sorted(m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch."))
 for name in names:
     importlib.import_module(name)
+for name in ("repro_torch.dist", "repro_torch.dist.bankmesh",
+             "repro_torch.sortserve.fleet",
+             "repro_torch.benchmarks.streaming_bench",
+             "repro_torch.benchmarks.distserve_bench"):
+    assert name in names, name
 print(len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    assert int(out.stdout.strip()) >= 30
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -62,6 +67,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         radix_topk_threshold,
         threshold_sortable,
     )
+    from repro_torch.dist.bankmesh import make_bank_mesh
+    from repro_torch.kernels.colskip.ops import colskip_sort_mesh_batched
     from repro_torch.launch import sortserve
     from repro_torch.sortserve import EngineConfig
 
@@ -72,7 +79,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
              lambda: radix_topk_threshold(xf, 3),
              lambda: threshold_sortable(x, 3),
              lambda: EngineConfig(),
-             lambda: sortserve.main(["--requests", "4"])]
+             lambda: sortserve.main(["--requests", "4"]),
+             lambda: sortserve.main(["--requests", "4", "--mesh"]),
+             lambda: sortserve.main(["--requests", "4", "--replicas", "2"]),
+             lambda: make_bank_mesh(),
+             lambda: colskip_sort_mesh_batched(x, 2)]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()

@@ -124,10 +124,13 @@ def test_config_crosses_from_reference():
     assert cfg == EngineConfig(**GOLDEN_CFG, device="cpu")
     live = golden_text(golden_payload(SortServeEngine(cfg)))
     assert live.strip() == GOLDEN.read_text().strip()
+    # the mesh options cross as they are; the compile cache has no
+    # counterpart yet
+    mesh = config_from_reference({**d, "mesh": True, "mesh_hosts": 2,
+                                  "fuse": 2}, device="cpu")
+    assert (mesh.mesh, mesh.mesh_hosts, mesh.fuse) == (True, 2, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config_from_reference({**d, "mesh": True}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config_from_reference({**d, "fuse": 2}, device="cpu")
+        config_from_reference({**d, "compile_cache": "/tmp/x"}, device="cpu")
     with pytest.raises(ValueError, match="use_pallas"):
         config_from_reference({**d, "use_pallas": True}, device="cpu")
     with pytest.raises(ValueError, match="unknown"):
