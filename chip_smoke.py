@@ -79,13 +79,36 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      fuse in {1, 2, 4} beside its local kernel on the same tile, bound by
      the slowest row's min searches times one dependent cross-bank round
      (the ``mesh_chain`` probe at that D);
-  8. print ``{"ok": true, "device": {...}}`` as the last line.
+  8. the model-serving path (``repro_torch.models``, ``repro_torch.serve``):
+     the six dense and MoE archs at smoke size in float32 with TF32 off,
+     one seeded CPU model and its copy on the card, prefill and 3 decode
+     steps' logits and KV caches on cuda against cpu (``SMOKE_TOL``) and
+     every router call's expert ids exact on the same probabilities; then
+     ``serve.generate`` at full width (``MODEL_RUNS``: granite-moe-3b-a800m,
+     32 layers, B = 4, prompt 128, 32 new tokens, top_k 16; gemma3-4b, 34
+     layers, B = 1, prompt 1536, past its 1024 window, 16 new tokens,
+     top_k 64; bf16, weights from a seeded generator): with every launch
+     count reset just before and read just after, the radix launches equal
+     the count the code implies; every ``radix_topk`` call of the run (the
+     MoE router's and the sampler's, recorded by a wrapper this script
+     installs) replayed through the kernel's plain version on the card,
+     values and indices exact; a repeat run with the same generator gives
+     the same tokens; every token is below ``vocab``; ``greedy`` equals
+     ``torch.argmax`` on every step's logits.  Then prefill ms, decode ms a
+     step, tokens/s and peak memory, a profiled run's split of a decode
+     step (router and sampler radix, experts, attention; device and host)
+     and the attention kernels ``F.scaled_dot_product_attention`` chose; and
+     the radix kernel's rows at the path's shapes (the router's (512, 40)
+     and (4, 40), the sampler's (4, 49408) and (1, 262144)), each beside
+     its bound, launch floor, plain version and ``torch.topk``;
+  9. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Exact integer outputs: every tolerance is equality (``max_abs_err`` 0).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -916,6 +939,460 @@ def measure(torch, np, launches: dict, bench_launches: dict,
     return rows
 
 
+# ---------------------------------------------------------------- phase 8
+
+# the model-serving path at full width: (arch, batch, prompt, new tokens,
+# top_k, top_p)
+MODEL_RUNS = (("granite-moe-3b-a800m", 4, 128, 32, 16, 0.9),
+              ("gemma3-4b", 1, 1536, 16, 64, 0.9))
+# decode steps of the profiled run (its trace is processed on the host)
+PROFILED_STEPS = 4
+SMOKE_ARCHS = ("gemma3-4b", "command-r-35b", "deepseek-coder-33b",
+               "qwen1.5-32b", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
+# cuda against cpu at smoke size, float32 with TF32 off: cuBLAS and
+# F.scaled_dot_product_attention sum in other orders than the host's
+# einsums, some ulps a product that grow over two layers (the host and the
+# reference differ by 5e-6 at most, tests/test_torch_models.py)
+SMOKE_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@contextlib.contextmanager
+def _patched(*triples):
+    """Set ``module.name = value`` for each triple; restore on exit."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in triples]
+    for m, n, v in triples:
+        setattr(m, n, v)
+    try:
+        yield
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def _radix_recorder(calls: list):
+    """Patches that record every ``radix_topk`` call of the router and the
+    sampler as a dict: site, input, k, values, indices, the kernel's
+    launches and each launch's (input, k)."""
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    from repro_torch.models import moe
+    from repro_torch.serve import sampler
+    threshold = radix_ops.threshold_f32
+    kernel_inputs = []
+
+    def threshold_rec(x, k):
+        kernel_inputs.append((x.detach().clone(), k))
+        return threshold(x, k)
+
+    def recorder(site, fn):
+        def call(x, k, **kw):
+            kernel_inputs.clear()
+            before = radix_ops.launches
+            vals, idx = fn(x, k, **kw)
+            calls.append({"site": site, "x": x.detach().clone(), "k": k,
+                          "vals": vals.clone(), "idx": idx.clone(),
+                          "launches": radix_ops.launches - before,
+                          "kernel": list(kernel_inputs)})
+            return vals, idx
+        return call
+
+    return _patched((radix_ops, "threshold_f32", threshold_rec),
+                    (moe, "radix_topk", recorder("router", moe.radix_topk)),
+                    (sampler, "radix_topk",
+                     recorder("sampler", sampler.radix_topk)))
+
+
+def _plain_threshold():
+    """Route ``radix_topk``'s threshold through the kernel's plain version
+    on the tensors' own device (the card)."""
+    from repro_torch.core.topk import to_sortable_uint
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    from repro_torch.kernels.radix_topk import ref as radix_ref
+    return _patched((radix_ops, "threshold_f32", lambda x, k:
+                     radix_ref.threshold_ref(to_sortable_uint(x.float()), k)))
+
+
+def _reset_all_launches() -> None:
+    from repro_torch.kernels.bitonic import ops as bitonic_ops
+    from repro_torch.kernels.colskip import ops as colskip_ops
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    for ops in (bitonic_ops, colskip_ops, radix_ops):
+        ops.reset_launches()
+
+
+def hold_models_smoke(torch, np) -> None:
+    """The six dense and MoE archs at smoke size in float32, TF32 off: one
+    seeded CPU model and its copy on the card; prefill logits, 3 decode
+    steps' logits and the KV caches on cuda against cpu; every router call
+    of the cuda run replayed on the host: expert ids and gate values
+    exact on the same probabilities."""
+    import copy
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.radix_topk import radix_topk
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in SMOKE_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        cpu = api.init(cfg, seed=0, device="cpu")
+        gpu = copy.deepcopy(cpu).to("cuda")
+        rng = np.random.default_rng(0)
+        b, s, n = 2, 40, 3                       # past the smoke window, 32
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+        steps = torch.from_numpy(rng.integers(0, cfg.vocab, (n, b, 1)))
+        outs, calls = {}, []
+        for dev, model in (("cpu", cpu), ("cuda", gpu)):
+            rec = (_radix_recorder(calls) if dev == "cuda"
+                   else contextlib.nullcontext())
+            with rec:
+                lg, cache = api.prefill(cfg, model, {"tokens": toks})
+                got = [lg, cache["k"], cache["v"]]
+                cache = {kk: F.pad(vv, (0, 0, 0, 0, 0, n))
+                         for kk, vv in cache.items()}
+                for i in range(n):
+                    lg, cache = api.decode_step(cfg, model, steps[i], cache,
+                                                s + i)
+                    got += [lg, cache["k"].clone(), cache["v"].clone()]
+            outs[dev] = [g.detach().cpu() for g in got]
+        errs = [float((a - c).abs().max())
+                for a, c in zip(outs["cuda"], outs["cpu"])]
+        for i, (a, c) in enumerate(zip(outs["cuda"], outs["cpu"])):
+            if not (torch.isfinite(a).all() and torch.allclose(a, c,
+                                                               **SMOKE_TOL)):
+                _fail(f"{arch} smoke: cuda != cpu in output {i} (max abs "
+                      f"err {errs[i]:.3g}, tolerance {SMOKE_TOL})")
+        for c in calls:
+            vals, idx = radix_topk(c["x"].cpu(), c["k"], device="cpu")
+            if not (torch.equal(vals, c["vals"].cpu())
+                    and torch.equal(idx, c["idx"].cpu())):
+                _fail(f"{arch} smoke: router ids on the card != the host's "
+                      f"on the same probabilities {tuple(c['x'].shape)}")
+        print(f"phase 8 smoke {arch}: cuda == cpu (float32, TF32 off; "
+              f"{SMOKE_TOL}): max abs err logits {max(errs[0::3]):.3g}, "
+              f"k cache {max(errs[1::3]):.3g}, v cache {max(errs[2::3]):.3g}"
+              f"; {len(calls)} router calls, expert ids exact on the same "
+              "probabilities")
+
+
+def _cpu_events(prof, label):
+    return [e for e in prof.events()
+            if e.name == label and str(e.device_type).endswith("CPU")]
+
+
+def _kernel_names(e) -> set:
+    names = {k.name for k in e.kernels}
+    for ch in e.cpu_children:
+        names |= _kernel_names(ch)
+    return names
+
+
+def _attention_backends(names) -> list:
+    """The SDPA backends a set of kernel names shows: flash, the
+    memory-efficient (cutlass fmha) kernel, cuDNN, or the math path (a
+    softmax between two products)."""
+    found = set()
+    for n in names:
+        low = n.lower()
+        if "cudnn" in low and "sdpa" in low:
+            found.add("cudnn")
+        elif "flash" in low:
+            found.add("flash")
+        elif "fmha" in low or "mem_eff" in low:
+            found.add("efficient")
+        elif "softmax" in low:
+            found.add("math")
+    return sorted(found)
+
+
+def _profile_decode(torch, gen, steps: int) -> dict:
+    """One ``generate`` under ``torch.profiler`` with the router's and the
+    sampler's radix calls, the expert compute and attention annotated:
+    device and host ms a decode step of each, and the attention kernels'
+    names."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import api, blocks, moe
+    from repro_torch.serve import engine, sampler
+
+    def annotate(label, fn):
+        def call(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return call
+
+    sites = ((api, "decode_step", "decode_step"), (engine, "sample", "sample"),
+             (moe, "radix_topk", "router_radix"),
+             (sampler, "radix_topk", "sampler_radix"),
+             (moe, "_dispatch_compute", "experts"),
+             (blocks, "_attend_cache", "attention"),
+             (blocks, "attend", "attention_prefill"))
+    with _patched(*[(m, n, annotate(lb, getattr(m, n)))
+                    for m, n, lb in sites]):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            gen()
+            torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in _cpu_events(prof, "decode_step")]
+    if len(spans) != steps:
+        _fail(f"profiler saw {len(spans)} decode steps, expected {steps}")
+
+    def in_decode(e):
+        return any(a <= e.time_range.start < z for a, z in spans)
+
+    out = {}
+    for label in ("decode_step", "sample", "router_radix", "sampler_radix",
+                  "experts", "attention"):
+        es = [e for e in _cpu_events(prof, label)
+              if label in ("sample", "sampler_radix") or in_decode(e)]
+        out[label] = {
+            "calls_a_step": len(es) / steps,
+            "device_ms": sum(e.device_time_total for e in es) / steps / 1e3,
+            "host_ms": sum(e.cpu_time_total for e in es) / steps / 1e3}
+    for label in ("attention_prefill", "attention"):
+        names = set()
+        for e in _cpu_events(prof, label):
+            names |= _kernel_names(e)
+        out[f"{label}_backends"] = _attention_backends(names)
+    return out
+
+
+def run_model(torch, np, card, arch, b, s, new, top_k, top_p) -> dict:
+    """``generate`` on the card at the arch's full config: the launch
+    count, the replay of every radix call through the plain version, a
+    repeat run, the vocab and greedy holds, then the timings."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    from repro_torch.kernels.radix_topk import radix_topk
+    from repro_torch.models import api, moe
+    from repro_torch.serve import engine, generate, greedy, sampler
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = api.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{arch}: {cfg.n_layers} layers, {n_params:,} stored parameters "
+          f"({n_bytes / 2**30:.2f} GiB, {cfg.dtype}), drawn on the card in "
+          f"{init_s:.2f} s; B={b}, prompt {s}, {new} new tokens, "
+          f"top_k={top_k}, top_p={top_p}")
+    prompts = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (b, s)),
+        dtype=torch.int32, device=dev)
+
+    def gen(tokens=new):
+        g = torch.Generator(device=dev).manual_seed(1)
+        return generate(cfg, model, prompts, max_new_tokens=tokens,
+                        generator=g, top_k=top_k, top_p=top_p)
+
+    # the main path: every count set to 0 just before, read just after
+    calls = []
+    _reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _radix_recorder(calls):
+        toks = gen()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = radix_ops.launches
+    peak = torch.cuda.max_memory_allocated()
+    routers = (1 + new) * cfg.n_layers if cfg.moe is not None else 0
+    per_sample = 2 if cfg.padded_vocab > radix_ops.MAX_N else 1
+    expected = routers + new * per_sample
+    print(f"{arch}: radix launches {launches} in the run; the code implies "
+          f"{expected} = routers (1 + {new}) x {cfg.n_layers if routers else 0}"
+          f" + sampler {new} x {per_sample} (banks, then the manager pass)")
+    if launches != expected or launches != sum(c["launches"] for c in calls):
+        _fail(f"{arch}: {launches} radix launches, expected {expected}")
+
+    t0 = time.perf_counter()
+    again = gen()
+    torch.cuda.synchronize()
+    repeat_s = time.perf_counter() - t0
+    if not torch.equal(toks, again):
+        _fail(f"{arch}: a repeat run with the same generator differs")
+    if not ((toks >= 0) & (toks < cfg.vocab)).all():
+        _fail(f"{arch}: sampled ids outside [0, {cfg.vocab})")
+
+    # every recorded radix call through the plain version on the card; the
+    # calls of one site, width and k go through as one batch of their rows
+    # (a row's top-k depends on its own values only)
+    worst = 0.0
+    groups = {}
+    for c in calls:
+        groups.setdefault((c["site"], c["x"].shape[1], c["k"]), []).append(c)
+    with _plain_threshold():
+        for (site, n, k), cs in groups.items():
+            vals, idx = radix_topk(torch.cat([c["x"] for c in cs]), k,
+                                   device=dev)
+            want_v = torch.cat([c["vals"] for c in cs])
+            want_i = torch.cat([c["idx"] for c in cs])
+            worst = max(worst, float((vals - want_v).abs().max()),
+                        float((idx - want_i).abs().max()))
+            if not (torch.equal(vals, want_v) and torch.equal(idx, want_i)):
+                _fail(f"{arch}: radix_topk {site} calls at width {n} k={k} "
+                      "!= their plain version on the card")
+    logits = [c["x"] for c in calls if c["site"] == "sampler"]
+    for x in logits:
+        if not torch.equal(greedy(x).long(), x.argmax(-1)):
+            _fail(f"{arch}: greedy != torch.argmax on a step's logits")
+    print(f"{arch}: tokens repeat under the same generator; all < vocab "
+          f"{cfg.vocab}; {len(calls)} radix calls equal their plain version "
+          f"on the card (values and indices); greedy == argmax on "
+          f"{len(logits)} steps' logits")
+
+    # timings: each step synchronised, its host time stamped; the radix
+    # calls' host time (enqueue) summed in the decode steps
+    stamps, host = [], {"router": 0.0, "sampler": 0.0}
+
+    def stamped(*a, **kw):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return sample(*a, **kw)
+
+    def timed(site, fn):
+        def call(x, k, **kw):
+            t = time.perf_counter()
+            out = fn(x, k, **kw)
+            if stamps:
+                host[site] += time.perf_counter() - t
+            return out
+        return call
+
+    sample = engine.sample
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _patched((engine, "sample", stamped),
+                  (moe, "radix_topk", timed("router", moe.radix_topk)),
+                  (sampler, "radix_topk",
+                   timed("sampler", sampler.radix_topk))):
+        timed_toks = gen()
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    if not torch.equal(timed_toks, toks):
+        _fail(f"{arch}: the timed run's tokens differ")
+    prefill_ms = (stamps[0] - t0) * 1e3
+    step_ms = np.diff(stamps) * 1e3
+    step = float(np.median(step_ms))
+    prof = _profile_decode(torch, lambda: gen(PROFILED_STEPS),
+                           PROFILED_STEPS)
+    busy = prof["decode_step"]["device_ms"] + prof["sample"]["device_ms"]
+    out = {
+        "arch": arch, "card": card, "layers": cfg.n_layers,
+        "stored_params": n_params, "param_gib": n_bytes / 2**30,
+        "batch": b, "prompt": s, "new_tokens": new,
+        "prefill_ms": prefill_ms, "decode_ms_median": step,
+        "decode_ms_min": float(step_ms.min()),
+        "decode_ms_max": float(step_ms.max()),
+        "decode_tok_s": b / step * 1e3,
+        "generate_s": repeat_s, "generate_tok_s": b * new / repeat_s,
+        "first_generate_s": first_s,
+        "max_memory_allocated_gib": peak / 2**30,
+        "radix_launches": launches, "radix_launches_implied": expected,
+        "radix_max_abs_err": worst,
+        "router_radix_host_ms_a_step": host["router"] / new * 1e3,
+        "sampler_radix_host_ms_a_step": host["sampler"] / new * 1e3,
+        "profile_a_step": {k: v for k, v in prof.items()
+                           if not k.endswith("_backends")},
+        "step_device_busy_ms": busy,
+        "step_idle_share": 1.0 - busy / step,
+        "attention_backends": {"prefill": prof["attention_prefill_backends"],
+                               "decode": prof["attention_backends"]},
+    }
+    print(f"{card}: {arch} prefill {prefill_ms:.3f} ms; decode "
+          f"{step:.3f} ms a step (median of {new}; min "
+          f"{step_ms.min():.3f}, max {step_ms.max():.3f}), "
+          f"{out['decode_tok_s']:.1f} tok/s decoding; generate "
+          f"{repeat_s:.3f} s, {out['generate_tok_s']:.1f} tok/s end to end; "
+          f"max_memory_allocated {out['max_memory_allocated_gib']:.3f} GiB")
+    for label, v in prof.items():
+        if not label.endswith("_backends"):
+            print(f"{card}: {arch} a decode step, {label}: "
+                  f"{v['calls_a_step']:.1f} calls, {v['device_ms']:.4f} ms "
+                  f"on the device, {v['host_ms']:.4f} ms on the host "
+                  "(profiled)")
+    print(f"{card}: {arch} a decode step: radix host time (unprofiled) "
+          f"router {out['router_radix_host_ms_a_step']:.4f} ms, sampler "
+          f"{out['sampler_radix_host_ms_a_step']:.4f} ms; device busy "
+          f"{busy:.4f} ms of {step:.4f} ms, idle share "
+          f"{out['step_idle_share']:.3f}")
+    print(f"{arch}: F.scaled_dot_product_attention's backends: "
+          f"{json.dumps(out['attention_backends'])}")
+    # one call of each radix shape, for the kernel rows
+    path = {}
+    for c in calls:
+        key = (c["site"], tuple(c["x"].shape), c["k"])
+        if key not in path:
+            path[key] = dict(c, total_launches=0, calls=0)
+        path[key]["total_launches"] += c["launches"]
+        path[key]["calls"] += 1
+    out["path"] = path
+    return out
+
+
+def radix_path_rows(torch, np, runs: list) -> list:
+    """The radix kernel at the model path's shapes: each row times the
+    kernel launches of one ``radix_topk`` call (the banks and the manager
+    pass of a wide row), bound by one read of their tiles, beside the
+    plain version on the card, ``torch.topk`` on the call's rows and the
+    whole call (the kernel and its torch glue)."""
+    from repro_torch.core.topk import to_sortable_uint
+    from repro_torch.kernels.colskip import ops as colskip_ops
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    from repro_torch.kernels.radix_topk import radix_topk
+    from repro_torch.kernels.radix_topk import ref as radix_ref
+    busy = lambda: colskip_ops.vote_chain(VOTE_ROUNDS)      # noqa: E731
+    floor_ms, _ = _queued_ms(torch, radix_ops.empty_launch, 50, busy)
+    rows = []
+    for run in runs:
+        for (site, shape, k), c in sorted(run["path"].items()):
+            kin = c["kernel"]
+            if site == "router":
+                name = ("radix_threshold_router_prefill" if shape[0] > run["batch"]
+                        else "radix_threshold_router_decode")
+            else:
+                name = f"radix_threshold_sampler_{shape[1]}"
+
+            def kernel():
+                for x, kk in kin:
+                    radix_ops.threshold_f32(x, kk)
+
+            def plain():
+                for x, kk in kin:
+                    radix_ref.threshold_ref(to_sortable_uint(x), kk)
+
+            x, dev = c["x"], c["x"].device
+            ms = _time_ms(kernel, 50)
+            device_ms, enqueue_ms = _queued_ms(torch, kernel, 50, busy)
+            plain_ms = _time_ms(plain, 3)
+            lib_ms = _time_ms(lambda: torch.topk(x, k), 50)
+            lib_device_ms, _ = _queued_ms(torch, lambda: torch.topk(x, k),
+                                          50, busy)
+            # a whole call enqueues for some milliseconds: few calls, so the
+            # busy kernel still covers their enqueue
+            call_ms = _time_ms(lambda: radix_topk(x, k, device=dev), 20)
+            call_device_ms, call_host_ms = _queued_ms(
+                torch, lambda: radix_topk(x, k, device=dev), 4, busy)
+            nbytes = sum(t.numel() * 4 + t.shape[0] * 8 for t, _ in kin)
+            rows.append(_row(
+                name, "src/repro_torch/kernels/radix_topk/csrc/radix_threshold.cu",
+                "src/repro/kernels/radix_topk/kernel.py:48",
+                c["total_launches"], run["radix_max_abs_err"], ms, plain_ms,
+                nbytes, None, lib_ms,
+                shape=f"{shape} float32 k={k} ({run['arch']} {site})",
+                calls_on_path=c["calls"],
+                kernel_tiles=[list(t.shape) for t, _ in kin],
+                launches_a_call=len(kin), device_ms=device_ms,
+                host_enqueue_ms=enqueue_ms,
+                launch_floor_device_ms=floor_ms * len(kin),
+                library_device_ms=lib_device_ms,
+                radix_topk_call_ms=call_ms,
+                radix_topk_call_device_ms=call_device_ms,
+                radix_topk_call_host_ms=call_host_ms))
+    return rows
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops_ms,
          library_ms, **extra) -> dict:
     """One entry of the ``kernels`` line; ``ops_ms`` is the operations'
@@ -1026,10 +1503,35 @@ def main() -> int:
                   f"{r['kernel_passes']} passes of the kernel "
                   f"({r['digit_bits']}-plane digits) for {r['visited']} "
                   "visited planes")
+    # 8. the model-serving path: the six dense and MoE archs at smoke size,
+    # then granite-moe-3b-a800m and gemma3-4b at full width
+    t0 = time.perf_counter()
+    hold_models_smoke(torch, np)
+    runs = []
+    for run in MODEL_RUNS:
+        runs.append(run_model(torch, np, card, *run))
+        torch.cuda.empty_cache()
+    path_rows = radix_path_rows(torch, np, runs)
+    print(json.dumps({"models": [{k: v for k, v in r.items() if k != "path"}
+                                 for r in runs]}))
+    for r in path_rows:
+        print(f"{r['name']}: {r['ms']:.5f} ms the call's {r['launches_a_call']}"
+              f" launches at {r['shape']} (tiles {r['kernel_tiles']}), "
+              f"{r['device_ms']:.5f} ms on the device, launch floor "
+              f"{r['launch_floor_device_ms']:.5f} ms; plain "
+              f"{r['plain_ms']:.3f} ms; torch.topk {r['library_ms']:.5f} ms "
+              f"({r['library_device_ms']:.5f} on the device); the whole "
+              f"radix_topk call {r['radix_topk_call_ms']:.5f} ms "
+              f"({r['radix_topk_call_device_ms']:.5f} on the device, "
+              f"{r['radix_topk_call_host_ms']:.5f} host enqueue); bound "
+              f"{r['bound_ms']:.6f} ms by bytes; {r['launches']} launches "
+              f"in {r['calls_on_path']} calls on the path")
+    rows += path_rows
+    print(f"phase 8 (model serving) took {time.perf_counter() - t0:.1f} s")
     spilled = {k: v for k, v in spills.items() if any(v)}
     if spilled:
         _fail(f"the colskip register path spills: {spilled}")
-    # 8. the card again, the timings, and the verdict as the last line
+    # 9. the card again, the timings, and the verdict as the last line
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -320,3 +320,118 @@ def test_mesh_double_buffer_stages_on_a_side_stream(cuda):
     assert (coll["prefetch_staged"], coll["prefetch_hits"]) == (4, 4)
     for t in tiles:
         assert np.array_equal(out[id(t)].values, np.sort(t.data, -1))
+
+
+# ---------------------------------------------------------------- models
+
+MODEL_ARCHS = ["gemma3-4b", "command-r-35b", "deepseek-coder-33b",
+               "qwen1.5-32b", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b"]
+
+
+@pytest.fixture
+def no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_model_smoke_cuda_equals_cpu(cuda, no_tf32, arch):
+    """One seeded CPU model and its copy on the card, float32 with TF32
+    off: prefill and 3 decode steps, logits and caches, within 1e-4 + 1e-4
+    |x| (cuBLAS and F.scaled_dot_product_attention sum in other orders than
+    the host's einsums), and the router's expert ids on the card equal the
+    host's on the same probabilities."""
+    import copy
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.radix_topk import radix_topk
+    from repro_torch.models import api, moe
+    cfg = get_config(arch, smoke=True)
+    cpu = api.init(cfg, seed=0, device="cpu")
+    gpu = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(0)
+    b, s, n = 2, 40, 3                  # past gemma3's smoke window of 32
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab, (n, b, 1)))
+    probs = []
+    route = moe._route
+
+    def spy(cfg_, router, xf):
+        out = route(cfg_, router, xf)
+        if xf.is_cuda:
+            probs.append((out[2], out[1]))
+        return out
+
+    outs = {}
+    moe._route = spy
+    try:
+        for dev, model in (("cpu", cpu), ("cuda", gpu)):
+            lg, cache = api.prefill(cfg, model, {"tokens": toks})
+            got = [lg, cache["k"], cache["v"]]
+            cache = {kk: F.pad(vv, (0, 0, 0, 0, 0, n))
+                     for kk, vv in cache.items()}
+            for i in range(n):
+                lg, cache = api.decode_step(cfg, model, steps[i], cache, s + i)
+                got += [lg, cache["k"].clone(), cache["v"].clone()]
+            outs[dev] = [g.cpu() for g in got]
+    finally:
+        moe._route = route
+    for a, c in zip(outs["cuda"], outs["cpu"]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+    assert len(probs) == (0 if cfg.moe is None else cfg.n_layers * (1 + n))
+    for p, ids in probs:
+        want = radix_topk(p.cpu(), cfg.moe.top_k, device="cpu")[1]
+        assert torch.equal(ids.cpu(), want)
+
+
+@pytest.mark.parametrize("s,window", [(40, 0), (40, 7), (2048, 300)])
+def test_fused_attention_equals_plain_on_the_card(cuda, no_tf32, s, window):
+    """F.scaled_dot_product_attention (causal, windowed, decode over the
+    cache's valid slice) against the plain sdpa on the same card tensors;
+    every query sees its own key, so no row is NaN."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+    cfg = get_config("gemma3-4b", smoke=True)
+    g = torch.Generator(device=cuda).manual_seed(s + window)
+    q = torch.randn(1, s, 4, 16, generator=g, device=cuda)
+    k = torch.randn(1, s, 2, 16, generator=g, device=cuda)
+    v = torch.randn(1, s, 2, 16, generator=g, device=cuda)
+    got = blocks.attend(q, k, v, window, cfg)
+    mask = blocks.causal_mask(s, s, window or None, device=cuda)
+    torch.testing.assert_close(got, blocks.sdpa(q, k, v, mask, cfg),
+                               rtol=1e-4, atol=1e-4)
+    for cache_len in (0, s // 2, s - 1):
+        w = window or s + 1
+        got = blocks._attend_cache(cfg, q[:, :1], k, v, cache_len, w)
+        kpos = torch.arange(s, device=cuda)
+        valid = (kpos <= cache_len) & (kpos > cache_len - w)
+        want = blocks.sdpa(q[:, :1], k, v, valid[None, None, None, None],
+                           cfg)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "granite-moe-3b-a800m"])
+def test_generate_on_the_card_repeats(cuda, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    from repro_torch.models import api
+    from repro_torch.serve import generate
+    cfg = get_config(arch, smoke=True)
+    model = api.init(cfg, seed=0, device=cuda)
+    prompts = torch.ones((2, 40), dtype=torch.int32, device=cuda)
+    before = radix_ops.launches
+    runs = [generate(cfg, model, prompts, max_new_tokens=8, top_k=16,
+                     top_p=0.9,
+                     generator=torch.Generator(device=cuda).manual_seed(3))
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert (runs[0] < cfg.vocab).all()
+    routers = (1 + 8) * cfg.n_layers if cfg.moe is not None else 0
+    assert radix_ops.launches - before == 2 * (routers + 8)

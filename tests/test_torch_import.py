@@ -37,7 +37,13 @@ for name in names:
 for name in ("repro_torch.dist", "repro_torch.dist.bankmesh",
              "repro_torch.sortserve.fleet",
              "repro_torch.benchmarks.streaming_bench",
-             "repro_torch.benchmarks.distserve_bench"):
+             "repro_torch.benchmarks.distserve_bench",
+             "repro_torch.configs", "repro_torch.configs.gemma3_4b",
+             "repro_torch.configs.granite_moe_3b_a800m",
+             "repro_torch.models.blocks", "repro_torch.models.moe",
+             "repro_torch.models.transformer", "repro_torch.models.api",
+             "repro_torch.models.convert", "repro_torch.serve.sampler",
+             "repro_torch.serve.engine", "repro_torch.launch.serve"):
     assert name in names, name
 print(len(names))
 """
@@ -69,7 +75,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     )
     from repro_torch.dist.bankmesh import make_bank_mesh
     from repro_torch.kernels.colskip.ops import colskip_sort_mesh_batched
-    from repro_torch.launch import sortserve
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, sortserve
+    from repro_torch.models import api
     from repro_torch.sortserve import EngineConfig
 
     x = np.arange(64, dtype=np.uint32).reshape(2, 32)
@@ -83,7 +91,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
              lambda: sortserve.main(["--requests", "4", "--mesh"]),
              lambda: sortserve.main(["--requests", "4", "--replicas", "2"]),
              lambda: make_bank_mesh(),
-             lambda: colskip_sort_mesh_batched(x, 2)]
+             lambda: colskip_sort_mesh_batched(x, 2),
+             lambda: api.init(get_config("gemma3-4b", smoke=True)),
+             lambda: api.init_cache(get_config("gemma3-4b", smoke=True), 1,
+                                    4),
+             lambda: serve.main(["--smoke"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()
