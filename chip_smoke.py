@@ -80,27 +80,36 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      the slowest row's min searches times one dependent cross-bank round
      (the ``mesh_chain`` probe at that D);
   8. the model-serving path (``repro_torch.models``, ``repro_torch.serve``):
-     the six dense and MoE archs at smoke size in float32 with TF32 off,
-     one seeded CPU model and its copy on the card, prefill and 3 decode
-     steps' logits and KV caches on cuda against cpu (``SMOKE_TOL``) and
-     every router call's expert ids exact on the same probabilities; then
-     ``serve.generate`` at full width (``MODEL_RUNS``: granite-moe-3b-a800m,
-     32 layers, B = 4, prompt 128, 32 new tokens, top_k 16; gemma3-4b, 34
-     layers, B = 1, prompt 1536, past its 1024 window, 16 new tokens,
-     top_k 64; bf16, weights from a seeded generator): with every launch
-     count reset just before and read just after, the radix launches equal
-     the count the code implies; every ``radix_topk`` call of the run (the
-     MoE router's and the sampler's, recorded by a wrapper this script
-     installs) replayed through the kernel's plain version on the card,
-     values and indices exact; a repeat run with the same generator gives
-     the same tokens; every token is below ``vocab``; ``greedy`` equals
-     ``torch.argmax`` on every step's logits.  Then prefill ms, decode ms a
-     step, tokens/s and peak memory, a profiled run's split of a decode
-     step (router and sampler radix, experts, attention; device and host)
-     and the attention kernels ``F.scaled_dot_product_attention`` chose; and
-     the radix kernel's rows at the path's shapes (the router's (512, 40)
-     and (4, 40), the sampler's (4, 49408) and (1, 262144)), each beside
-     its bound, launch floor, plain version and ``torch.topk``;
+     the ten archs at smoke size in float32 with TF32 off, one seeded CPU
+     model and its copy on the card, prefill and 3 decode steps' logits
+     and every leaf of the state or cache on cuda against cpu
+     (``SMOKE_TOL``), every router call's expert ids exact on the same
+     probabilities, and for the families that warm up token by token
+     (ssm, hybrid, encdec) the whole prompt through ``decode_step`` on
+     the card against ``prefill``'s last logits; then ``serve.generate``
+     at full width and depth (``MODEL_RUNS``, bf16, weights from a seeded
+     generator, top_p 0.9): granite-moe-3b-a800m (B = 4, prompt 128, 32
+     new tokens, top_k 16), gemma3-4b (B = 1, prompt 1536, past its 1024
+     window, 16 new, top_k 64), hymba-1.5b (B = 4, prompt 64, 32 new,
+     top_k 16), rwkv6-1.6b (B = 8, 64, 32, 16), whisper-tiny (B = 4, 32,
+     32, 16, on seeded normal frames) and qwen2-vl-7b (B = 2, 256, 16,
+     64): with every launch count reset just before and read just after,
+     the radix launches equal the count the code implies; every
+     ``radix_topk`` call of the run (the MoE router's and the sampler's,
+     recorded by a wrapper this script installs) replayed through the
+     kernel's plain version on the card, values and indices exact; a
+     repeat run with the same generator gives the same tokens; every
+     token is below ``vocab``; ``greedy`` equals ``torch.argmax`` on every
+     step's logits.  Then the prompt's ms (prefill, or the whole warm-up),
+     decode ms a step, tokens/s and peak memory, a profiled run's split
+     of a decode step (router and sampler radix, experts, attention, the
+     recurrences; device and host) and the attention kernels
+     ``F.scaled_dot_product_attention`` chose; qwen2-vl's prefill on 256
+     patch embeddings with M-RoPE positions of a 16 x 16 grid (finite,
+     and unlike the 1-D positions' logits); and the radix kernel's rows at
+     the path's shapes (the router's (512, 40) and (4, 40), the sampler's
+     vocab rows of 2 to 16 banks), each beside its bound, launch floor,
+     plain version and ``torch.topk``;
   9. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Exact integer outputs: every tolerance is equality (``max_abs_err`` 0).
@@ -109,6 +118,7 @@ Exact integer outputs: every tolerance is equality (``max_abs_err`` 0).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import re
 import subprocess
@@ -944,11 +954,16 @@ def measure(torch, np, launches: dict, bench_launches: dict,
 # the model-serving path at full width: (arch, batch, prompt, new tokens,
 # top_k, top_p)
 MODEL_RUNS = (("granite-moe-3b-a800m", 4, 128, 32, 16, 0.9),
-              ("gemma3-4b", 1, 1536, 16, 64, 0.9))
+              ("gemma3-4b", 1, 1536, 16, 64, 0.9),
+              ("hymba-1.5b", 4, 64, 32, 16, 0.9),
+              ("rwkv6-1.6b", 8, 64, 32, 16, 0.9),
+              ("whisper-tiny", 4, 32, 32, 16, 0.9),
+              ("qwen2-vl-7b", 2, 256, 16, 64, 0.9))
 # decode steps of the profiled run (its trace is processed on the host)
 PROFILED_STEPS = 4
-SMOKE_ARCHS = ("gemma3-4b", "command-r-35b", "deepseek-coder-33b",
-               "qwen1.5-32b", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
+# qwen2-vl's patch input: a 16 x 16 grid of patch embeddings, then text
+VLM_GRID = 16
+VLM_TEXT = 64
 # cuda against cpu at smoke size, float32 with TF32 off: cuBLAS and
 # F.scaled_dot_product_attention sum in other orders than the host's
 # einsums, some ulps a product that grow over two layers (the host and the
@@ -1019,59 +1034,97 @@ def _reset_all_launches() -> None:
         ops.reset_launches()
 
 
+def _smoke_run(torch, F, cfg, model, batch, steps) -> list:
+    """Prefill, then ``len(steps)`` decode steps: the logits and every
+    leaf of the state or cache after each (self-attention caches extended
+    by the steps' slots; recurrent and cross-attention leaves as they
+    are)."""
+    from repro_torch.models import api
+    s, n = batch["tokens"].shape[1], len(steps)
+    lg, cache = api.prefill(cfg, model, batch)
+    got = [("prefill logits", lg)] + [(f"prefill {kk}", cache[kk])
+                                      for kk in sorted(cache)]
+    cache = {kk: F.pad(vv, (0, 0, 0, 0, 0, n)) if kk in ("k", "v") else vv
+             for kk, vv in cache.items()}
+    for i in range(n):
+        lg, cache = api.decode_step(cfg, model, steps[i], cache, s + i)
+        got += [(f"step {i} logits", lg)] + [
+            (f"step {i} {kk}", cache[kk].clone()) for kk in sorted(cache)]
+    return [(name, g.detach().cpu()) for name, g in got]
+
+
 def hold_models_smoke(torch, np) -> None:
-    """The six dense and MoE archs at smoke size in float32, TF32 off: one
-    seeded CPU model and its copy on the card; prefill logits, 3 decode
-    steps' logits and the KV caches on cuda against cpu; every router call
-    of the cuda run replayed on the host: expert ids and gate values
-    exact on the same probabilities."""
+    """The ten archs at smoke size in float32, TF32 off: one seeded CPU
+    model and its copy on the card; prefill logits, 3 decode steps'
+    logits and every leaf of the state or cache on cuda against cpu;
+    every router call of the cuda run replayed on the host: expert ids
+    and gate values exact on the same probabilities.  For the families
+    that warm up token by token, the whole prompt through ``decode_step``
+    on the card against ``prefill``'s last logits."""
     import copy
     import torch.nn.functional as F
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ARCHS, get_config
     from repro_torch.kernels.radix_topk import radix_topk
     from repro_torch.models import api
+    from repro_torch.serve.engine import WARM_FAMILIES
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for arch in SMOKE_ARCHS:
-        cfg = get_config(arch, smoke=True)
+    # hymba's 2 smoke layers are both global ({0, L/2, L-1}): at 4 layers,
+    # layer 1 attends within the smoke window of 32, which S = 40 passes
+    cases = [(arch, get_config(arch, smoke=True)) for arch in ARCHS]
+    cases.append(("hymba-1.5b (4 layers)", dataclasses.replace(
+        get_config("hymba-1.5b", smoke=True), n_layers=4)))
+    for arch, cfg in cases:
         cpu = api.init(cfg, seed=0, device="cpu")
         gpu = copy.deepcopy(cpu).to("cuda")
         rng = np.random.default_rng(0)
         b, s, n = 2, 40, 3                       # past the smoke window, 32
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (b, s)))}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.from_numpy(rng.normal(
+                size=(b, cfg.enc_ctx, cfg.d_model)).astype(np.float32))
         steps = torch.from_numpy(rng.integers(0, cfg.vocab, (n, b, 1)))
         outs, calls = {}, []
         for dev, model in (("cpu", cpu), ("cuda", gpu)):
             rec = (_radix_recorder(calls) if dev == "cuda"
                    else contextlib.nullcontext())
             with rec:
-                lg, cache = api.prefill(cfg, model, {"tokens": toks})
-                got = [lg, cache["k"], cache["v"]]
-                cache = {kk: F.pad(vv, (0, 0, 0, 0, 0, n))
-                         for kk, vv in cache.items()}
-                for i in range(n):
-                    lg, cache = api.decode_step(cfg, model, steps[i], cache,
-                                                s + i)
-                    got += [lg, cache["k"].clone(), cache["v"].clone()]
-            outs[dev] = [g.detach().cpu() for g in got]
-        errs = [float((a - c).abs().max())
-                for a, c in zip(outs["cuda"], outs["cpu"])]
-        for i, (a, c) in enumerate(zip(outs["cuda"], outs["cpu"])):
+                outs[dev] = _smoke_run(torch, F, cfg, model, batch, steps)
+        worst = {}
+        for (name, a), (_, c) in zip(outs["cuda"], outs["cpu"]):
+            err = float((a - c).abs().max()) if a.numel() else 0.0
+            leaf = name.split()[-1]
+            worst[leaf] = max(worst.get(leaf, 0.0), err)
             if not (torch.isfinite(a).all() and torch.allclose(a, c,
                                                                **SMOKE_TOL)):
-                _fail(f"{arch} smoke: cuda != cpu in output {i} (max abs "
-                      f"err {errs[i]:.3g}, tolerance {SMOKE_TOL})")
+                _fail(f"{arch} smoke: cuda != cpu in {name} (max abs err "
+                      f"{err:.3g}, tolerance {SMOKE_TOL})")
         for c in calls:
             vals, idx = radix_topk(c["x"].cpu(), c["k"], device="cpu")
             if not (torch.equal(vals, c["vals"].cpu())
                     and torch.equal(idx, c["idx"].cpu())):
                 _fail(f"{arch} smoke: router ids on the card != the host's "
                       f"on the same probabilities {tuple(c['x'].shape)}")
+        warm = ""
+        if cfg.family in WARM_FAMILIES:
+            pl = api.prefill(cfg, gpu, batch)[0]
+            cache = api.init_cache(cfg, b, s, model=gpu, device="cuda",
+                                   frames=batch.get("frames"))
+            for i in range(s):
+                lg, cache = api.decode_step(
+                    cfg, gpu, batch["tokens"][:, i:i + 1], cache, i)
+            err = float((lg - pl).abs().max())
+            if not torch.allclose(lg, pl, **SMOKE_TOL):
+                _fail(f"{arch} smoke: the warm-up's last logits != prefill's "
+                      f"on the card (max abs err {err:.3g})")
+            warm = (f"; warm-up of {s} tokens == prefill on the card (max "
+                    f"abs err {err:.3g})")
         print(f"phase 8 smoke {arch}: cuda == cpu (float32, TF32 off; "
-              f"{SMOKE_TOL}): max abs err logits {max(errs[0::3]):.3g}, "
-              f"k cache {max(errs[1::3]):.3g}, v cache {max(errs[2::3]):.3g}"
-              f"; {len(calls)} router calls, expert ids exact on the same "
-              "probabilities")
+              f"{SMOKE_TOL}): max abs err "
+              + ", ".join(f"{kk} {v:.3g}" for kk, v in sorted(worst.items()))
+              + f"; {len(calls)} router calls, expert ids exact on the same "
+              f"probabilities{warm}")
 
 
 def _cpu_events(prof, label):
@@ -1104,13 +1157,21 @@ def _attention_backends(names) -> list:
     return sorted(found)
 
 
-def _profile_decode(torch, gen, steps: int) -> dict:
+# labels of the profiled decode step, each a function the step calls
+STEP_LABELS = ("decode_step", "sample", "router_radix", "sampler_radix",
+               "experts", "attention", "cross_attention", "time_mix",
+               "wkv_scan", "mamba")
+
+
+def _profile_decode(torch, gen, steps: int, warm: bool) -> dict:
     """One ``generate`` under ``torch.profiler`` with the router's and the
-    sampler's radix calls, the expert compute and attention annotated:
-    device and host ms a decode step of each, and the attention kernels'
-    names."""
+    sampler's radix calls, the expert compute, attention and the
+    recurrences annotated: device and host ms a decode step of each, and
+    the attention kernels' names.  ``warm``: the prompt goes token by
+    token through ``decode_step``, and the profiler starts at the first
+    sample, after it."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.models import api, blocks, moe
+    from repro_torch.models import api, blocks, hymba, moe, rwkv6, whisper
     from repro_torch.serve import engine, sampler
 
     def annotate(label, fn):
@@ -1124,13 +1185,30 @@ def _profile_decode(torch, gen, steps: int) -> dict:
              (sampler, "radix_topk", "sampler_radix"),
              (moe, "_dispatch_compute", "experts"),
              (blocks, "_attend_cache", "attention"),
+             (whisper, "_attention", "cross_attention"),
+             (rwkv6, "_time_mix", "time_mix"),
+             (rwkv6, "_wkv_scan", "wkv_scan"),
+             (hymba, "_mamba_branch", "mamba"),
              (blocks, "attend", "attention_prefill"))
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   acc_events=True)
     with _patched(*[(m, n, annotate(lb, getattr(m, n)))
                     for m, n, lb in sites]):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        annotated_sample, started = engine.sample, []
+
+        def start_then_sample(*a, **kw):
+            if not started:
+                prof.start()
+                started.append(True)
+            return annotated_sample(*a, **kw)
+
+        with _patched(*([(engine, "sample", start_then_sample)]
+                        if warm else [])):
+            if not warm:
+                prof.start()
             gen()
             torch.cuda.synchronize()
+            prof.stop()
     spans = [(e.time_range.start, e.time_range.end)
              for e in _cpu_events(prof, "decode_step")]
     if len(spans) != steps:
@@ -1140,20 +1218,83 @@ def _profile_decode(torch, gen, steps: int) -> dict:
         return any(a <= e.time_range.start < z for a, z in spans)
 
     out = {}
-    for label in ("decode_step", "sample", "router_radix", "sampler_radix",
-                  "experts", "attention"):
+    for label in STEP_LABELS:
         es = [e for e in _cpu_events(prof, label)
               if label in ("sample", "sampler_radix") or in_decode(e)]
         out[label] = {
             "calls_a_step": len(es) / steps,
             "device_ms": sum(e.device_time_total for e in es) / steps / 1e3,
             "host_ms": sum(e.cpu_time_total for e in es) / steps / 1e3}
-    for label in ("attention_prefill", "attention"):
+    for label in ("attention_prefill", "attention", "cross_attention"):
         names = set()
         for e in _cpu_events(prof, label):
             names |= _kernel_names(e)
         out[f"{label}_backends"] = _attention_backends(names)
     return out
+
+
+def _profile_encoder(torch, encode) -> dict:
+    """An encoder call's time (CUDA events, mean of 5) and, from one
+    profiled call, its kernels' device time, the largest three and the
+    attention backend."""
+    from torch.profiler import ProfilerActivity, profile
+    ms = _time_ms(encode, 5)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        encode()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            kernels[e.name] = (kernels.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
+    return {"ms": ms, "device_ms": sum(kernels.values()),
+            "kernels": len(kernels),
+            "top": [[name[:60], t] for name, t in top],
+            "attention_backends": _attention_backends(set(kernels))}
+
+
+def hold_vlm_patches(torch, np, cfg, model, b) -> dict:
+    """qwen2-vl's prefill at full width on patch embeddings (a seeded
+    generator) with M-RoPE positions of one grid: patch i at (0, i //
+    VLM_GRID, i % VLM_GRID), text token j at VLM_GRID + j on all three
+    streams.  The logits must be finite and differ from the same call on
+    1-D positions (the sections act)."""
+    from repro_torch.models import api
+    dev = model.device
+    p = cfg.vision_patches
+    if p != VLM_GRID * VLM_GRID:
+        _fail(f"{cfg.name}: {p} patches, not a {VLM_GRID}x{VLM_GRID} grid")
+    g = torch.Generator(device=dev).manual_seed(2)
+    patches = torch.randn((b, p, cfg.d_model), generator=g, device=dev)
+    toks = torch.randint(0, cfg.vocab, (b, VLM_TEXT), generator=g,
+                         device=dev)
+    i = torch.arange(p, device=dev)
+    grid = torch.stack([torch.zeros_like(i), i // VLM_GRID, i % VLM_GRID], -1)
+    text = (VLM_GRID + torch.arange(VLM_TEXT, device=dev))[:, None].expand(
+        VLM_TEXT, 3)
+    pos3 = torch.cat([grid, text])[None].expand(b, p + VLM_TEXT, 3)
+    batch = {"tokens": toks, "patches": patches}
+    lg, cache = api.prefill(cfg, model, {**batch, "positions3": pos3})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()                   # a repeat call, timed
+    api.prefill(cfg, model, {**batch, "positions3": pos3})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    flat, _ = api.prefill(cfg, model, batch)
+    diff = float((lg.float() - flat.float()).abs().max())
+    if not torch.isfinite(lg[..., :cfg.vocab]).all():
+        _fail(f"{cfg.name}: prefill logits with patches are not finite")
+    if cache["k"].shape[2] != p + VLM_TEXT or diff == 0.0:
+        _fail(f"{cfg.name}: M-RoPE positions changed nothing (max abs "
+              f"difference {diff})")
+    print(f"{cfg.name}: prefill on {p} patch embeddings ({VLM_GRID}x"
+          f"{VLM_GRID} grid) + {VLM_TEXT} text tokens, B={b}, M-RoPE "
+          f"positions3: logits finite, {ms:.3f} ms; max abs difference "
+          f"from 1-D positions {diff:.4g}")
+    return {"batch": b, "patches": p, "text": VLM_TEXT, "prefill_ms": ms,
+            "max_abs_diff_from_1d_positions": diff}
 
 
 def run_model(torch, np, card, arch, b, s, new, top_k, top_p) -> dict:
@@ -1163,11 +1304,12 @@ def run_model(torch, np, card, arch, b, s, new, top_k, top_p) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.radix_topk import ops as radix_ops
     from repro_torch.kernels.radix_topk import radix_topk
-    from repro_torch.models import api, moe
+    from repro_torch.models import api, moe, whisper
     from repro_torch.serve import engine, generate, greedy, sampler
     cfg = get_config(arch)
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
+    warm = cfg.family in engine.WARM_FAMILIES
+    run_t0 = t0 = time.perf_counter()
     model = api.init(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -1180,11 +1322,17 @@ def run_model(torch, np, card, arch, b, s, new, top_k, top_p) -> dict:
     prompts = torch.as_tensor(
         np.random.default_rng(0).integers(0, cfg.vocab, (b, s)),
         dtype=torch.int32, device=dev)
+    # an encoder's frames: seeded normals, so the cross-attention reads
+    # more than zeros
+    frames = (torch.as_tensor(np.random.default_rng(1).normal(
+        size=(b, cfg.enc_ctx, cfg.d_model)), dtype=torch.float32,
+        device=dev) if cfg.family == "encdec" else None)
 
     def gen(tokens=new):
         g = torch.Generator(device=dev).manual_seed(1)
         return generate(cfg, model, prompts, max_new_tokens=tokens,
-                        generator=g, top_k=top_k, top_p=top_p)
+                        generator=g, top_k=top_k, top_p=top_p,
+                        frames=frames)
 
     # the main path: every count set to 0 just before, read just after
     calls = []
@@ -1272,17 +1420,21 @@ def run_model(torch, np, card, arch, b, s, new, top_k, top_p) -> dict:
     stamps.append(time.perf_counter())
     if not torch.equal(timed_toks, toks):
         _fail(f"{arch}: the timed run's tokens differ")
-    prefill_ms = (stamps[0] - t0) * 1e3
+    # the prompt: prefill, or for the warm families the whole token-by-token
+    # warm-up (init_cache included)
+    prompt_ms = (stamps[0] - t0) * 1e3
     step_ms = np.diff(stamps) * 1e3
     step = float(np.median(step_ms))
     prof = _profile_decode(torch, lambda: gen(PROFILED_STEPS),
-                           PROFILED_STEPS)
+                           PROFILED_STEPS, warm)
     busy = prof["decode_step"]["device_ms"] + prof["sample"]["device_ms"]
     out = {
         "arch": arch, "card": card, "layers": cfg.n_layers,
         "stored_params": n_params, "param_gib": n_bytes / 2**30,
         "batch": b, "prompt": s, "new_tokens": new,
-        "prefill_ms": prefill_ms, "decode_ms_median": step,
+        "prompt_path": "warm-up" if warm else "prefill",
+        "prompt_ms": prompt_ms, "prompt_ms_a_token": prompt_ms / s,
+        "decode_ms_median": step,
         "decode_ms_min": float(step_ms.min()),
         "decode_ms_max": float(step_ms.max()),
         "decode_tok_s": b / step * 1e3,
@@ -1298,16 +1450,23 @@ def run_model(torch, np, card, arch, b, s, new, top_k, top_p) -> dict:
         "step_device_busy_ms": busy,
         "step_idle_share": 1.0 - busy / step,
         "attention_backends": {"prefill": prof["attention_prefill_backends"],
-                               "decode": prof["attention_backends"]},
+                               "decode": prof["attention_backends"],
+                               "cross": prof["cross_attention_backends"]},
     }
-    print(f"{card}: {arch} prefill {prefill_ms:.3f} ms; decode "
+    if cfg.family == "encdec":
+        out["encoder"] = _profile_encoder(
+            torch, lambda: whisper.encode(cfg, model, frames))
+        print(f"{card}: {arch} encoder over {tuple(frames.shape)} frames: "
+              f"{json.dumps(out['encoder'])}")
+    print(f"{card}: {arch} {out['prompt_path']} {prompt_ms:.3f} ms "
+          f"({prompt_ms / s:.4f} ms a prompt token); decode "
           f"{step:.3f} ms a step (median of {new}; min "
           f"{step_ms.min():.3f}, max {step_ms.max():.3f}), "
           f"{out['decode_tok_s']:.1f} tok/s decoding; generate "
           f"{repeat_s:.3f} s, {out['generate_tok_s']:.1f} tok/s end to end; "
           f"max_memory_allocated {out['max_memory_allocated_gib']:.3f} GiB")
     for label, v in prof.items():
-        if not label.endswith("_backends"):
+        if not label.endswith("_backends") and v["calls_a_step"]:
             print(f"{card}: {arch} a decode step, {label}: "
                   f"{v['calls_a_step']:.1f} calls, {v['device_ms']:.4f} ms "
                   f"on the device, {v['host_ms']:.4f} ms on the host "
@@ -1328,6 +1487,10 @@ def run_model(torch, np, card, arch, b, s, new, top_k, top_p) -> dict:
         path[key]["total_launches"] += c["launches"]
         path[key]["calls"] += 1
     out["path"] = path
+    if cfg.family == "vlm":
+        out["patches"] = hold_vlm_patches(torch, np, cfg, model, b)
+    out["run_s"] = time.perf_counter() - run_t0
+    print(f"phase 8 {arch}: {out['run_s']:.1f} s")
     return out
 
 
@@ -1503,10 +1666,12 @@ def main() -> int:
                   f"{r['kernel_passes']} passes of the kernel "
                   f"({r['digit_bits']}-plane digits) for {r['visited']} "
                   "visited planes")
-    # 8. the model-serving path: the six dense and MoE archs at smoke size,
-    # then granite-moe-3b-a800m and gemma3-4b at full width
+    # 8. the model-serving path: the ten archs at smoke size, then
+    # granite-moe-3b-a800m, gemma3-4b, hymba-1.5b, rwkv6-1.6b, whisper-tiny
+    # and qwen2-vl-7b at full width
     t0 = time.perf_counter()
     hold_models_smoke(torch, np)
+    print(f"phase 8 smoke holds: {time.perf_counter() - t0:.1f} s")
     runs = []
     for run in MODEL_RUNS:
         runs.append(run_model(torch, np, card, *run))
@@ -1527,7 +1692,8 @@ def main() -> int:
               f"{r['bound_ms']:.6f} ms by bytes; {r['launches']} launches "
               f"in {r['calls_on_path']} calls on the path")
     rows += path_rows
-    print(f"phase 8 (model serving) took {time.perf_counter() - t0:.1f} s")
+    print(f"phase 8 (model serving) took {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{r['arch']} {r['run_s']:.1f} s" for r in runs))
     spilled = {k: v for k, v in spills.items() if any(v)}
     if spilled:
         _fail(f"the colskip register path spills: {spilled}")

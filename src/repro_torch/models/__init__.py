@@ -1,2 +1,2 @@
-"""Model zoo of the port: the dense and MoE decoder families (see
-:mod:`repro_torch.models.api`)."""
+"""Model zoo of the port: the dense, MoE and VLM decoders, RWKV-6, Hymba
+and Whisper (see :mod:`repro_torch.models.api`)."""

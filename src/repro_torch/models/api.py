@@ -1,15 +1,17 @@
-"""Unified model API, the port of ``repro/models/api.py`` for the dense and
-MoE families:
+"""Unified model API, the port of ``repro/models/api.py``: every arch
+exposes the same entry points.
 
-    init(cfg, seed=0, device="cuda")            -> DecoderLM
-    prefill(cfg, model, batch)                  -> (logits, cache)
-    decode_step(cfg, model, tok, cache, n)      -> (logits, cache)
-    init_cache(cfg, batch, max_len, device=...) -> cache
+    init(cfg, seed=0, device="cuda")                 -> model
+    prefill(cfg, model, batch)                       -> (logits, cache)
+    decode_step(cfg, model, tok, cache, n)           -> (logits, cache)
+    init_cache(cfg, batch, max_len, model=, frames=, device=) -> cache
 
-Each runs on the model's device: ``"cuda"`` unless the caller built the
-model with ``device="cpu"``.  The other families (ssm, hybrid, encdec,
-vlm) raise ``NotImplementedError`` (ROADMAP Queue 1 item 2); ``loss`` and
-the shape specs come with training and the tooling (items 3 and 6).
+The family picks the module, as the reference's ``_family_mod`` does:
+``ssm`` is RWKV-6, ``hybrid`` Hymba, ``encdec`` Whisper, and the dense,
+MoE and VLM families the generic decoder.  Each entry point runs on the
+model's device: ``"cuda"`` unless the caller built the model with
+``device="cpu"``.  ``loss`` and the shape specs come with training and
+the tooling (ROADMAP Queue 1 items 3 and 6).
 """
 
 from __future__ import annotations
@@ -18,31 +20,71 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelCfg
-from . import transformer
-from .transformer import DecoderLM, check_family
+from . import hymba, rwkv6, transformer, whisper
+
+_MODULES = {"ssm": rwkv6, "hybrid": hymba, "encdec": whisper}
+_MODELS = {"ssm": rwkv6.RWKV6LM, "hybrid": hymba.HymbaLM,
+           "encdec": whisper.WhisperModel}
 
 
-def init(cfg: ModelCfg, *, seed: int = 0, device="cuda") -> DecoderLM:
+def _family_mod(cfg: ModelCfg):
+    return _MODULES.get(cfg.family, transformer)
+
+
+def model_class(cfg: ModelCfg):
+    """The ``nn.Module`` that holds the arch's weights."""
+    return _MODELS.get(cfg.family, transformer.DecoderLM)
+
+
+def init(cfg: ModelCfg, *, seed: int = 0, device="cuda"):
     """A model with weights drawn from a ``torch.Generator`` seeded with
     ``seed``, on ``device``."""
-    check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return DecoderLM(cfg, device=dev, generator=gen)
+    return model_class(cfg)(cfg, device=dev, generator=gen)
 
 
 @torch.no_grad()
-def prefill(cfg: ModelCfg, model: DecoderLM, batch):
-    check_family(cfg)
+def prefill(cfg: ModelCfg, model, batch):
+    """The prompt -> (last logits (B, 1, V), decode state), each family as
+    the reference: ``ssm`` returns its state after the prompt; ``encdec``
+    and ``hybrid`` return forward's last logits with an *empty* state
+    (the cross K/V beside a zero self-attention cache of prompt length;
+    a zero hybrid state), and Whisper's logits carry no vocab mask."""
+    if cfg.family == "ssm":
+        logits, state = rwkv6.forward(cfg, model, batch)
+        return logits[:, -1:], state
+    if cfg.family == "encdec":
+        cache = whisper.init_cache(cfg, model, batch["frames"],
+                                   max_len=batch["tokens"].shape[1])
+        logits, _ = whisper.forward(cfg, model, batch)
+        return logits[:, -1:], cache
+    if cfg.family == "hybrid":
+        logits, _ = hymba.forward(cfg, model, batch)
+        b, s = batch["tokens"].shape
+        return logits[:, -1:], hymba.init_state(cfg, b, s, model.device)
     return transformer.prefill(cfg, model, batch)
 
 
 @torch.no_grad()
-def decode_step(cfg: ModelCfg, model: DecoderLM, token, cache, cache_len):
-    check_family(cfg)
-    return transformer.decode_step(cfg, model, token, cache, cache_len)
+def decode_step(cfg: ModelCfg, model, token, cache, cache_len):
+    return _family_mod(cfg).decode_step(cfg, model, token, cache,
+                                          cache_len)
 
 
-def init_cache(cfg: ModelCfg, batch: int, max_len: int, *, device="cuda"):
-    check_family(cfg)
+@torch.no_grad()
+def init_cache(cfg: ModelCfg, batch: int, max_len: int, *, model=None,
+               frames=None, device="cuda"):
+    """The empty decode state of ``batch`` rows and ``max_len`` slots.
+    ``encdec`` needs the model and the frames (its cross K/V come from
+    the encoder) and builds on the model's device."""
+    if cfg.family == "encdec":
+        if model is None or frames is None:
+            raise ValueError("encdec: init_cache needs the model and the "
+                             "frames")
+        return whisper.init_cache(cfg, model, frames, max_len)
+    if cfg.family == "ssm":
+        return rwkv6.init_state(cfg, batch, device)
+    if cfg.family == "hybrid":
+        return hymba.init_state(cfg, batch, max_len, device)
     return transformer.init_cache(cfg, batch, max_len, device=device)

@@ -1,7 +1,6 @@
 """Shared model-building blocks: plain functions on tensors.
 
-The port of ``repro/models/blocks.py`` for the dense and MoE families.
-Conventions as there: activations flow as (batch, seq, d_model) in
+The port of ``repro/models/blocks.py``.  Conventions as there: activations flow as (batch, seq, d_model) in
 ``cfg.dtype``; weights keep the reference's ``(in, out)`` layout, so a
 projection is ``x @ w``; a layer's cache is (B, T, KV, Dh).  The functions
 that make parameters take a ``torch.Generator`` (``None`` leaves the
@@ -103,16 +102,67 @@ def rope_tables(positions, freqs):
     return ang.cos()[..., None, :], ang.sin()[..., None, :]
 
 
-def apply_rope(x, positions, theta, tables=None):
-    """x: (B, S, H, Dh); positions: (B, S).  Half-split rotation."""
-    if tables is None:
-        freqs = torch.as_tensor(rope_freqs(x.shape[-1], theta),
-                                dtype=torch.float32, device=x.device)
-        tables = rope_tables(positions, freqs)
+def mrope_tables(positions3, freqs, sections):
+    """:func:`rope_tables` for Qwen2-VL's multimodal RoPE: ``positions3``
+    (B, S, 3) holds the (t, h, w) ids, and frequency channel j rotates by
+    the stream of its section (``sections`` sums to Dh/2)."""
+    sec_id = np.concatenate([np.full(s, i) for i, s in enumerate(sections)])
+    if sec_id.shape[0] != freqs.shape[0]:
+        raise ValueError(f"mrope sections {sections} must sum to Dh/2 = "
+                         f"{freqs.shape[0]}")
+    idx = torch.as_tensor(sec_id, dtype=torch.int64,
+                          device=positions3.device)
+    ang = positions3.float()[..., idx] * freqs              # (B, S, Dh/2)
+    return ang.cos()[..., None, :], ang.sin()[..., None, :]
+
+
+def _rotate(x, tables):
     cos, sin = tables
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def _freqs(x, theta):
+    return torch.as_tensor(rope_freqs(x.shape[-1], theta),
+                           dtype=torch.float32, device=x.device)
+
+
+def apply_rope(x, positions, theta, tables=None):
+    """x: (B, S, H, Dh); positions: (B, S).  Half-split rotation."""
+    if tables is None:
+        tables = rope_tables(positions, _freqs(x, theta))
+    return _rotate(x, tables)
+
+
+def apply_mrope(x, positions3, theta, sections, tables=None):
+    """x: (B, S, H, Dh); positions3: (B, S, 3) (t, h, w) ids, each section
+    of the frequency channels rotated by its own stream."""
+    if tables is None:
+        tables = mrope_tables(positions3, _freqs(x, theta), sections)
+    return _rotate(x, tables)
+
+
+# ---------------------------------------------------------------- sinusoid
+
+def sincos(s, d, dtype, device):
+    """(1, s, d) absolute sinusoid of positions 0..s-1: computed in numpy
+    float64 and cast to float32 then ``dtype``, as the reference's
+    ``_sincos`` is."""
+    pos = np.arange(s)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / d))
+    table = np.concatenate([np.sin(ang), np.cos(ang)], -1)[None]
+    return torch.as_tensor(table, dtype=torch.float32,
+                           device=device).to(dtype)
+
+
+def sincos_at(pos: int, d, dtype, device):
+    """(1, 1, d) sinusoid of one decode position, computed in float32 as
+    the reference's decode steps compute it (not :func:`sincos`)."""
+    i = torch.arange(d // 2, device=device)
+    ang = pos / (10000 ** (2 * i / d))
+    return torch.cat([ang.sin(), ang.cos()])[None, None].to(dtype)
 
 
 # ---------------------------------------------------------------- attention
@@ -133,11 +183,10 @@ def attn_params(cfg: ModelCfg, gen, device) -> dict:
 
 
 def _qkv(cfg: ModelCfg, p, x, positions, rope=None):
-    """Projections, heads and RoPE; ``rope`` is :func:`rope_tables` of
-    ``positions`` where the caller has it."""
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet: "
-                                  "ROADMAP Queue 1 item 2")
+    """Projections, heads and RoPE (M-RoPE over ``positions`` (B, S, 3)
+    where the config has sections); ``rope`` is the tables of
+    ``positions`` (:func:`rope_tables`, :func:`mrope_tables`) where the
+    caller has them."""
     b, s, _ = x.shape
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
@@ -145,8 +194,14 @@ def _qkv(cfg: ModelCfg, p, x, positions, rope=None):
     q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = k.reshape(b, s, cfg.n_kv, cfg.head_dim)
     v = v.reshape(b, s, cfg.n_kv, cfg.head_dim)
-    q = apply_rope(q, positions, cfg.rope_theta, rope)
-    k = apply_rope(k, positions, cfg.rope_theta, rope)
+    if cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections,
+                        rope)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections,
+                        rope)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta, rope)
+        k = apply_rope(k, positions, cfg.rope_theta, rope)
     return q, k, v
 
 

@@ -2,11 +2,14 @@
 
 :func:`from_reference` takes the tree that the reference's ``api.init``
 returns, as numpy arrays (``jax.tree.map(np.asarray, params)``), with the
-stacked layers' leading L axis, and returns a :class:`DecoderLM` on a
-given device.  The port keeps the reference's ``(in, out)`` weight layout,
-so nothing is transposed; granite's padded expert rows (48 stored for 40
-routed) are kept, and the router stays float32.  The tree must hold
-exactly the model's parameters, each of the model's shape and dtype.
+stacked layers' leading L axis (``layers``; Whisper's ``enc_layers`` and
+``dec_layers``), and returns the family's model on a given device.  The
+port keeps the reference's ``(in, out)`` weight layout, so nothing is
+transposed; granite's padded expert rows (48 stored for 40 routed) are
+kept, and the float32 leaves of a bf16 model (the router, RWKV-6's
+``w0``/``u``/``gn``, Hymba's gates and SSM constants) stay float32.  The
+tree must hold exactly the model's parameters, each of the model's shape
+and dtype.
 """
 
 from __future__ import annotations
@@ -15,7 +18,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelCfg
-from .transformer import DecoderLM
+from .api import model_class
+
+# the reference's stacked subtrees -> the port's ModuleLists
+STACKED = {"layers": "blocks", "enc_layers": "enc_blocks",
+           "dec_layers": "dec_blocks"}
 
 
 def to_torch(a) -> torch.Tensor:
@@ -36,19 +43,20 @@ def _flatten(tree, prefix=""):
             yield f"{prefix}{key}", val
 
 
-def from_reference(cfg: ModelCfg, tree, *, device="cuda") -> DecoderLM:
+def from_reference(cfg: ModelCfg, tree, *, device="cuda"):
     """The reference's parameter tree (numpy leaves) as a port model."""
-    model = DecoderLM(cfg, device=device)
+    model = model_class(cfg)(cfg, device=device)
     params = dict(model.named_parameters())
     want = set()
     for name, leaf in _flatten(tree):
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
-            if len(leaf) != cfg.n_layers:
+        top, _, rest = name.partition(".")
+        if top in STACKED:
+            n = cfg.n_enc_layers if top == "enc_layers" else cfg.n_layers
+            if len(leaf) != n:
                 raise ValueError(f"{name}: {len(leaf)} layers, config has "
-                                 f"{cfg.n_layers}")
-            pairs = [(f"blocks.{i}.{rest}", leaf[i])
-                     for i in range(cfg.n_layers)]
+                                 f"{n}")
+            pairs = [(f"{STACKED[top]}.{i}.{rest}", leaf[i])
+                     for i in range(n)]
         else:
             pairs = [(name, leaf)]
         for pname, arr in pairs:

@@ -1,16 +1,16 @@
-"""Generic decoder LM for the dense and MoE families.
+"""Generic decoder LM covering the dense, MoE, windowed and M-RoPE
+families.
 
 The port of ``repro/models/transformer.py``: one code path parameterised
 by :class:`ModelCfg` covers qwen3-moe, granite-moe, deepseek-coder, gemma3
-(5:1 local:global windows), qwen1.5 (QKV bias) and command-r (parallel
-block, LayerNorm).  The reference stacks its layers under a leading L axis
-and scans them; here :class:`DecoderLM` holds an ``nn.ModuleList`` of
-blocks, each with the reference's parameter names, and a Python loop runs
-them.  The KV cache keeps the reference's layout, a dict of (L, B, T, KV,
-Dh) tensors, so caches of the two packages compare directly;
-:func:`decode_step` writes it in place.
-
-qwen2-vl's M-RoPE and patch input are ROADMAP Queue 1 item 2.
+(5:1 local:global windows), qwen1.5 (QKV bias), command-r (parallel
+block, LayerNorm) and qwen2-vl (M-RoPE, patch embeddings prepended).  The
+reference stacks its layers under a leading L axis and scans them; here
+:class:`DecoderLM` holds an ``nn.ModuleList`` of blocks, each with the
+reference's parameter names, and a Python loop runs them.  The KV cache
+keeps the reference's layout, a dict of (L, B, T, KV, Dh) tensors, so
+caches of the two packages compare directly; :func:`decode_step` writes
+it in place.
 """
 
 from __future__ import annotations
@@ -24,14 +24,14 @@ from repro_torch.configs.base import ModelCfg
 from . import blocks as B
 from .moe import apply_moe, moe_params
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_family(cfg: ModelCfg) -> None:
-    if cfg.family not in FAMILIES or cfg.pos != "rope":
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}) is not ported yet: ROADMAP "
-            "Queue 1 item 2")
+    if cfg.family not in FAMILIES:
+        raise ValueError(
+            f"{cfg.name} (family {cfg.family!r}) is not a decoder LM: "
+            "models.api serves it through its family's module")
 
 
 # --------------------------------------------------------------- params
@@ -39,6 +39,23 @@ def check_family(cfg: ModelCfg) -> None:
 def _params(tensors: dict) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
                              for k, v in tensors.items()})
+
+
+class LM(nn.Module):
+    """What every family's model shares: its device, and the logits of the
+    final hidden states (final norm, then the head, or the embedding's
+    transpose when tied, then the vocab padding mask).  Subclasses hold
+    ``embed``, ``final_norm``, ``head`` unless tied, and the
+    ``vocab_mask`` buffer."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def logits(self, x):
+        x = B.apply_norm(self.cfg, self.final_norm, x)
+        head = self.embed.T if self.cfg.tie_embeddings else self.head
+        return x @ head + self.vocab_mask
 
 
 class Block(nn.Module):
@@ -58,7 +75,7 @@ class Block(nn.Module):
                                             gated=cfg.gated_mlp))
 
 
-class DecoderLM(nn.Module):
+class DecoderLM(LM):
     """The decoder's weights: ``embed`` (padded_vocab, d), ``blocks``,
     ``final_norm`` and, unless the embeddings are tied, ``head`` (d,
     padded_vocab); buffers for the vocab mask and the RoPE frequencies.
@@ -82,22 +99,23 @@ class DecoderLM(nn.Module):
             self.head = nn.Parameter(
                 B.dense_init(generator, cfg.d_model, cfg.padded_vocab, dt,
                              dev), requires_grad=False)
+        if cfg.vision_patches:
+            self.patch_proj = nn.Parameter(
+                B.dense_init(generator, cfg.d_model, cfg.d_model, dt, dev),
+                requires_grad=False)
         self.register_buffer("vocab_mask", B.vocab_mask(cfg, dt, dev),
                              persistent=False)
         self.register_buffer("rope_freqs", torch.as_tensor(
             B.rope_freqs(cfg.head_dim, cfg.rope_theta), dtype=torch.float32,
             device=dev), persistent=False)
 
-    @property
-    def device(self) -> torch.device:
-        return self.embed.device
-
-    def logits(self, x):
-        """Final norm, head (the embedding's transpose when tied) and the
-        vocab padding mask."""
-        x = B.apply_norm(self.cfg, self.final_norm, x)
-        head = self.embed.T if self.cfg.tie_embeddings else self.head
-        return x @ head + self.vocab_mask
+    def rope(self, positions):
+        """The RoPE (or M-RoPE) tables of ``positions``, shared by every
+        layer."""
+        if self.cfg.mrope_sections is not None:
+            return B.mrope_tables(positions, self.rope_freqs,
+                                  self.cfg.mrope_sections)
+        return B.rope_tables(positions, self.rope_freqs)
 
 
 def layer_windows(cfg: ModelCfg) -> np.ndarray:
@@ -113,11 +131,25 @@ def layer_windows(cfg: ModelCfg) -> np.ndarray:
 # --------------------------------------------------------------- forward
 
 def embed_inputs(cfg: ModelCfg, model: DecoderLM, batch):
-    """tokens (B, S) -> (B, S, d) activations and (B, S) positions."""
-    tokens = torch.as_tensor(batch["tokens"], device=model.device)
-    x = model.embed[tokens].to(B.dtype_of(cfg))
-    b, s = tokens.shape
-    positions = torch.arange(s, device=model.device).expand(b, s)
+    """tokens (B, S), with patch embeddings (B, P, d) prepended for a VLM
+    -> (B, P + S, d) activations and positions: (B, P + S), or (B, P + S,
+    3) under M-RoPE (``batch["positions3"]``, else the 1-D positions on
+    all three streams)."""
+    dev, dt = model.device, B.dtype_of(cfg)
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    x = model.embed[tokens].to(dt)
+    if cfg.vision_patches and "patches" in batch:
+        pe = torch.as_tensor(batch["patches"], device=dev).to(dt)
+        x = torch.cat([pe @ model.patch_proj, x], dim=1)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=dev).expand(b, s)
+    if cfg.mrope_sections is not None:
+        if batch.get("positions3") is not None:
+            positions = torch.as_tensor(batch["positions3"], device=dev)
+        else:
+            positions = torch.stack([positions] * 3, dim=-1)
+    if cfg.pos == "abs":
+        x = x + B.sincos(s, cfg.d_model, x.dtype, dev)
     return x, positions
 
 
@@ -145,7 +177,7 @@ def _layer(cfg: ModelCfg, blk: Block, x, positions, rope, window: int,
 def forward(cfg: ModelCfg, model: DecoderLM, batch):
     """Full-sequence forward.  Returns (logits (B, S, V), aux)."""
     x, positions = embed_inputs(cfg, model, batch)
-    rope = B.rope_tables(positions, model.rope_freqs)
+    rope = model.rope(positions)
     aux = torch.zeros((), dtype=torch.float32, device=model.device)
     for blk, w in zip(model.blocks, layer_windows(cfg)):
         x, _, a = _layer(cfg, blk, x, positions, rope, int(w), True)
@@ -168,7 +200,7 @@ def prefill(cfg: ModelCfg, model: DecoderLM, batch):
     """Forward over the prompt -> (last logits (B, 1, V), cache of S
     slots)."""
     x, positions = embed_inputs(cfg, model, batch)
-    rope = B.rope_tables(positions, model.rope_freqs)
+    rope = model.rope(positions)
     ks, vs = [], []
     for blk, w in zip(model.blocks, layer_windows(cfg)):
         x, (k, v), _ = _layer(cfg, blk, x, positions, rope, int(w), False)
@@ -179,15 +211,24 @@ def prefill(cfg: ModelCfg, model: DecoderLM, batch):
 
 
 def decode_step(cfg: ModelCfg, model: DecoderLM, token, cache,
-                cache_len: int):
-    """One-token decode.  token: (B, 1).  Writes slot ``cache_len`` of
-    every layer's cache in place; returns (logits (B, 1, V), cache)."""
+                cache_len: int, positions3=None):
+    """One-token decode.  token: (B, 1); ``positions3`` (B, 1, 3) under
+    M-RoPE (None: ``cache_len`` on all three streams).  Writes slot
+    ``cache_len`` of every layer's cache in place; returns (logits (B, 1,
+    V), cache)."""
     cache_len = int(cache_len)
-    token = torch.as_tensor(token, device=model.device)
+    dev = model.device
+    token = torch.as_tensor(token, device=dev)
     x = model.embed[token].to(B.dtype_of(cfg))
     positions = torch.full(token.shape, cache_len, dtype=torch.int32,
-                           device=model.device)
-    rope = B.rope_tables(positions, model.rope_freqs)
+                           device=dev)
+    if cfg.mrope_sections is not None:
+        positions = (torch.stack([positions] * 3, dim=-1)
+                     if positions3 is None
+                     else torch.as_tensor(positions3, device=dev))
+    if cfg.pos == "abs":
+        x = x + B.sincos_at(cache_len, cfg.d_model, x.dtype, dev)
+    rope = model.rope(positions)
     quant = "k_scale" in cache
     t = cache["k"].shape[2]
     for i, (blk, w) in enumerate(zip(model.blocks, layer_windows(cfg))):

@@ -1,8 +1,12 @@
-"""Batched generation engine: prefill, then an eager decode loop.
+"""Batched generation engine: the prompt, then an eager decode loop.
 
-The port of ``repro/serve/engine.py`` for the dense and MoE families.  The
-reference scans its decode steps inside one jitted function; here a Python
-loop runs them (no ``torch.compile``, no CUDA graphs), with no host
+The port of ``repro/serve/engine.py``.  The dense, MoE and VLM families
+prefill the prompt; the recurrent, hybrid and encoder-decoder families
+(``ssm``, ``hybrid``, ``encdec``) build their state with
+``api.init_cache`` and feed the prompt one token at a time through
+``decode_step`` from position 0, as the reference's ``warm`` scan does.
+The reference scans its steps inside one jitted function; here Python
+loops run them (no ``torch.compile``, no CUDA graphs), with no host
 synchronisation inside a step, so the host can run ahead of the card.
 """
 
@@ -13,29 +17,41 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.models import api
-from repro_torch.models.transformer import DecoderLM, check_family
 from .sampler import sample
+
+WARM_FAMILIES = ("ssm", "hybrid", "encdec")
 
 
 @torch.no_grad()
-def generate(cfg: ModelCfg, model: DecoderLM, prompt_tokens, *,
-             max_new_tokens=16, generator=None, temperature=1.0, top_k=64,
-             top_p=1.0):
+def generate(cfg: ModelCfg, model, prompt_tokens, *, max_new_tokens=16,
+             generator=None, temperature=1.0, top_k=64, top_p=1.0,
+             frames=None):
     """prompt_tokens: (B, S) -> (B, max_new_tokens) sampled ids (int32),
     on the model's device.  ``generator``: a ``torch.Generator`` on that
-    device (None: one seeded with 0, as the reference's default key)."""
-    check_family(cfg)
+    device (None: one seeded with 0, as the reference's default key).
+    ``frames`` (B, enc_ctx, d_model): the encoder's input, for
+    ``encdec``."""
     dev = model.device
     prompt = torch.as_tensor(prompt_tokens, device=dev)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    s = prompt.shape[1]
+    b, s = prompt.shape
 
-    logits, cache = api.prefill(cfg, model, {"tokens": prompt})
-    # prefill emits an S-long cache; extend to max_len for decode writes
-    cache = {kk: F.pad(vv, (0, 0, 0, 0, 0, max_new_tokens))
-             for kk, vv in cache.items()}
-    last = logits[:, -1]
+    if cfg.family in WARM_FAMILIES:
+        if cfg.family == "encdec" and frames is None:
+            raise ValueError("encdec: generate needs the frames")
+        cache = api.init_cache(cfg, b, s + max_new_tokens, model=model,
+                               frames=frames, device=dev)
+        for t in range(s):
+            lg, cache = api.decode_step(cfg, model, prompt[:, t:t + 1],
+                                        cache, t)
+    else:
+        lg, cache = api.prefill(cfg, model, {"tokens": prompt})
+        # prefill emits an S-long cache; extend to max_len for decode
+        # writes
+        cache = {kk: F.pad(vv, (0, 0, 0, 0, 0, max_new_tokens))
+                 for kk, vv in cache.items()}
+    last = lg[:, -1]
     toks = []
     for i in range(max_new_tokens):
         tok = sample(last, generator, temperature=temperature, top_k=top_k,

@@ -325,7 +325,8 @@ def test_mesh_double_buffer_stages_on_a_side_stream(cuda):
 # ---------------------------------------------------------------- models
 
 MODEL_ARCHS = ["gemma3-4b", "command-r-35b", "deepseek-coder-33b",
-               "qwen1.5-32b", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b"]
+               "qwen1.5-32b", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
+               "rwkv6-1.6b", "hymba-1.5b", "whisper-tiny", "qwen2-vl-7b"]
 
 
 @pytest.fixture
@@ -342,21 +343,27 @@ def no_tf32():
 @pytest.mark.parametrize("arch", MODEL_ARCHS)
 def test_model_smoke_cuda_equals_cpu(cuda, no_tf32, arch):
     """One seeded CPU model and its copy on the card, float32 with TF32
-    off: prefill and 3 decode steps, logits and caches, within 1e-4 + 1e-4
-    |x| (cuBLAS and F.scaled_dot_product_attention sum in other orders than
-    the host's einsums), and the router's expert ids on the card equal the
-    host's on the same probabilities."""
+    off: prefill and 3 decode steps, logits and every leaf of the state or
+    cache, within 1e-4 + 1e-4 |x| (cuBLAS and
+    F.scaled_dot_product_attention sum in other orders than the host's
+    einsums); the router's expert ids on the card equal the host's on the
+    same probabilities; for the families that warm up token by token, the
+    warm-up's last logits on the card equal prefill's."""
     import copy
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels.radix_topk import radix_topk
     from repro_torch.models import api, moe
+    from repro_torch.serve.engine import WARM_FAMILIES
     cfg = get_config(arch, smoke=True)
     cpu = api.init(cfg, seed=0, device="cpu")
     gpu = copy.deepcopy(cpu).to(cuda)
     rng = np.random.default_rng(0)
-    b, s, n = 2, 40, 3                  # past gemma3's smoke window of 32
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+    b, s, n = 2, 40, 3                  # past the smoke window of 32
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(b, cfg.enc_ctx, cfg.d_model)).astype(np.float32))
     steps = torch.from_numpy(rng.integers(0, cfg.vocab, (n, b, 1)))
     probs = []
     route = moe._route
@@ -371,16 +378,25 @@ def test_model_smoke_cuda_equals_cpu(cuda, no_tf32, arch):
     moe._route = spy
     try:
         for dev, model in (("cpu", cpu), ("cuda", gpu)):
-            lg, cache = api.prefill(cfg, model, {"tokens": toks})
-            got = [lg, cache["k"], cache["v"]]
+            lg, cache = api.prefill(cfg, model, batch)
+            got = [lg] + [cache[kk] for kk in sorted(cache)]
             cache = {kk: F.pad(vv, (0, 0, 0, 0, 0, n))
-                     for kk, vv in cache.items()}
+                     if kk in ("k", "v") else vv for kk, vv in cache.items()}
             for i in range(n):
                 lg, cache = api.decode_step(cfg, model, steps[i], cache, s + i)
-                got += [lg, cache["k"].clone(), cache["v"].clone()]
+                got += [lg] + [cache[kk].clone() for kk in sorted(cache)]
             outs[dev] = [g.cpu() for g in got]
+            if cfg.family in WARM_FAMILIES and dev == "cuda":
+                pl = api.prefill(cfg, model, batch)[0]
+                cache = api.init_cache(cfg, b, s, model=model, device=cuda,
+                                       frames=batch.get("frames"))
+                for i in range(s):
+                    lg, cache = api.decode_step(
+                        cfg, model, batch["tokens"][:, i:i + 1], cache, i)
+                torch.testing.assert_close(lg, pl, rtol=1e-4, atol=1e-4)
     finally:
         moe._route = route
+    assert len(outs["cuda"]) == len(outs["cpu"])
     for a, c in zip(outs["cuda"], outs["cpu"]):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
@@ -417,7 +433,9 @@ def test_fused_attention_equals_plain_on_the_card(cuda, no_tf32, s, window):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "granite-moe-3b-a800m",
+                                  "rwkv6-1.6b", "hymba-1.5b", "whisper-tiny",
+                                  "qwen2-vl-7b"])
 def test_generate_on_the_card_repeats(cuda, arch):
     from repro_torch.configs import get_config
     from repro_torch.kernels.radix_topk import ops as radix_ops
@@ -426,9 +444,12 @@ def test_generate_on_the_card_repeats(cuda, arch):
     cfg = get_config(arch, smoke=True)
     model = api.init(cfg, seed=0, device=cuda)
     prompts = torch.ones((2, 40), dtype=torch.int32, device=cuda)
+    frames = (torch.randn((2, cfg.enc_ctx, cfg.d_model), device=cuda,
+                          generator=torch.Generator(device=cuda).manual_seed(4))
+              if cfg.family == "encdec" else None)
     before = radix_ops.launches
     runs = [generate(cfg, model, prompts, max_new_tokens=8, top_k=16,
-                     top_p=0.9,
+                     top_p=0.9, frames=frames,
                      generator=torch.Generator(device=cuda).manual_seed(3))
             for _ in range(2)]
     assert torch.equal(runs[0], runs[1])

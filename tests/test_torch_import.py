@@ -42,7 +42,9 @@ for name in ("repro_torch.dist", "repro_torch.dist.bankmesh",
              "repro_torch.configs.granite_moe_3b_a800m",
              "repro_torch.models.blocks", "repro_torch.models.moe",
              "repro_torch.models.transformer", "repro_torch.models.api",
-             "repro_torch.models.convert", "repro_torch.serve.sampler",
+             "repro_torch.models.convert", "repro_torch.models.rwkv6",
+             "repro_torch.models.hymba", "repro_torch.models.whisper",
+             "repro_torch.serve.sampler",
              "repro_torch.serve.engine", "repro_torch.launch.serve"):
     assert name in names, name
 print(len(names))

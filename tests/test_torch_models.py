@@ -361,10 +361,19 @@ def test_converter_rejects_a_wrong_tree():
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "rwkv6-1.6b", "hymba-1.5b",
                                   "qwen2-vl-7b"])
-def test_other_families_raise(arch):
-    cfg = get_config(arch, smoke=True)
-    for call in (lambda: api.init(cfg, device="cpu"),
-                 lambda: api.init_cache(cfg, 1, 4, device="cpu"),
-                 lambda: api.prefill(cfg, None, {"tokens": [[1]]})):
-        with pytest.raises(NotImplementedError, match="item 2"):
-            call()
+def test_every_family_builds_the_reference_tree(arch):
+    """The port's ``api.init`` builds exactly the parameters of the
+    reference's tree: the same names (stacked layers unstacked), shapes and
+    dtypes, the float32 leaves of a bf16 model included; the converter
+    checks that the tree fills the model and nothing more."""
+    for dtype in ("float32", "bfloat16"):
+        rcfg, cfg = smoke(arch, dtype)
+        tree = jax.tree.map(np.asarray, ref_api.init(rcfg, jax.random.key(0)))
+        loaded = convert.from_reference(cfg, tree, device="cpu")
+        built = api.init(cfg, device="cpu")
+        assert type(built) is type(loaded) is api.model_class(cfg)
+        want = {n: (p.shape, p.dtype) for n, p in loaded.named_parameters()}
+        got = {n: (p.shape, p.dtype) for n, p in built.named_parameters()}
+        assert got == want
+        n_ref = sum(a.size for a in jax.tree.leaves(tree))
+        assert sum(p.numel() for p in built.parameters()) == n_ref

@@ -1,6 +1,6 @@
-"""The port's serving path (``repro_torch.serve``) for the dense and MoE
-families: the properties of ``tests/test_serving.py`` on the port, and a
-greedy decode loop whose tokens equal the reference's.
+"""The port's serving path (``repro_torch.serve``): the properties of
+``tests/test_serving.py`` on the port, and a greedy decode loop whose
+tokens equal the reference's.
 
 Torch cannot replay jax's random streams, so sampled tokens are held to
 properties (top-k set, top-p prune, temperature limit, range) and to
@@ -25,8 +25,11 @@ from repro.serve.sampler import greedy as ref_greedy
 from repro_torch.configs import get_config
 from repro_torch.models import api, convert
 from repro_torch.serve import generate, greedy, sample
+from repro_torch.serve.engine import WARM_FAMILIES
 
 MARGIN = 1e-3
+SERVE_ARCHS = ["gemma3-4b", "granite-moe-3b-a800m", "rwkv6-1.6b",
+               "hymba-1.5b", "whisper-tiny", "qwen2-vl-7b"]
 
 
 def _gen(seed):
@@ -86,14 +89,23 @@ def test_sample_draws_by_probability():
     assert set(toks.tolist()) == {2, 5}
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "granite-moe-3b-a800m"])
+def _frames(cfg, b, seed=0):
+    if cfg.family != "encdec":
+        return None
+    return np.random.default_rng(seed).normal(
+        size=(b, cfg.enc_ctx, cfg.d_model)).astype(np.float32)
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_generate_end_to_end(arch):
     cfg = get_config(arch, smoke=True)
     model = api.init(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)))
+    fr = _frames(cfg, 2)
+    fr = None if fr is None else torch.from_numpy(fr)
     out = generate(cfg, model, prompts, max_new_tokens=4, generator=_gen(1),
-                   top_k=8)
+                   top_k=8, frames=fr)
     assert out.shape == (2, 4)
     assert ((out >= 0) & (out < cfg.padded_vocab)).all()
     # vocab padding rows are masked to -1e30 and must never be sampled
@@ -153,21 +165,54 @@ def test_kv8_quantized_cache_matches_plain():
     assert qcache["k"].abs().max() == 127            # absmax-quantised
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "granite-moe-3b-a800m"])
+def _ref_start(rcfg, params, toks, n, frames):
+    """The reference's state and last logits after the prompt, as its
+    ``generate`` makes them: prefill (cache padded by ``n`` slots), or
+    the token-by-token warm-up from ``init_cache``."""
+    b, s = toks.shape
+    dec = jax.jit(lambda p, tk, c, i: ref_api.decode_step(rcfg, p, tk, c, i))
+    if rcfg.family in WARM_FAMILIES:
+        rc = ref_api.init_cache(rcfg, b, s + n, params=params,
+                                frames=None if frames is None
+                                else jnp.asarray(frames))
+        for i in range(s):
+            rl, rc = dec(params, jnp.asarray(toks[:, i:i + 1]), rc,
+                         jnp.int32(i))
+        return rl, rc, dec
+    rl, rc = ref_api.prefill(rcfg, params, {"tokens": jnp.asarray(toks)})
+    rc = {k: jnp.pad(v, ((0, 0), (0, 0), (0, n), (0, 0), (0, 0)))
+          for k, v in rc.items()}
+    return rl, rc, dec
+
+
+def _port_start(cfg, model, toks, n, frames):
+    b, s = toks.shape
+    toks = torch.from_numpy(toks)
+    if cfg.family in WARM_FAMILIES:
+        pc = api.init_cache(cfg, b, s + n, model=model, device="cpu",
+                            frames=None if frames is None
+                            else torch.from_numpy(frames))
+        for i in range(s):
+            pl, pc = api.decode_step(cfg, model, toks[:, i:i + 1], pc, i)
+        return pl, pc
+    pl, pc = api.prefill(cfg, model, {"tokens": toks})
+    return pl, {k: F.pad(v, (0, 0, 0, 0, 0, n)) for k, v in pc.items()}
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_greedy_decode_equals_reference(arch):
     rcfg, cfg = ref_config(arch, smoke=True), get_config(arch, smoke=True)
     params = ref_api.init(rcfg, jax.random.key(0))
     model = convert.from_reference(
         cfg, jax.tree.map(np.asarray, params), device="cpu")
     rng = np.random.default_rng(4)
-    b, s, n = 2, 40, 8                   # past gemma3's smoke window of 32
+    b, s, n = 2, 40, 8                   # past the smoke window of 32
     toks = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
-    rl, rc = ref_api.prefill(rcfg, params, {"tokens": jnp.asarray(toks)})
-    rc = {k: jnp.pad(v, ((0, 0), (0, 0), (0, n), (0, 0), (0, 0)))
-          for k, v in rc.items()}
-    pl, pc = api.prefill(cfg, model, {"tokens": torch.from_numpy(toks)})
-    pc = {k: F.pad(v, (0, 0, 0, 0, 0, n)) for k, v in pc.items()}
-    dec = jax.jit(lambda p, tk, c, i: ref_api.decode_step(rcfg, p, tk, c, i))
+    # frames of seed 0: with seed 4 the reference's whisper logits (small:
+    # a tied 0.02-scale head) tie within 8.2e-4 at one step
+    fr = _frames(cfg, b)
+    rl, rc, dec = _ref_start(rcfg, params, toks, n, fr)
+    pl, pc = _port_start(cfg, model, toks, n, fr)
     ref_toks, port_toks = [], []
     for i in range(n):
         top2 = np.sort(np.asarray(rl[:, -1], np.float32), -1)[:, -2:]
@@ -185,9 +230,11 @@ def test_launcher_smoke_on_cpu(capsys):
     out = serve.main(["--smoke", "--device", "cpu", "--batch", "2",
                       "--prompt_len", "8", "--new_tokens", "4"])
     assert out.shape == (2, 4)
-    assert "generated (2, 4) on cpu" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 2"):
-        serve.main(["--smoke", "--device", "cpu", "--arch", "hymba-1.5b"])
+    assert "hymba-1.5b: generated (2, 4) on cpu" in capsys.readouterr().out
+    out = serve.main(["--smoke", "--device", "cpu", "--batch", "2",
+                      "--prompt_len", "8", "--new_tokens", "4", "--arch",
+                      "whisper-tiny"])                 # zero frames
+    assert "whisper-tiny: generated (2, 4) on cpu" in capsys.readouterr().out
 
 
 def test_batched_serving_example_on_cpu(capsys):
