@@ -110,7 +110,30 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      the path's shapes (the router's (512, 40) and (4, 40), the sampler's
      vocab rows of 2 to 16 banks), each beside its bound, launch floor,
      plain version and ``torch.topk``;
-  9. print ``{"ok": true, "device": {...}}`` as the last line.
+  9. the training path (``repro_torch.train``, ``ckpt``, ``data``,
+     ``launch.train``): the ten archs at smoke size in float32 with TF32
+     off, one seeded CPU train state and its copy on the card, one
+     ``make_train_step`` each: loss, grad norm and every grad leaf on cuda
+     against cpu (``SMOKE_TOL``, ``TRAIN_GRAD_REL``), every router call
+     (forward and remat recompute) with expert ids exact on the same
+     probabilities; on the card, microbatches 2 against 1 (hymba: every
+     grad leaf within ``MICROBATCH_GRAD_REL`` of its largest value, the
+     params within 2e-5), a resume from a checkpoint against 4 steps never stopped
+     (rwkv6, within 1e-6), and that checkpoint restored on the CPU, equal.
+     Then ``repro_torch.launch.train.main`` at full width for
+     granite-moe-3b-a800m (bf16, B = 2, S = 4,096, 4 steps, no
+     checkpoint): with every launch count reset just before and read just
+     after, the radix launches equal the count the code implies (2 x 32 a
+     step: each router and its recompute); the first step's router calls
+     replayed through the kernel's plain version on the card (values and
+     indices exact), the recompute's ids equal to the forward's; finite
+     losses and grad norms; weights moved by step 1.  Then the step's ms
+     (host clock, each step synchronised, median after the first),
+     tokens/s, peak memory beside the train state's bytes, a profiled
+     step's split (forward, backward and optimizer spans; router radix,
+     experts and attention, device and host; idle share), and the radix
+     row at the training router's shape (8192, 40), k = 8;
+ 10. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Exact integer outputs: every tolerance is equality (``max_abs_err`` 0).
 """
@@ -1511,7 +1534,9 @@ def radix_path_rows(torch, np, runs: list) -> list:
     for run in runs:
         for (site, shape, k), c in sorted(run["path"].items()):
             kin = c["kernel"]
-            if site == "router":
+            if "row_name" in c:
+                name = c["row_name"]
+            elif site == "router":
                 name = ("radix_threshold_router_prefill" if shape[0] > run["batch"]
                         else "radix_threshold_router_decode")
             else:
@@ -1554,6 +1579,492 @@ def radix_path_rows(torch, np, runs: list) -> list:
                 radix_topk_call_device_ms=call_device_ms,
                 radix_topk_call_host_ms=call_host_ms))
     return rows
+
+
+# ---------------------------------------------------------------- phase 9
+
+# the training path at full width: granite-moe-3b-a800m at its published
+# widths and depth, bf16, B = 2 at the reference's train_4k sequence of
+# 4,096 (its global batch of 256 cut to 2 for one card), 4 steps
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = (
+    "granite-moe-3b-a800m", 2, 4096, 4)
+# cuda against cpu, one train step at smoke size in float32 with TF32 off:
+# the loss and the grad norm within SMOKE_TOL, each grad leaf within this
+# share of the leaf's largest magnitude (the host and the reference differ
+# by 3e-6 of it at most, tests/test_torch_loss.py)
+TRAIN_GRAD_REL = 1e-4
+# microbatches 2 against 1, and resume against a run never stopped: the
+# reference's own bars on the params (tests/test_train_and_ckpt.py); a
+# step at the default schedule moves no param by more than 3e-6, so the
+# microbatched grads are held too, each leaf within this share of its
+# largest magnitude (4.2e-7 on the host, tests/test_torch_train.py)
+MICROBATCH_TOL = 2e-5
+MICROBATCH_GRAD_REL = 1e-5
+RESUME_TOL = 1e-6
+
+
+def _smoke_batch(torch, np, cfg, dev, b=2, s=32):
+    """A seeded token batch, with seeded normal frames (encoder-decoder)
+    or patches (VLM, beside the launcher's 1-D positions3)."""
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.launch.train import make_batch
+    batch = make_batch(cfg, SyntheticCorpus(cfg.vocab, s, b, seed=0).batch(
+        0)["tokens"], dev)
+    rng = np.random.default_rng(1)
+    for key in ("frames", "patches"):
+        if key in batch:
+            batch[key] = torch.as_tensor(rng.normal(
+                size=tuple(batch[key].shape)).astype(np.float32), device=dev)
+    return batch
+
+
+def _train_once(torch, cfg, state, batch, **kw):
+    """One ``make_train_step`` at peak_lr 1e-3 with no warm-up -> (metrics
+    as floats, every grad on the host by parameter name)."""
+    from repro_torch.train import make_train_step
+    grads = {}
+
+    def capture(g, _state):
+        grads.update({n: t.detach().float().cpu() for n, t in g.items()})
+        return g, {}
+
+    _, m = make_train_step(cfg, peak_lr=1e-3, warmup=0, grad_reduce=capture,
+                           **kw)(state, batch)
+    return {k: float(v) for k, v in m.items()}, grads
+
+
+def hold_train_smoke(torch, np, dev="cuda") -> dict:
+    """The ten archs at smoke size in float32, TF32 off: one seeded CPU
+    train state and its copy on the card, one ``make_train_step`` each:
+    loss, grad norm, lr and every grad leaf on cuda against cpu, every
+    router call's expert ids on the card equal to the host's on the same
+    probabilities.  Then on the card: microbatches 2 against 1 (hymba),
+    resume from a checkpoint against 4 uninterrupted steps (rwkv6, the
+    reference's cases), and that checkpoint restored on the CPU."""
+    import copy
+    import tempfile
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.ckpt.manager import _flatten, reference_tree
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.kernels.radix_topk import radix_topk
+    from repro_torch.train import adamw_init, init_state, make_train_step
+    out = {}
+    for arch in ARCHS:
+        cfg = get_config(arch, smoke=True)
+        cpu = init_state(cfg, seed=0, device="cpu")
+        model = copy.deepcopy(cpu["model"]).to(dev)
+        gpu = {"model": model, "opt": adamw_init(model.named_parameters())}
+        calls = []
+        got = {}
+        for where, state in (("cpu", cpu), ("cuda", gpu)):
+            rec = (_radix_recorder(calls) if where == "cuda"
+                   else contextlib.nullcontext())
+            with rec:
+                got[where] = _train_once(torch, cfg, state, _smoke_batch(
+                    torch, np, cfg, state["model"].device))
+        (mc, gc), (mg, gg) = got["cpu"], got["cuda"]
+        for k in ("loss", "grad_norm", "lr", "ce"):
+            if not (np.isfinite(mg[k]) and np.isclose(mg[k], mc[k],
+                                                      **SMOKE_TOL)):
+                _fail(f"{arch} train step: {k} {mg[k]} on the card, "
+                      f"{mc[k]} on the host")
+        worst = 0.0
+        for n, c in gc.items():
+            err = float((gg[n] - c).abs().max())
+            bound = TRAIN_GRAD_REL * float(c.abs().max())
+            worst = max(worst, err / max(float(c.abs().max()), 1e-30))
+            if not (torch.isfinite(gg[n]).all() and err <= bound):
+                _fail(f"{arch} train step: grad {n} differs by {err:.3g} "
+                      f"(bound {bound:.3g})")
+        routers = cfg.n_layers * 2 if cfg.moe is not None else 0
+        if len(calls) != routers:
+            _fail(f"{arch} train step: {len(calls)} router calls, the code "
+                  f"implies {routers} (forward and remat recompute)")
+        for c in calls:
+            vals, idx = radix_topk(c["x"].cpu(), c["k"], device="cpu")
+            if not (torch.equal(vals, c["vals"].cpu())
+                    and torch.equal(idx, c["idx"].cpu())):
+                _fail(f"{arch} train step: router ids on the card != the "
+                      "host's on the same probabilities")
+        out[arch] = {"loss_abs_err": abs(mg["loss"] - mc["loss"]),
+                     "grad_norm_abs_err": abs(mg["grad_norm"]
+                                              - mc["grad_norm"]),
+                     "grad_max_rel_err": worst, "router_calls": len(calls)}
+        print(f"phase 9 smoke {arch}: train step cuda == cpu (float32, TF32 "
+              f"off): loss {mg['loss']:.6f} (err {out[arch]['loss_abs_err']:.3g}"
+              f"), grad_norm err {out[arch]['grad_norm_abs_err']:.3g}, every "
+              f"grad leaf within {worst:.3g} of its largest value (bound "
+              f"{TRAIN_GRAD_REL}); {len(calls)} router calls, expert ids exact")
+
+    # microbatches 2 against 1 on the card (hymba, the reference's case):
+    # the accumulated grads, which the grad_reduce hook hands out, and the
+    # params after the step
+    cfg = get_config("hymba-1.5b", smoke=True)
+    batch = _smoke_batch(torch, np, cfg, dev, b=4)
+    params, grads, metrics = {}, {}, {}
+    for mb in (1, 2):
+        g = {}
+
+        def capture(gs, _state, g=g):
+            g.update({n: t.detach().float().clone() for n, t in gs.items()})
+            return gs, {}
+
+        state = init_state(cfg, seed=0, device=dev)
+        _, m = make_train_step(cfg, microbatches=mb, grad_reduce=capture)(
+            state, batch)
+        params[mb] = [p.detach() for p in state["model"].parameters()]
+        grads[mb], metrics[mb] = g, {k: float(v) for k, v in m.items()}
+    grad_err = 0.0
+    for n, g in grads[1].items():
+        top = float(g.abs().max())
+        if not top > 0:
+            _fail(f"microbatches: grad {n} is all zero on the card")
+        grad_err = max(grad_err, float((grads[2][n] - g).abs().max()) / top)
+    if not grad_err <= MICROBATCH_GRAD_REL:
+        _fail(f"microbatches 2 != 1 on the card: a grad leaf differs by "
+              f"{grad_err:.3g} of its largest value")
+    for k in ("loss", "grad_norm"):
+        if not np.isclose(metrics[2][k], metrics[1][k], rtol=1e-5, atol=0):
+            _fail(f"microbatches 2 != 1 on the card: {k} {metrics[2][k]} "
+                  f"against {metrics[1][k]}")
+    err = max(float((a - b).abs().max())
+              for a, b in zip(params[1], params[2]))
+    if not err <= MICROBATCH_TOL:
+        _fail(f"microbatches 2 != 1 on the card: {err:.3g}")
+    out["microbatch_max_abs_err"] = err
+    out["microbatch_grad_max_rel_err"] = grad_err
+
+    # resume from a checkpoint the card wrote against a straight run
+    cfg = get_config("rwkv6-1.6b", smoke=True)
+    from repro_torch.data import SyntheticCorpus
+    data = SyntheticCorpus(cfg.vocab, 16, 2, seed=3)
+
+    def batch_of(i):
+        return {"tokens": torch.as_tensor(data.batch(i)["tokens"],
+                                          device=dev)}
+
+    step = make_train_step(cfg, peak_lr=1e-3)
+    straight = init_state(cfg, seed=1, device=dev)
+    for i in range(4):
+        step(straight, batch_of(i))
+    with tempfile.TemporaryDirectory() as ck:
+        s = init_state(cfg, seed=1, device=dev)
+        for i in range(2):
+            step(s, batch_of(i))
+        mgr = CheckpointManager(ck)
+        mgr.save(2, s, blocking=True)
+        written = reference_tree(s)
+        del s
+        s = mgr.restore(2, init_state(cfg, seed=99, device=dev))
+        for i in range(2, 4):
+            step(s, batch_of(i))
+        on_cpu = reference_tree(mgr.restore(
+            2, init_state(cfg, seed=5, device="cpu")))
+    err = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(
+        straight["model"].parameters(), s["model"].parameters()))
+    if not err <= RESUME_TOL:
+        _fail(f"resume != uninterrupted on the card: {err:.3g}")
+    out["resume_max_abs_err"] = err
+
+    want, got = _flatten(written), _flatten(on_cpu)
+    if sorted(got) != sorted(want) or not all(
+            got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+            for k in want):
+        _fail("a checkpoint written on the card != its restore on the CPU")
+    print(f"phase 9 on the card: microbatches 2 == 1: grads within "
+          f"{out['microbatch_grad_max_rel_err']:.3g} of each leaf's largest "
+          f"value (bound {MICROBATCH_GRAD_REL}), params within "
+          f"{out['microbatch_max_abs_err']:.3g} (bound {MICROBATCH_TOL}); resume == 4 straight steps within "
+          f"{out['resume_max_abs_err']:.3g} (bound {RESUME_TOL}); the card's "
+          f"checkpoint ({len(want)} leaves) restored on the CPU, equal")
+    return out
+
+
+# labels of the profiled train step, each a function the step calls
+TRAIN_LABELS = ("forward", "optimizer", "router_radix", "experts",
+                "attention")
+
+
+def _profile_train_step(torch, step, state, batch) -> dict:
+    """One train step under ``torch.profiler``, with the forward (the
+    loss), the optimizer, the router's radix calls, the expert compute and
+    attention annotated (their recomputes in backward included), and CUDA
+    events between the forward, the backward and the optimizer: each
+    span's device ms and host ms, all kernels' busy ms, and the attention
+    backward kernels' ms."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import api, blocks, moe
+    from repro_torch.train import loop
+    marks = []
+
+    def mark():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((e, time.perf_counter()))
+
+    def annotate(label, fn, edges=False):
+        def call(*a, **kw):
+            with record_function(label):
+                out = fn(*a, **kw)
+            if edges:
+                mark()
+            return out
+        return call
+
+    update = annotate("optimizer", loop.adamw_update, edges=True)
+
+    def optimizer(*a, **kw):
+        mark()
+        return update(*a, **kw)
+
+    sites = ((api, "loss", annotate("forward", api.loss, edges=True)),
+             (loop, "adamw_update", optimizer),
+             (moe, "radix_topk", annotate("router_radix", moe.radix_topk)),
+             (moe, "_dispatch_compute",
+              annotate("experts", moe._dispatch_compute)),
+             (blocks, "attend", annotate("attention", blocks.attend)))
+    torch.cuda.synchronize()
+    with _patched(*sites), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            acc_events=True) as prof:
+        mark()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - marks[0][1]) * 1e3
+    if len(marks) != 4:
+        _fail(f"profiled train step: {len(marks)} marks, expected 4")
+    (e0, h0), (e1, h1), (e2, h2), (e3, h3) = marks
+    out = {"step_ms": wall_ms,
+           "forward_span": {"device_ms": e0.elapsed_time(e1),
+                            "host_ms": (h1 - h0) * 1e3},
+           "backward_span": {"device_ms": e1.elapsed_time(e2),
+                             "host_ms": (h2 - h1) * 1e3},
+           "optimizer_span": {"device_ms": e2.elapsed_time(e3),
+                              "host_ms": (h3 - h2) * 1e3}}
+    for label in TRAIN_LABELS:
+        es = _cpu_events(prof, label)
+        out[label] = {"calls": len(es),
+                      "device_ms": sum(e.device_time_total for e in es) / 1e3,
+                      "host_ms": sum(e.cpu_time_total for e in es) / 1e3}
+    # the device's own events, without the labels' spans on its timeline
+    kernels = [e for e in prof.events()
+               if str(e.device_type).endswith("CUDA")
+               and e.name not in TRAIN_LABELS]
+    out["kernels"] = len(kernels)
+    busy, end = 0.0, float("-inf")
+    for a, z in sorted((e.time_range.start, e.time_range.end)
+                       for e in kernels):
+        busy += max(0.0, z - max(a, end))
+        end = max(end, z)
+    out["device_busy_ms"] = busy / 1e3
+    out["attention_backward_device_ms"] = sum(
+        e.time_range.elapsed_us() for e in kernels
+        if "flash" in e.name.lower() and "bwd" in e.name.lower()) / 1e3
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    out["top_kernels"] = [[name[:90], ms, n] for name, (ms, n) in sorted(
+        by_name.items(), key=lambda kv: -kv[1][0])[:12]]
+    out["attention_backends"] = _attention_backends(
+        set().union(*[_kernel_names(e)
+                      for e in _cpu_events(prof, "attention")]))
+    return out
+
+
+def _watched(state) -> dict:
+    """A few leaves whose change shows that a step moved the weights:
+    layer 0's query projection (bf16 at full width) and router (float32),
+    and the query projection's float32 master."""
+    blk = state["model"].blocks[0]
+    return {"blocks.0.attn.wq": blk.attn["wq"],
+            "blocks.0.moe.router": blk.moe["router"],
+            "master blocks.0.attn.wq":
+                state["opt"]["master"]["blocks.0.attn.wq"]}
+
+
+def run_training(torch, np, card, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
+                 seq=TRAIN_SEQ, steps=TRAIN_STEPS, smoke=False) -> dict:
+    """``repro_torch.launch.train.main`` at the arch's full config on the
+    card: every radix launch count reset just before and read just after
+    the run, each step's launches against the count the code implies,
+    every router call of the first step replayed through the kernel's
+    plain version on the card, the recompute's expert ids against the
+    forward's, finite losses and grad norms, parameters that moved; then
+    the step's ms (host clock, each step synchronised), tokens/s, peak
+    memory beside the train state's bytes, and one profiled step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    from repro_torch.kernels.radix_topk import radix_topk
+    from repro_torch.launch import train as launch_train
+    from repro_torch.data import SyntheticCorpus
+    cfg = get_config(arch, smoke=smoke)
+    kept, records, calls = {}, [], []
+    init, build = launch_train.init_state, launch_train.make_train_step
+
+    def init_kept(*a, **kw):
+        t0 = time.perf_counter()
+        state = init(*a, **kw)
+        torch.cuda.synchronize()
+        kept["init_s"] = time.perf_counter() - t0
+        kept["state"] = state
+        kept["before"] = {n: t.detach().clone()
+                          for n, t in _watched(state).items()}
+        return state
+
+    def make(*a, **kw):
+        step = build(*a, **kw)
+        kept["step"] = step
+
+        def timed(state, batch):
+            first = not records
+            torch.cuda.synchronize()
+            before = radix_ops.launches
+            t0 = time.perf_counter()
+            with (_radix_recorder(calls) if first
+                  else contextlib.nullcontext()):
+                state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            records.append({"ms": ms, "launches": radix_ops.launches - before,
+                            **{k: float(v) for k, v in m.items()}})
+            if first:
+                kept["moved"] = {
+                    n: float((now.detach().float()
+                              - kept["before"][n].float()).abs().max())
+                    for n, now in _watched(state).items()}
+            return state, m
+        return timed
+
+    argv = ["--arch", arch, "--batch", str(batch), "--seq", str(seq),
+            "--steps", str(steps), "--seed", "0"] + (["--smoke"] if smoke
+                                                    else [])
+    # the main path: every count set to 0 just before, read just after
+    _reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _patched((launch_train, "init_state", init_kept),
+                  (launch_train, "make_train_step", make)):
+        last = launch_train.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = radix_ops.launches
+    peak = torch.cuda.max_memory_allocated()
+    state = kept["state"]
+    model = state["model"]
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    # params, their grads (the params' dtype), and the f32 master, m and v
+    state_bytes = 2 * param_bytes + 3 * 4 * n_params
+    per_step = 2 * cfg.n_layers          # each router, and its recompute
+    print(f"{arch}: {cfg.n_layers} layers, {n_params:,} parameters "
+          f"({param_bytes / 2**30:.3f} GiB, {cfg.dtype}), drawn and their "
+          f"AdamW slots made on the card in {kept['init_s']:.2f} s; B="
+          f"{batch}, S={seq}, {steps} steps through "
+          f"repro_torch.launch.train.main")
+    print(f"{arch}: radix launches {launches} in the run, "
+          f"{[r['launches'] for r in records]} a step; the code implies "
+          f"{per_step} a step = {cfg.n_layers} routers x 2 (forward, remat "
+          f"recompute in backward)")
+    if len(records) != steps or launches != steps * per_step or any(
+            r["launches"] != per_step for r in records):
+        _fail(f"{arch}: radix launches {launches}, expected "
+              f"{steps * per_step}")
+    for r in records:
+        if not all(np.isfinite(r[k]) for k in ("loss", "grad_norm", "lr")):
+            _fail(f"{arch}: a step's loss or grad norm is not finite: {r}")
+    if last != records[-1]["loss"]:
+        _fail(f"{arch}: main returned {last}, the last step's loss is "
+              f"{records[-1]['loss']}")
+    if not all(v > 0 for v in kept["moved"].values()):
+        _fail(f"{arch}: parameters did not move in step 1: {kept['moved']}")
+
+    # one profiled step more, on the run's state
+    data = SyntheticCorpus(cfg.vocab, seq, batch, seed=0)
+    prof = _profile_train_step(torch, kept["step"], state,
+                               launch_train.make_batch(
+                                   cfg, data.batch(steps)["tokens"],
+                                   model.device))
+    moved = kept["moved"]
+    del state, model
+    kept.clear()
+    torch.cuda.empty_cache()
+
+    # the first step's router calls: the forward's and the recompute's
+    # (layers in reverse) on the same input give the same ids, and each call
+    # equals its plain version on the card
+    if len(calls) != per_step:
+        _fail(f"{arch}: {len(calls)} router calls recorded, expected "
+              f"{per_step}")
+    half = cfg.n_layers
+    for fwd, rec in zip(calls[:half], calls[half:][::-1]):
+        if not (torch.equal(fwd["x"], rec["x"])
+                and torch.equal(fwd["idx"], rec["idx"])):
+            _fail(f"{arch}: the remat recompute's router call differs from "
+                  "the forward's")
+    worst = 0.0
+    with _plain_threshold():
+        for c in calls:
+            vals, idx = radix_topk(c["x"], c["k"], device=c["x"].device)
+            worst = max(worst, float((vals - c["vals"]).abs().max()),
+                        float((idx - c["idx"]).abs().max()))
+            if not (torch.equal(vals, c["vals"])
+                    and torch.equal(idx, c["idx"])):
+                _fail(f"{arch}: a router radix_topk call at "
+                      f"{tuple(c['x'].shape)} != its plain version")
+    step_ms = np.array([r["ms"] for r in records[1:]] or [records[0]["ms"]])
+    med = float(np.median(step_ms))
+    busy = prof["device_busy_ms"]
+    out = {
+        "arch": arch, "card": card, "layers": cfg.n_layers,
+        "parameters": n_params, "param_gib": param_bytes / 2**30,
+        "batch": batch, "seq": seq, "steps": steps,
+        "step_ms": [r["ms"] for r in records],
+        "step_ms_median_after_first": med,
+        "tokens_per_s": batch * seq / med * 1e3,
+        "losses": [r["loss"] for r in records],
+        "grad_norms": [r["grad_norm"] for r in records],
+        "lrs": [r["lr"] for r in records],
+        "max_abs_change_in_step_1": moved,
+        "max_memory_allocated_gib": peak / 2**30,
+        "train_state_gib": state_bytes / 2**30,
+        "radix_launches": launches, "radix_launches_a_step": per_step,
+        "radix_max_abs_err": worst, "run_s": run_s,
+        "profile": prof, "step_device_busy_ms": busy,
+        "step_idle_share": 1.0 - busy / med,
+        "profiled_step_idle_share": 1.0 - busy / prof["step_ms"],
+    }
+    print(f"{card}: {arch} train step {med:.3f} ms (median of steps 2-"
+          f"{steps}, host clock, each synchronised; all "
+          f"{', '.join(f'{x:.3f}' for x in out['step_ms'])}), "
+          f"{out['tokens_per_s']:.1f} tokens/s; losses "
+          f"{', '.join(f'{x:.4f}' for x in out['losses'])}; grad norms "
+          f"{', '.join(f'{x:.4f}' for x in out['grad_norms'])}; "
+          f"max_memory_allocated {out['max_memory_allocated_gib']:.3f} GiB "
+          f"beside a train state of {out['train_state_gib']:.3f} GiB")
+    for label in ("forward_span", "backward_span", "optimizer_span",
+                  *TRAIN_LABELS):
+        v = prof[label]
+        calls_txt = f"{v['calls']} calls, " if "calls" in v else ""
+        print(f"{card}: {arch} a train step, {label}: {calls_txt}"
+              f"{v['device_ms']:.3f} ms on the device, {v['host_ms']:.3f} ms "
+              "on the host (profiled)")
+    print(f"{card}: {arch} a train step: device busy {busy:.3f} ms in "
+          f"{prof['kernels']} kernels; idle share {out['step_idle_share']:.3f}"
+          f" of the {med:.3f} ms step, {out['profiled_step_idle_share']:.3f} "
+          f"of the profiled step's {prof['step_ms']:.3f} ms; attention "
+          f"backward kernels "
+          f"{prof['attention_backward_device_ms']:.3f} ms; attention "
+          f"backends {prof['attention_backends']}")
+    for name, ms, n in prof["top_kernels"]:
+        print(f"{card}: {arch} a train step's kernels: {ms:.3f} ms in {n} "
+              f"launches of {name}")
+    out["path"] = {("router", tuple(calls[0]["x"].shape), calls[0]["k"]): dict(
+        calls[0], total_launches=launches, calls=launches,
+        row_name="radix_threshold_router_train")}
+    print(f"phase 9 {arch}: {run_s:.1f} s for the run")
+    return out
 
 
 def _row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops_ms,
@@ -1694,10 +2205,36 @@ def main() -> int:
     rows += path_rows
     print(f"phase 8 (model serving) took {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{r['arch']} {r['run_s']:.1f} s" for r in runs))
+    del runs
+    torch.cuda.empty_cache()
+    # 9. the training path: the ten archs' train steps at smoke size, cuda
+    # against cpu, microbatching, resume and the checkpoint on the card; then
+    # granite-moe-3b-a800m at full width through repro_torch.launch.train
+    t0 = time.perf_counter()
+    smoke_train = hold_train_smoke(torch, np)
+    print(f"phase 9 smoke holds: {time.perf_counter() - t0:.1f} s")
+    train = run_training(torch, np, card)
+    train_rows = radix_path_rows(torch, np, [train])
+    for r in train_rows:
+        print(f"{r['name']}: {r['ms']:.5f} ms a launch at {r['shape']}, "
+              f"{r['device_ms']:.5f} ms on the device, launch floor "
+              f"{r['launch_floor_device_ms']:.5f} ms; plain "
+              f"{r['plain_ms']:.3f} ms; torch.topk {r['library_ms']:.5f} ms "
+              f"({r['library_device_ms']:.5f} on the device); the whole "
+              f"radix_topk call {r['radix_topk_call_ms']:.5f} ms "
+              f"({r['radix_topk_call_device_ms']:.5f} on the device, "
+              f"{r['radix_topk_call_host_ms']:.5f} host enqueue); bound "
+              f"{r['bound_ms']:.6f} ms by bytes; {r['launches']} launches "
+              f"in the {TRAIN_STEPS}-step run")
+    rows += train_rows
+    print(json.dumps({"training": {k: v for k, v in train.items()
+                                   if k != "path"},
+                      "training_smoke": smoke_train}))
+    print(f"phase 9 (training) took {time.perf_counter() - t0:.1f} s")
     spilled = {k: v for k, v in spills.items() if any(v)}
     if spilled:
         _fail(f"the colskip register path spills: {spilled}")
-    # 9. the card again, the timings, and the verdict as the last line
+    # 10. the card again, the timings, and the verdict as the last line
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 exposes the same entry points.
 
     init(cfg, seed=0, device="cuda")                 -> model
+    loss(cfg, model, batch)                          -> (CE + aux, metrics)
     prefill(cfg, model, batch)                       -> (logits, cache)
     decode_step(cfg, model, tok, cache, n)           -> (logits, cache)
     init_cache(cfg, batch, max_len, model=, frames=, device=) -> cache
@@ -10,8 +11,9 @@ The family picks the module, as the reference's ``_family_mod`` does:
 ``ssm`` is RWKV-6, ``hybrid`` Hymba, ``encdec`` Whisper, and the dense,
 MoE and VLM families the generic decoder.  Each entry point runs on the
 model's device: ``"cuda"`` unless the caller built the model with
-``device="cpu"``.  ``loss`` and the shape specs come with training and
-the tooling (ROADMAP Queue 1 items 3 and 6).
+``device="cpu"``.  ``loss`` is the training objective; autograd records
+it once the model is :meth:`~.transformer.LM.trainable`.  The shape specs
+come with the tooling (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -42,6 +44,29 @@ def init(cfg: ModelCfg, *, seed: int = 0, device="cuda"):
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return model_class(cfg)(cfg, device=dev, generator=gen)
+
+
+def _ce(logits, labels):
+    """Mean next-token cross-entropy in float32: logsumexp minus the
+    label's logit."""
+    logits = logits.float()
+    correct = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, -1) - correct).mean()
+
+
+def loss(cfg: ModelCfg, model, batch):
+    """Next-token CE (+ 0.01 x the MoE router's aux loss) -> (total,
+    {"ce": ce}).  Labels are the tokens shifted left; a VLM scores only
+    its text region (the patches come first).  Every layer's activations
+    are recomputed in backward, as the reference's ``jax.checkpoint``
+    bodies are."""
+    logits, aux = _family_mod(cfg).forward(cfg, model, batch)[:2]
+    tokens = torch.as_tensor(batch["tokens"], device=model.device)
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.vision_patches:]
+    ce = _ce(logits[:, :-1], tokens[:, 1:])
+    total = ce + 0.01 * aux if cfg.moe is not None else ce
+    return total, {"ce": ce}
 
 
 @torch.no_grad()

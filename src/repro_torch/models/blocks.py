@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelCfg
 
@@ -47,6 +48,15 @@ def normal(shape, scale, dtype, gen, device) -> torch.Tensor:
 def dense_init(gen, in_dim, out_dim, dtype, device):
     return normal((in_dim, out_dim), 1.0 / np.sqrt(in_dim), dtype, gen,
                   device)
+
+
+def layer_call(fn, *args, remat: bool = True):
+    """``fn(*args)``, its activations recomputed in backward (the
+    reference's per-layer ``jax.checkpoint``) when ``remat`` is set and
+    autograd records; a serving call under ``no_grad`` runs it plainly."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def vocab_mask(cfg: ModelCfg, dtype=None, device="cpu") -> torch.Tensor:

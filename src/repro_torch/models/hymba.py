@@ -161,27 +161,31 @@ def init_state(cfg: ModelCfg, batch, max_len, device="cuda"):
     }
 
 
-def forward(cfg: ModelCfg, model: HymbaLM, batch):
+def forward(cfg: ModelCfg, model: HymbaLM, batch, *, remat=True):
     """Over a whole sequence, each Mamba branch from a zero tail and
-    state.  Returns (logits (B, S, V), aux 0)."""
+    state.  Returns (logits (B, S, V), aux 0).  ``remat``: each layer's
+    activations are recomputed in backward."""
     dev, dt = model.device, B.dtype_of(cfg)
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     b, s = tokens.shape
-    x = model.embed[tokens].to(dt)
+    x = F.embedding(tokens, model.embed).to(dt)
     positions = torch.arange(s, device=dev).expand(b, s)
     rope = B.rope_tables(positions, model.rope_freqs)
     di, n = _d_inner(cfg), cfg.ssm.state_dim
-    for blk, w in zip(model.blocks, layer_windows(cfg)):
+
+    def body(x, blk, w):
         h = B.apply_norm(cfg, blk.ln1, x)
         q, k, v = B._qkv(cfg, blk.attn, h, positions, rope)
-        attn = B.attend(q, k, v, int(w), cfg).reshape(b, s, -1) \
-            @ blk.attn["wo"]
+        attn = B.attend(q, k, v, w, cfg).reshape(b, s, -1) @ blk.attn["wo"]
         tail0 = torch.zeros((b, cfg.ssm.d_conv - 1, di), dtype=x.dtype,
                             device=dev)
         st0 = torch.zeros((b, di, n), dtype=torch.float32, device=dev)
         mam = _mamba_branch(cfg, blk.ssm, h, tail0, st0)[0]
         x = _mix(blk, x, attn, mam)
-        x = x + B.apply_mlp(cfg, blk.mlp, B.apply_norm(cfg, blk.ln2, x))
+        return x + B.apply_mlp(cfg, blk.mlp, B.apply_norm(cfg, blk.ln2, x))
+
+    for blk, w in zip(model.blocks, layer_windows(cfg)):
+        x = B.layer_call(body, x, blk, int(w), remat=remat)
     return model.logits(x), torch.zeros((), dtype=torch.float32, device=dev)
 
 

@@ -17,8 +17,10 @@ so its bf16 sums would change from run to run.  Here each token's
 ``top_k`` contributions are gathered back to choice order and summed by
 one reduction, the same every run.
 
-The sharded expert path (``shard_map`` over a ``model`` axis) is ROADMAP
-Queue 1 item 4.
+Under autograd the router's weights learn only through the load-balance
+aux loss, as the reference's do: its radix top-k values carry no
+gradient (see :func:`_route`).  The sharded expert path (``shard_map``
+over a ``model`` axis) is ROADMAP Queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -64,7 +66,9 @@ def _route(cfg: ModelCfg, router, xf):
     logits = xf.float() @ router
     probs = torch.softmax(logits, dim=-1)
     if m.router_use_radix:
-        gate_vals, expert_idx = radix_topk(probs, m.top_k,
+        # the reference's kernel returns its values through a bitcast, so
+        # they carry no gradient: the router learns through the aux loss
+        gate_vals, expert_idx = radix_topk(probs.detach(), m.top_k,
                                            device=probs.device)
     else:
         gate_vals, expert_idx = torch.topk(probs, m.top_k)
@@ -79,6 +83,38 @@ def _counts(ids: torch.Tensor, length: int) -> torch.Tensor:
         .scatter_add_(0, ids, torch.ones_like(ids))
 
 
+class _Rows(torch.autograd.Function):
+    """``src[idx]`` over rows, whose backward writes each row's gradient
+    back in place (``index_put_`` without accumulation).  Exact where
+    ``idx`` repeats no row whose gradient is used: the dispatch's
+    permutations, and the spare row every dropped entry reads, whose
+    gradient is cut off.  Autograd's own gradient of an index accumulates
+    with a sort-based kernel that serializes repeated rows (60 % of a
+    granite-moe-3b-a800m train step on an H100, ``PERF.md``), and
+    ``index_add_`` adds in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, src, idx):
+        ctx.save_for_backward(idx)
+        ctx.src_shape = src.shape
+        return src[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        out = grad.new_zeros(ctx.src_shape)
+        out[idx] = grad
+        return out, None
+
+
+def _rows(src, idx):
+    """``src[idx]``, through :class:`_Rows` when autograd records it (a
+    serving call pays for no autograd function)."""
+    if torch.is_grad_enabled() and src.requires_grad:
+        return _Rows.apply(src, idx)
+    return src[idx]
+
+
 def _dispatch_compute(cfg, p, xf, weights, expert_idx, e_lo, e_count, c):
     """Pack tokens routed to experts [e_lo, e_lo+e_count) into capacity
     buffers, run the expert FFNs, and combine back per token."""
@@ -87,10 +123,9 @@ def _dispatch_compute(cfg, p, xf, weights, expert_idx, e_lo, e_count, c):
     tk = t * k
     dev = xf.device
     flat_e = expert_idx.reshape(tk).long()
-    flat_t = torch.arange(t, device=dev).repeat_interleave(k)
     flat_w = weights.reshape(tk).to(xf.dtype)
     order = torch.argsort(flat_e, stable=True)               # tokens by expert
-    se, stok, sw = flat_e[order], flat_t[order], flat_w[order]
+    se, sw = flat_e[order], flat_w[order]
     counts = _counts(flat_e, padded_experts(cfg))
     offsets = torch.cumsum(counts, 0) - counts               # exclusive
     rank = torch.arange(tk, device=dev) - offsets[se]
@@ -100,7 +135,12 @@ def _dispatch_compute(cfg, p, xf, weights, expert_idx, e_lo, e_count, c):
 
     # dropped entries all write the spare last row, which is cut off
     buf = xf.new_zeros((e_count * c + 1, d))
-    buf[slot] = xf[stok] * keep[:, None].to(xf.dtype)
+    if torch.is_grad_enabled() and xf.requires_grad:
+        # each token once per choice, then in expert order: a permutation
+        xs = _Rows.apply(xf[:, None].expand(t, k, d).reshape(tk, d), order)
+    else:
+        xs = xf[order // k]                  # the token of each choice
+    buf[slot] = xs * keep[:, None].to(xf.dtype)
     buf = buf[:-1].reshape(e_count, c, d)
 
     act = activation(cfg)
@@ -108,10 +148,10 @@ def _dispatch_compute(cfg, p, xf, weights, expert_idx, e_lo, e_count, c):
     y = torch.bmm(h, p["down"])
 
     yf = torch.cat([y.reshape(e_count * c, d), y.new_zeros((1, d))])
-    contrib = yf[slot] * sw[:, None]                         # (TK, d) sorted
+    contrib = _rows(yf, slot) * sw[:, None]                  # (TK, d) sorted
     inv = torch.empty_like(order)
     inv[order] = torch.arange(tk, device=dev)
-    return contrib[inv].reshape(t, k, d).sum(1)
+    return _rows(contrib, inv).reshape(t, k, d).sum(1)
 
 
 def apply_moe(cfg: ModelCfg, p, x, *, mesh=None, need_aux=True):

@@ -149,23 +149,37 @@ def init_state(cfg: ModelCfg, batch, device="cuda"):
     }
 
 
-def forward(cfg: ModelCfg, model: RWKV6LM, batch, state=None):
-    """Over a whole sequence from ``state`` (None: zeros), which it
-    updates in place.  Returns (logits (B, S, V), state)."""
+def _layer(cfg: ModelCfg, blk: Block, x, wkv, x_tm, x_cm):
+    h = B.apply_norm(cfg, blk.ln1, x)
+    out, x_tm, wkv = _time_mix(cfg, blk.mix, h, x_tm, wkv)
+    x = x + out
+    out2, x_cm = _channel_mix(blk.ffn, B.apply_norm(cfg, blk.ln2, x), x_cm)
+    return x + out2, wkv, x_tm, x_cm
+
+
+def forward(cfg: ModelCfg, model: RWKV6LM, batch, state=None, *,
+            remat=True):
+    """Over a whole sequence from ``state`` (None: zeros).  Returns
+    (logits (B, S, V), the state after it): ``state`` itself, updated in
+    place, when one is given.  ``remat``: each layer's activations are
+    recomputed in backward."""
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
-    x = model.embed[tokens].to(B.dtype_of(cfg))
+    x = F.embedding(tokens, model.embed).to(B.dtype_of(cfg))
     st = state if state is not None else init_state(cfg, tokens.shape[0],
                                                     model.device)
+    new = {"wkv": [], "x_tm": [], "x_cm": []}
     for i, blk in enumerate(model.blocks):
-        h = B.apply_norm(cfg, blk.ln1, x)
-        out, x_tm, wkv = _time_mix(cfg, blk.mix, h, st["x_tm"][i],
-                                   st["wkv"][i])
-        x = x + out
-        h2 = B.apply_norm(cfg, blk.ln2, x)
-        out2, x_cm = _channel_mix(blk.ffn, h2, st["x_cm"][i])
-        x = x + out2
-        st["wkv"][i], st["x_tm"][i], st["x_cm"][i] = wkv, x_tm, x_cm
-    return model.logits(x), st
+        x, *leaves = B.layer_call(_layer, cfg, blk, x, st["wkv"][i],
+                                  st["x_tm"][i], st["x_cm"][i], remat=remat)
+        for key, leaf in zip(("wkv", "x_tm", "x_cm"), leaves):
+            new[key].append(leaf)
+    # written once the layers have read it: autograd may hold the old rows
+    new = {key: torch.stack(leaves) for key, leaves in new.items()}
+    if state is None:
+        return model.logits(x), new
+    for key, leaf in new.items():
+        state[key].copy_(leaf)
+    return model.logits(x), state
 
 
 def decode_step(cfg: ModelCfg, model: RWKV6LM, token, state,

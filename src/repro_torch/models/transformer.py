@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch._device import resolve_device
@@ -51,6 +52,15 @@ class LM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def trainable(self, on: bool = True) -> "LM":
+        """Let autograd record every parameter (``on``) or none.  Models
+        are built frozen, for serving; training turns every leaf on, as the
+        reference differentiates its whole tree (norms, gates and the
+        float32 constants of Hymba and RWKV-6 included)."""
+        for p in self.parameters():
+            p.requires_grad_(on)
+        return self
 
     def logits(self, x):
         x = B.apply_norm(self.cfg, self.final_norm, x)
@@ -137,7 +147,9 @@ def embed_inputs(cfg: ModelCfg, model: DecoderLM, batch):
     all three streams)."""
     dev, dt = model.device, B.dtype_of(cfg)
     tokens = torch.as_tensor(batch["tokens"], device=dev)
-    x = model.embed[tokens].to(dt)
+    # F.embedding's gradient is a deterministic sorted segment sum, where
+    # an index's serializes the rows a frequent token repeats
+    x = F.embedding(tokens, model.embed).to(dt)
     if cfg.vision_patches and "patches" in batch:
         pe = torch.as_tensor(batch["patches"], device=dev).to(dt)
         x = torch.cat([pe @ model.patch_proj, x], dim=1)
@@ -174,13 +186,19 @@ def _layer(cfg: ModelCfg, blk: Block, x, positions, rope, window: int,
     return x, (k, v), aux
 
 
-def forward(cfg: ModelCfg, model: DecoderLM, batch):
-    """Full-sequence forward.  Returns (logits (B, S, V), aux)."""
+def forward(cfg: ModelCfg, model: DecoderLM, batch, *, remat=True):
+    """Full-sequence forward.  Returns (logits (B, S, V), aux).  ``remat``:
+    each layer's activations are recomputed in backward."""
     x, positions = embed_inputs(cfg, model, batch)
     rope = model.rope(positions)
     aux = torch.zeros((), dtype=torch.float32, device=model.device)
+
+    def body(x, blk, w):
+        x, _, a = _layer(cfg, blk, x, positions, rope, w, True)
+        return x, a
+
     for blk, w in zip(model.blocks, layer_windows(cfg)):
-        x, _, a = _layer(cfg, blk, x, positions, rope, int(w), True)
+        x, a = B.layer_call(body, x, blk, int(w), remat=remat)
         if a is not None:
             aux = aux + a
     return model.logits(x), aux / cfg.n_layers

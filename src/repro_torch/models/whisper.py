@@ -19,6 +19,7 @@ cache's valid slice); on the CPU through the reference's plain sdpa.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch._device import resolve_device
@@ -100,32 +101,41 @@ def _self_attn_causal(cfg: ModelCfg, p, x):
     return B.attend(q, k, v, 0, cfg).reshape(b, s, -1) @ p["wo"]
 
 
+def _enc_layer(cfg: ModelCfg, lp: EncLayer, x):
+    h = B.apply_norm(cfg, lp.ln1, x)
+    x = x + _attn_full(cfg, lp.attn, h, h)
+    return x + B.apply_mlp(cfg, lp.mlp, B.apply_norm(cfg, lp.ln2, x))
+
+
+def _dec_layer(cfg: ModelCfg, lp: DecLayer, x, enc_out):
+    x = x + _self_attn_causal(cfg, lp.attn, B.apply_norm(cfg, lp.ln1, x))
+    x = x + _attn_full(cfg, lp.xattn, B.apply_norm(cfg, lp.lnx, x), enc_out)
+    return x + B.apply_mlp(cfg, lp.mlp, B.apply_norm(cfg, lp.ln2, x))
+
+
 def encode(cfg: ModelCfg, model: WhisperModel, frames):
     """frames: (B, enc_ctx, d_model) precomputed embeddings -> the
-    encoder's normed output."""
+    encoder's normed output.  Under autograd each layer's activations are
+    recomputed in backward, as the reference's encoder always does."""
     dt = B.dtype_of(cfg)
     frames = torch.as_tensor(frames, device=model.device)
     x = frames.to(dt) + B.sincos(frames.shape[1], cfg.d_model, dt,
                                  model.device)
     for lp in model.enc_blocks:
-        h = B.apply_norm(cfg, lp.ln1, x)
-        x = x + _attn_full(cfg, lp.attn, h, h)
-        x = x + B.apply_mlp(cfg, lp.mlp, B.apply_norm(cfg, lp.ln2, x))
+        x = B.layer_call(_enc_layer, cfg, lp, x)
     return B.apply_norm(cfg, model.enc_norm, x)
 
 
-def forward(cfg: ModelCfg, model: WhisperModel, batch):
+def forward(cfg: ModelCfg, model: WhisperModel, batch, *, remat=True):
     """Frames and decoder tokens -> (logits (B, S, V), aux 0).  The
-    logits carry no vocab mask, as the reference's do."""
+    logits carry no vocab mask, as the reference's do.  ``remat``: each
+    decoder layer's activations are recomputed in backward."""
     enc_out = encode(cfg, model, batch["frames"])
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
-    x = model.embed[tokens].to(B.dtype_of(cfg))
+    x = F.embedding(tokens, model.embed).to(B.dtype_of(cfg))
     x = x + B.sincos(tokens.shape[1], cfg.d_model, x.dtype, model.device)
     for lp in model.dec_blocks:
-        x = x + _self_attn_causal(cfg, lp.attn, B.apply_norm(cfg, lp.ln1, x))
-        x = x + _attn_full(cfg, lp.xattn, B.apply_norm(cfg, lp.lnx, x),
-                           enc_out)
-        x = x + B.apply_mlp(cfg, lp.mlp, B.apply_norm(cfg, lp.ln2, x))
+        x = B.layer_call(_dec_layer, cfg, lp, x, enc_out, remat=remat)
     x = B.apply_norm(cfg, model.final_norm, x)
     return x @ model.embed.T, torch.zeros((), dtype=torch.float32,
                                           device=model.device)

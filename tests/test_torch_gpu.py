@@ -456,3 +456,63 @@ def test_generate_on_the_card_repeats(cuda, arch):
     assert (runs[0] < cfg.vocab).all()
     routers = (1 + 8) * cfg.n_layers if cfg.moe is not None else 0
     assert radix_ops.launches - before == 2 * (routers + 8)
+
+
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_train_step_on_the_card_matches_cpu(cuda, no_tf32, arch):
+    """One seeded CPU train state and its copy on the card, float32 with
+    TF32 off, one ``make_train_step``: loss, grad norm and every grad leaf
+    within 1e-4 (the grads of a leaf's largest magnitude), the router's
+    calls twice a layer (forward and remat recompute), each call's expert
+    ids equal to the host's on the same probabilities."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    from repro_torch.kernels.radix_topk import radix_topk
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import moe
+    from repro_torch.train import adamw_init, init_state, make_train_step
+    cfg = get_config(arch, smoke=True)
+    tokens = SyntheticCorpus(cfg.vocab, 32, 2, seed=0).batch(0)["tokens"]
+    cpu = init_state(cfg, seed=0, device="cpu")
+    model = copy.deepcopy(cpu["model"]).to(cuda)
+    gpu = {"model": model, "opt": adamw_init(model.named_parameters())}
+    calls = []
+    route = moe.radix_topk
+
+    def spy(x, k, **kw):
+        out = route(x, k, **kw)
+        if x.is_cuda:
+            calls.append((x.cpu(), out[1].cpu()))
+        return out
+
+    got = {}
+    moe.radix_topk = spy
+    try:
+        for where, state in (("cpu", cpu), ("cuda", gpu)):
+            grads = {}
+
+            def capture(g, _state, grads=grads):
+                grads.update({n: t.float().cpu() for n, t in g.items()})
+                return g, {}
+
+            before = radix_ops.launches
+            _, m = make_train_step(cfg, peak_lr=1e-3, warmup=0,
+                                   grad_reduce=capture)(
+                state, make_batch(cfg, tokens, state["model"].device))
+            got[where] = ({k: float(v) for k, v in m.items()}, grads,
+                          radix_ops.launches - before)
+    finally:
+        moe.radix_topk = route
+    (mc, gc, _), (mg, gg, launches) = got["cpu"], got["cuda"]
+    for k in mc:
+        assert np.isfinite(mg[k])
+        assert mg[k] == pytest.approx(mc[k], rel=1e-4, abs=1e-4), k
+    for n, c in gc.items():
+        assert torch.isfinite(gg[n]).all()
+        assert float((gg[n] - c).abs().max()) <= 1e-4 * float(c.abs().max())
+    routers = 2 * cfg.n_layers if cfg.moe is not None else 0
+    assert len(calls) == launches == routers
+    for x, ids in calls:
+        assert torch.equal(radix_topk(x, cfg.moe.top_k, device="cpu")[1], ids)

@@ -45,7 +45,11 @@ for name in ("repro_torch.dist", "repro_torch.dist.bankmesh",
              "repro_torch.models.convert", "repro_torch.models.rwkv6",
              "repro_torch.models.hymba", "repro_torch.models.whisper",
              "repro_torch.serve.sampler",
-             "repro_torch.serve.engine", "repro_torch.launch.serve"):
+             "repro_torch.serve.engine", "repro_torch.launch.serve",
+             "repro_torch.data", "repro_torch.data.pipeline",
+             "repro_torch.train", "repro_torch.train.optimizer",
+             "repro_torch.train.loop", "repro_torch.ckpt",
+             "repro_torch.ckpt.manager", "repro_torch.launch.train"):
     assert name in names, name
 print(len(names))
 """
@@ -78,7 +82,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from repro_torch.dist.bankmesh import make_bank_mesh
     from repro_torch.kernels.colskip.ops import colskip_sort_mesh_batched
     from repro_torch.configs import get_config
+    from repro_torch import train
     from repro_torch.launch import serve, sortserve
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import api
     from repro_torch.sortserve import EngineConfig
 
@@ -97,7 +103,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
              lambda: api.init(get_config("gemma3-4b", smoke=True)),
              lambda: api.init_cache(get_config("gemma3-4b", smoke=True), 1,
                                     4),
-             lambda: serve.main(["--smoke"])]
+             lambda: serve.main(["--smoke"]),
+             lambda: train.init_state(get_config("gemma3-4b", smoke=True)),
+             lambda: launch_train.main(["--smoke", "--steps", "1"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()
