@@ -133,7 +133,38 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      step's split (forward, backward and optimizer spans; router radix,
      experts and attention, device and host; idle share), and the radix
      row at the training router's shape (8192, 40), k = 8;
- 10. print ``{"ok": true, "device": {...}}`` as the last line.
+ 10. distribution (``repro_torch.dist``, ``core/distsort``,
+     ``launch/mesh``): 4 ranks spawned on the card, joined by ``gloo``
+     (NCCL refuses two ranks on one card), every collective staged
+     through the host; any rank's failure fails the run.  (a) The §IV
+     selection: ``kth_largest_sharded``, ``topk_mask_sharded`` (k = 64
+     and 1 %) and ``global_min_sharded`` on sortable rows (8, 4 x 16384)
+     and on one layer's expert bank of granite's gradient (48 x 1536 x
+     512 float32), uniform, heavy duplicates and all equal, each exact
+     against one rank's plain function on the whole tensor, with ms and
+     collectives a call.  (b) The slice's path: granite-moe-3b-a800m at
+     full width, expert-parallel on a (data 2, model 2) mesh, each rank
+     drawing the weights from one seed and keeping its 24 of the 48
+     padded experts, phase 8's ``generate`` on its 2 of the 4 prompts:
+     with every launch count reset just before and read just after, the
+     radix launches a rank equal the count the code implies (1,120),
+     every radix call replayed through the plain version on the card, a
+     repeat run, the model ranks of a data row sampling the same tokens,
+     the first MoE layer on a seeded input against one rank's (ids
+     exact, ``EP_LAYER_TOL``) and the prefill's last logits within
+     ``EP_LOGIT_REL`` of one rank's on the data row's prompts and the same
+     weights; prompt and decode ms, tokens/s, peak memory and
+     the host time of the decode step's 32 psums.  (c) whisper-tiny at
+     full width, ``make_dp_train_step`` at 1 % for 3 steps (finite
+     losses, a residual), ratio 1.0 against the plain ``pmean`` step
+     (``DP_EQ_TOL`` on the f32 masters, with the math attention backend),
+     and the plain step's grads on a dense arch at smoke size against one
+     replica's on the whole batch (``DP_ONE_REL``).  (d)
+     ``make_pipelined_fn`` over the 4 ranks against its stages one after
+     another (``PIPE_TOL``).  (e) One rank on ``nccl``: a DP step, the EP
+     layer and the collectives on their dtypes.  Then the radix rows at
+     the EP router's per-rank shapes;
+ 11. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Exact integer outputs: every tolerance is equality (``max_abs_err`` 0).
 """
@@ -2067,6 +2098,669 @@ def run_training(torch, np, card, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+
+# distribution on the card: ranks that share it, joined by gloo (NCCL
+# refuses two ranks on one card), their collectives staged through the
+# host
+DIST_WORLD, DIST_DEVICE = 4, "cuda:0"
+# (a) the §IV selection: sortable rows of 4 banks of 16,384, and one
+# layer's expert bank of granite-moe-3b-a800m's gradient (48 padded
+# experts x 1536 x 512), each split over the ranks
+SORT_ROWS = (8, 4 * 16384)
+GRAD_SHAPE = (48, 1536, 512)
+# (b) expert-parallel serving: phase 8's granite run on a (data 2, model 2)
+# mesh, each data rank 2 of the 4 prompts
+EP_MESH = (2, 2)
+# The psum adds each rank's experts' bf16 sums (one rounding a rank, one
+# more in the sum) where one rank rounds the sum of all 8 once: the first
+# MoE layer on one seeded input against one rank's, every expert id equal
+# and each output within this share of the largest (4 ulps of bf16)
+EP_LAYER_TOL = 2.0 ** -6
+# the prefill's last logits (the real ids) against one rank's prefill of
+# the same data row's prompts on the same weights (the same capacity):
+# the norm of the difference within this share of one rank's norm.  An
+# ulp in one layer moves the next layers' router inputs, and a token
+# whose 8th and 9th probabilities are that close (random weights route
+# near ties) takes another expert from there on
+EP_LOGIT_REL = 0.05
+EP_LAYER_SHAPE = (2, 128)
+# (c) compressed data parallelism: whisper-tiny at its config (bf16), B 2 a
+# rank, 3 steps at 1 % of the coordinates; the ratio-1.0 step against the
+# plain pmean step at full width in float32 (the plain step sums a bf16
+# leaf in bf16, as the reference does, where the compressed one sums in
+# float32): the f32 master weights, and the grads the optimizer got, each
+# leaf within a share of its largest value; and, on a dense arch at smoke
+# size in float32, the plain step's reduced grads against one replica's on
+# the whole batch, each leaf within a share of its largest value
+DP_ARCH, DP_BATCH, DP_SEQ, DP_STEPS, DP_RATIO = (
+    "whisper-tiny", 2, 128, 3, 0.01)
+DP_EQ_TOL = 1e-6
+DP_ONE_REL = 1e-5
+# (d) the pipeline: tanh(x @ w) stages, w (1536, 1536) float32, 8
+# microbatches of (4, 128, 1536), TF32 off
+PIPE_D, PIPE_M, PIPE_MB = 1536, 8, (4, 128)
+PIPE_TOL = 1e-5
+
+
+def _dist_sort_inputs(torch, dev, kind: str, shape, seed: int, floats: bool):
+    """Seeded inputs of one distribution of ``tests/test_distsort.py``:
+    uniform, heavy duplicates (7 values) or all equal; sortable words as
+    uint32, or float32 gradient entries."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "uniform":
+        x = (torch.randn(shape, generator=g, device=dev) if floats else
+             torch.randint(0, 1 << 32, shape, generator=g, device=dev))
+    elif kind == "duplicates":
+        x = torch.randint(0, 7, shape, generator=g, device=dev)
+    else:
+        x = torch.full(shape, 123456789, device=dev)
+    if floats:
+        return x.float()
+    from repro_torch.core.bitmatrix import to_uint32
+    return to_uint32(x.long())
+
+
+def _dist_selection(torch, mesh) -> dict:
+    """(a): kth_largest_sharded, topk_mask_sharded and global_min_sharded
+    on this rank's shard against one rank's plain functions on the whole
+    tensor (exact), ms a call and collectives a call."""
+    from repro_torch.core.distsort import (global_min_sharded,
+                                           kth_largest_sharded,
+                                           topk_mask_sharded)
+    from repro_torch.core.topk import (kth_largest_sortable,
+                                       to_sortable_uint, topk_mask)
+    from repro_torch.dist import _comm
+    dev, n = mesh.device, _comm.axis_size(mesh, "banks")
+    i = _comm.axis_index(mesh, "banks")
+    out = {}
+    for what, shape, floats in (("rows", SORT_ROWS, False),
+                                ("grad", GRAD_SHAPE, True)):
+        for j, kind in enumerate(("uniform", "duplicates", "equal")):
+            full = _dist_sort_inputs(torch, dev, kind, shape, 10 + j, floats)
+            full = full.reshape(SORT_ROWS[0] if what == "rows" else 1, -1)
+            width = full.shape[-1] // n
+            local = full[:, i * width:(i + 1) * width].contiguous()
+            u_full, u_local = to_sortable_uint(full), to_sortable_uint(local)
+            ks = (64, full.shape[-1] // 100)
+            for k in ks:
+                fns = {
+                    "kth_largest_sharded": (
+                        lambda: kth_largest_sharded(u_local, k, mesh, "banks"),
+                        lambda: kth_largest_sortable(u_full, k)),
+                    "topk_mask_sharded": (
+                        lambda: topk_mask_sharded(local, k, mesh, "banks"),
+                        lambda: topk_mask(full, k)[
+                            :, i * width:(i + 1) * width]),
+                }
+                if k == ks[0]:
+                    fns["global_min_sharded"] = (
+                        lambda: global_min_sharded(u_local, mesh, "banks"),
+                        lambda: u_full.amin(-1))
+                for name, (sharded, whole) in fns.items():
+                    torch.cuda.synchronize()
+                    _comm.reset_collectives()
+                    t0 = time.perf_counter()
+                    got = sharded()
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    if not torch.equal(got, whole()):
+                        raise AssertionError(
+                            f"{name} on {what} ({kind}, k={k}) != one rank's "
+                            "plain version on the whole tensor")
+                    key = f"{name} {what} {tuple(full.shape)} {kind} k={k}"
+                    out[key] = {"ms": ms, "collectives": _comm.collectives}
+            del full, local, u_full, u_local
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ep_serving(torch, np, mesh) -> dict:
+    """(b): granite-moe-3b-a800m at full width, expert-parallel over the
+    ``model`` axis, phase 8's generate on this rank's data shard: the radix
+    launches against the count the code implies, every radix call replayed
+    through the plain version on the card, a repeat run, the prefill's
+    last logits and the first MoE layer, then the timings."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import _comm
+    from repro_torch.dist.sharding import act_specs
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    from repro_torch.kernels.radix_topk import radix_topk
+    from repro_torch.models import api, moe
+    from repro_torch.serve import engine, generate
+    arch, b, s, new, top_k, top_p = MODEL_RUNS[0]
+    cfg = get_config(arch)
+    dev = mesh.device
+    d = _comm.axis_index(mesh, "data")
+    rows = b // mesh.shape["data"]
+    specs = act_specs(mesh)
+    t0 = time.perf_counter()
+    model = moe.shard_experts(cfg, api.init(cfg, seed=0, device=dev), mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    expert_bytes = sum(blk.moe[k].numel() * blk.moe[k].element_size()
+                       for blk in model.blocks for k in ("gate", "up", "down"))
+    rest_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters()) - expert_bytes
+    prompts = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (b, s)),
+        dtype=torch.int32, device=dev)[rows * d:rows * (d + 1)]
+
+    def gen(tokens=new):
+        # the model ranks of a data row seed alike, and so sample alike
+        g = torch.Generator(device=dev).manual_seed(1000 + d)
+        return generate(cfg, model, prompts, max_new_tokens=tokens,
+                        generator=g, top_k=top_k, top_p=top_p,
+                        act_specs=specs)
+
+    calls = []
+    _reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with _radix_recorder(calls):
+        toks = gen()
+    torch.cuda.synchronize()
+    launches = radix_ops.launches
+    peak = torch.cuda.max_memory_allocated()
+    per_sample = 2 if cfg.padded_vocab > radix_ops.MAX_N else 1
+    expected = (1 + new) * cfg.n_layers + new * per_sample
+    if launches != expected or launches != sum(c["launches"] for c in calls):
+        raise AssertionError(f"{launches} radix launches on this rank, the "
+                             f"code implies {expected}")
+    if not torch.equal(gen(), toks):
+        raise AssertionError("a repeat run with the same generator differs")
+    worst = 0.0
+    groups = {}
+    for c in calls:
+        groups.setdefault((c["site"], c["x"].shape[1], c["k"]), []).append(c)
+    with _plain_threshold():
+        for (site, n, k), cs in groups.items():
+            vals, idx = radix_topk(torch.cat([c["x"] for c in cs]), k,
+                                   device=dev)
+            want_v = torch.cat([c["vals"] for c in cs])
+            want_i = torch.cat([c["idx"] for c in cs])
+            worst = max(worst, float((vals - want_v).abs().max()),
+                        float((idx - want_i).abs().max()))
+            if not (torch.equal(vals, want_v) and torch.equal(idx, want_i)):
+                raise AssertionError(f"radix_topk {site} calls at width {n} "
+                                     f"k={k} != their plain version")
+    lg, _ = api.prefill(cfg, model, {"tokens": prompts}, act_specs=specs)
+    x = _ep_layer_input(torch, cfg, dev)
+    blk = model.blocks[0].moe
+    layer_y = moe.apply_moe(cfg, blk, x, act_specs=specs,
+                            need_aux=False)[0].float().cpu()
+    layer_ids = moe._route(cfg, blk["router"], x.reshape(-1, cfg.d_model))[1]
+
+    # timings: each step synchronised; the collectives' host time from the
+    # first sample on is the decode steps' 32 psums each
+    stamps, coll = [], []
+    sample = engine.sample
+
+    def stamped(*a, **kw):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        coll.append((_comm.collectives, _comm.collective_s))
+        return sample(*a, **kw)
+
+    torch.cuda.synchronize()
+    _comm.reset_collectives()
+    t0 = time.perf_counter()
+    with _patched((engine, "sample", stamped)):
+        timed = gen()
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    coll.append((_comm.collectives, _comm.collective_s))
+    if not torch.equal(timed, toks):
+        raise AssertionError("the timed run's tokens differ")
+    step_ms = np.diff(stamps) * 1e3
+    step = float(np.median(step_ms))
+    n_decode = coll[-1][0] - coll[0][0]
+    # one path entry a router shape, for the kernel rows
+    path = {}
+    for c in calls:
+        if c["site"] != "router":
+            continue
+        key = (c["site"], tuple(c["x"].shape), c["k"])
+        if key not in path:
+            path[key] = {
+                "x": c["x"].cpu(), "k": c["k"], "calls": 0,
+                "total_launches": 0,
+                "kernel": [(x.cpu(), kk) for x, kk in c["kernel"]],
+                "row_name": ("radix_threshold_ep_router_prefill"
+                             if key[1][0] > rows else
+                             "radix_threshold_ep_router_decode")}
+        path[key]["calls"] += 1
+        path[key]["total_launches"] += c["launches"]
+    return {
+        "data": d, "model": _comm.axis_index(mesh, "model"),
+        "tokens": toks.cpu().numpy(),
+        "last_logits": lg[:, -1, :cfg.vocab].float().cpu(),
+        "layer_y": layer_y, "layer_ids": layer_ids.cpu(),
+        "radix_launches": launches, "radix_launches_implied": expected,
+        "radix_calls": len(calls), "radix_max_abs_err": worst,
+        "init_s": init_s, "expert_gib": expert_bytes / 2**30,
+        "rest_gib": rest_bytes / 2**30,
+        "prompt_ms": (stamps[0] - t0) * 1e3, "decode_ms_median": step,
+        "decode_tok_s": rows / step * 1e3,
+        "max_memory_allocated_gib": peak / 2**30,
+        "psums_a_step": n_decode / new,
+        "psum_host_ms_a_step": (coll[-1][1] - coll[0][1]) / new * 1e3,
+        "path": path, "batch": rows, "arch": arch,
+    }
+
+
+def _dp_training(torch, np, mesh) -> dict:
+    """(c): whisper-tiny at full width, make_dp_train_step at 1 % for 3
+    steps; ratio 1.0 against the plain pmean step (held in float32,
+    printed at the config's bf16); then a dense arch at smoke size, the
+    plain step's reduced grads against one replica's on the whole
+    batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import _comm
+    from repro_torch.train import (init_dp_state, loop, make_dp_train_step,
+                                   make_train_step)
+    dev = mesh.device
+    n = _comm.axis_size(mesh, "data")
+    out = {}
+    cfg = get_config(DP_ARCH)
+    batch = _smoke_batch(torch, np, cfg, dev, b=DP_BATCH * n, s=DP_SEQ)
+    step = make_dp_train_step(cfg, mesh, compress_ratio=DP_RATIO)
+    state = init_dp_state(cfg, 0, mesh, compress=True)
+    losses, ms, colls = [], [], []
+    for _ in range(DP_STEPS):
+        torch.cuda.synchronize()
+        _comm.reset_collectives()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        colls.append(_comm.collectives)
+        losses.append(float(m["loss"]))
+    energy = sum(float(e.abs().sum()) for e in state["ef"].values())
+    if not all(np.isfinite(losses)) or not energy > 0.0:
+        raise AssertionError(f"compressed steps: losses {losses}, residual "
+                             f"energy {energy}")
+    out.update(losses=losses, step_ms=ms, collectives_a_step=colls,
+               residual_l1=energy, ef_leaves=len(state["ef"]))
+    del state
+    # ratio 1.0 against the plain pmean step, each from the same state:
+    # the f32 master weights and the grads the optimizer got.  At bf16 the
+    # plain mean rounds each partial sum and the compressed one only its
+    # result, and the card's flash attention backward adds in a varying
+    # order, so two plain steps differ too (all printed); the hold runs
+    # the config in float32 with the math backend, whose backward is the
+    # same every run
+    from torch.nn.attention import SDPBackend
+    from repro_torch.models import blocks
+    runs = {}
+    update = loop.adamw_update
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def once(tag, ratio, c=cfg):
+        seen = {}
+
+        def capture(params, grads, opt, **kw):
+            seen.update({k: g.detach().float().clone()
+                         for k, g in grads.items()})
+            return update(params, grads, opt, **kw)
+
+        st = init_dp_state(c, 0, mesh, compress=ratio is not None)
+        torch.cuda.synchronize()
+        _comm.reset_collectives()
+        t0 = time.perf_counter()
+        with _patched((loop, "adamw_update", capture)):
+            st, m = make_dp_train_step(c, mesh, compress_ratio=ratio)(
+                st, batch)
+        torch.cuda.synchronize()
+        out[f"{tag}_step_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{tag}_collectives"] = _comm.collectives
+        out[f"{tag}_loss"] = float(m["loss"])
+        if ratio is not None:
+            out[f"{tag}_residual_max"] = max(float(e.abs().max())
+                                             for e in st["ef"].values())
+        runs[tag] = (st["opt"]["master"], seen)
+
+    def diff(a, b, i):
+        return max(float((runs[a][i][k] - runs[b][i][k]).abs().max())
+                   for k in runs[a][i])
+
+    def grad_rel(a, b):
+        return max(float((runs[a][1][k] - runs[b][1][k]).abs().max())
+                   / max(float(runs[a][1][k].abs().max()), 1e-30)
+                   for k in runs[a][1])
+
+    once("plain", None)
+    once("plain_again", None)
+    once("ratio_1", 1.0)
+    with _patched((blocks, "_BACKENDS", [SDPBackend.MATH])):
+        once("plain_f32", None, cfg32)
+        once("ratio_1_f32", 1.0, cfg32)
+    for a, b in (("plain", "plain_again"), ("plain", "ratio_1"),
+                 ("plain_f32", "ratio_1_f32")):
+        out[f"{b}_vs_{a}_master_max_abs"] = diff(a, b, 0)
+        out[f"{b}_vs_{a}_grad_max_abs"] = diff(a, b, 1)
+        out[f"{b}_vs_{a}_grad_rel"] = grad_rel(a, b)
+    err = out["ratio_1_f32_vs_plain_f32_master_max_abs"]
+    grel = out["ratio_1_f32_vs_plain_f32_grad_rel"]
+    if (err > DP_EQ_TOL or grel > DP_EQ_TOL
+            or out["ratio_1_f32_residual_max"] != 0.0):
+        raise AssertionError(
+            f"ratio 1.0 != the plain pmean step (float32): masters {err}, "
+            f"grads {grel} of a leaf's largest, residual "
+            f"{out['ratio_1_f32_residual_max']}")
+    del runs
+    torch.cuda.empty_cache()
+
+    # a dense arch at smoke size (float32): the reduced grads of the plain
+    # DP step against one replica's grads on the whole batch
+    scfg = get_config("gemma3-4b", smoke=True)
+    sbatch = _smoke_batch(torch, np, scfg, dev, b=2 * n, s=32)
+    seen = []
+
+    def capture(params, grads, opt, **kw):
+        seen.append({k: g.detach().clone() for k, g in grads.items()})
+        return update(params, grads, opt, **kw)
+
+    with _patched((loop, "adamw_update", capture)):
+        dp_state, _ = make_dp_train_step(scfg, mesh)(
+            init_dp_state(scfg, 0, mesh), sbatch)
+        one_state, _ = make_train_step(scfg)(
+            loop.init_state(scfg, seed=0, device=dev), sbatch)
+    worst = 0.0
+    for k, g in seen[1].items():
+        rel = float((seen[0][k] - g).abs().max()) / max(
+            float(g.abs().max()), 1e-30)
+        worst = max(worst, rel)
+    with torch.no_grad():
+        pworst = max(float((p - q).abs().max())
+                     / max(float(q.abs().max()), 1e-30)
+                     for p, q in zip(dp_state["model"].parameters(),
+                                     one_state["model"].parameters()))
+    del dp_state, one_state
+    if worst > DP_ONE_REL or pworst > DP_ONE_REL:
+        raise AssertionError(f"the plain DP step != one replica on the whole "
+                             f"batch: grads {worst}, params {pworst}")
+    out.update(dense_arch="gemma3-4b smoke", dp_vs_one_grad_rel=worst,
+               dp_vs_one_param_rel=pworst)
+    return out
+
+
+def _pipeline(torch, mesh) -> dict:
+    """(d): make_pipelined_fn over the ranks against its stages applied
+    one after another, float32, TF32 off."""
+    from repro_torch.dist import _comm
+    from repro_torch.dist.pipeline import make_pipelined_fn
+    dev = mesh.device
+    n = _comm.axis_size(mesh, "stage")
+    g = torch.Generator(device=dev).manual_seed(5)
+    ws = torch.randn((n, PIPE_D, PIPE_D), generator=g, device=dev) \
+        / PIPE_D ** 0.5
+    xs = torch.randn((PIPE_M,) + PIPE_MB + (PIPE_D,), generator=g,
+                     device=dev)
+    block = lambda w, x: torch.tanh(x @ w)      # noqa: E731
+    run = make_pipelined_fn(mesh, block, "stage")
+    stage = _comm.axis_index(mesh, "stage")
+    got = run(ws[stage], xs)                    # compile nothing: warm up
+    torch.cuda.synchronize()
+    _comm.reset_collectives()
+    t0 = time.perf_counter()
+    got = run(ws[stage], xs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = xs
+    for i in range(n):
+        want = block(ws[i], want)
+    err = float((got - want).abs().max())
+    if err > PIPE_TOL:
+        raise AssertionError(f"pipeline != its stages one after another: "
+                             f"{err}")
+    return {"ms": ms, "max_abs_err": err, "collectives": _comm.collectives,
+            "steps": PIPE_M + n - 1, "staged_through_host": mesh.staged}
+
+
+def _phase10_rank(rank):
+    """Phase 10 on one rank of a gloo group on the card: (a) to (d)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank}
+    t0 = time.perf_counter()
+    out["selection"] = _dist_selection(
+        torch, make_mesh((DIST_WORLD,), ("banks",), device=DIST_DEVICE))
+    out["selection_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = make_mesh(EP_MESH, ("data", "model"), device=DIST_DEVICE)
+    out["staged"] = mesh.staged
+    out["ep"] = _ep_serving(torch, np, mesh)
+    torch.cuda.empty_cache()
+    out["ep_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dp"] = _dp_training(torch, np, make_mesh((DIST_WORLD,), ("data",),
+                                                  device=DIST_DEVICE))
+    torch.cuda.empty_cache()
+    out["dp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["pipeline"] = _pipeline(torch, make_mesh((DIST_WORLD,), ("stage",),
+                                                 device=DIST_DEVICE))
+    out["pipeline_s"] = time.perf_counter() - t0
+    return out
+
+
+def _phase10_nccl(rank):
+    """(e): a one-rank nccl group at smoke size: one DP step (plain and
+    compressed: the one-rank axes are identities), one forward of the
+    expert-parallel layer, and the collectives the wrappers call, on the
+    dtypes they carry."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import act_specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api, moe
+    from repro_torch.train import init_dp_state, make_dp_train_step
+    mesh = make_mesh((1, 1), ("data", "model"), device=DIST_DEVICE)
+    dev = mesh.device
+    cfg = get_config("granite-moe-3b-a800m", smoke=True)
+    batch = _smoke_batch(torch, np, cfg, dev, b=2, s=32)
+    losses = {}
+    for ratio in (None, 0.5):
+        st = init_dp_state(cfg, 0, mesh, compress=ratio is not None)
+        _, m = make_dp_train_step(cfg, mesh, compress_ratio=ratio)(st, batch)
+        losses[str(ratio)] = float(m["loss"])
+    model = api.init(cfg, seed=0, device=dev)
+    x = torch.randn((2, 8, cfg.d_model), device=dev)
+    with torch.no_grad():
+        blk = model.blocks[0].moe
+        y_ep, _ = moe.apply_moe(cfg, blk, x, act_specs=act_specs(mesh))
+        y, _ = moe._apply_moe_auto(cfg, blk, x)
+    if not torch.equal(y_ep, y):
+        raise AssertionError("the EP layer on one rank != the auto path")
+    seen = []
+    for dt in (torch.int64, torch.int32, torch.float32, torch.bfloat16):
+        t = torch.arange(4, device=dev).to(dt)
+        for op in (dist.ReduceOp.SUM, dist.ReduceOp.MAX, dist.ReduceOp.MIN):
+            u = t.clone()
+            dist.all_reduce(u, op=op)
+            if not torch.equal(u, t):
+                raise AssertionError(f"nccl all_reduce {op} {dt}")
+        parts = [torch.empty_like(t)]
+        dist.all_gather(parts, t)
+        dist.broadcast(t, 0)
+        seen.append(str(dt))
+    return {"backend": dist.get_backend(), "losses": losses,
+            "dtypes": seen, "ep_forward": list(y_ep.shape)}
+
+
+def _ep_layer_input(torch, cfg, dev):
+    """The seeded input of (b)'s first-layer hold, in the model's dtype."""
+    from repro_torch.models.blocks import dtype_of
+    g = torch.Generator(device=dev).manual_seed(7)
+    return torch.randn(EP_LAYER_SHAPE + (cfg.d_model,), generator=g,
+                       device=dev).to(dtype_of(cfg))
+
+
+def _ep_reference(torch, np) -> dict:
+    """One rank on phase 8's granite weights: the prefill of each data
+    row's prompts (its last logits on the real ids), and the first MoE
+    layer on the seeded input (output and expert ids).  It runs on
+    ``DIST_DEVICE`` in the parent process, before the ranks are spawned,
+    and hands its results over on the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, moe
+    arch, b, s = MODEL_RUNS[0][:3]
+    cfg = get_config(arch)
+    model = api.init(cfg, seed=0, device=DIST_DEVICE)
+    prompts = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (b, s)),
+        dtype=torch.int32, device=DIST_DEVICE)
+    rows = b // EP_MESH[0]
+    logits = []
+    for d in range(EP_MESH[0]):
+        lg, _ = api.prefill(cfg, model,
+                            {"tokens": prompts[rows * d:rows * (d + 1)]})
+        logits.append(lg[:, -1, :cfg.vocab].float().cpu())
+    x = _ep_layer_input(torch, cfg, DIST_DEVICE)
+    with torch.no_grad():
+        blk = model.blocks[0].moe
+        y = moe.apply_moe(cfg, blk, x, need_aux=False)[0].float().cpu()
+        ids = moe._route(cfg, blk["router"], x.reshape(-1, cfg.d_model))[1]
+    out = {"logits": torch.cat(logits), "layer_y": y, "layer_ids": ids.cpu()}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_distribution(torch, np, card) -> dict:
+    """Phase 10: the ranks of (a) to (d) on the card over gloo, then (e),
+    and the cross-rank holds of (b)."""
+    from repro_torch.launch.mesh import spawn
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = _ep_reference(torch, np)
+    ref_s = time.perf_counter() - t0
+    print(f"phase 10: {DIST_WORLD} ranks on {DIST_DEVICE}, backend gloo (NCCL "
+          "refuses two ranks on one card); world size "
+          f"{DIST_WORLD}; one rank's granite prefills and first MoE layer "
+          f"for (b) in {ref_s:.1f} s")
+    t0 = time.perf_counter()
+    ranks = spawn(_phase10_rank, DIST_WORLD, backend="gloo",
+                  device=DIST_DEVICE, timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"phase 10: collectives staged through the host: "
+          f"{r0['staged']} (gloo sends no CUDA tensor between processes); "
+          f"the pipeline's ring hops too: "
+          f"{r0['pipeline']['staged_through_host']}")
+    for key, v in r0["selection"].items():
+        print(f"phase 10 (a) {key}: exact against one rank's plain version "
+              f"on the whole tensor; {v['ms']:.3f} ms a call (rank 0), "
+              f"{v['collectives']} collectives")
+    # (b) across ranks: the model ranks of a data row agree, the logits
+    # are near one rank's
+    ep = [r["ep"] for r in ranks]
+    worst_rel = 0.0
+    rows = ep[0]["batch"]
+    for e in ep:
+        twin = next(f for f in ep if f["data"] == e["data"]
+                    and f["model"] != e["model"])
+        if not np.array_equal(e["tokens"], twin["tokens"]):
+            _fail(f"phase 10 (b): the model ranks of data row {e['data']} "
+                  "sampled different tokens")
+        want = ref["logits"][rows * e["data"]:rows * (e["data"] + 1)]
+        rel = float((e["last_logits"] - want).norm() / want.norm())
+        worst_rel = max(worst_rel, rel)
+        e["last_logits_rel"] = rel
+        e["last_logits_max_abs"] = float(
+            (e["last_logits"] - want).abs().max())
+        e["layer_ids_equal"] = bool(torch.equal(e["layer_ids"],
+                                                ref["layer_ids"]))
+        e["layer_rel"] = float((e["layer_y"] - ref["layer_y"]).abs().max()
+                               / ref["layer_y"].abs().max())
+        if not e["layer_ids_equal"] or e["layer_rel"] > EP_LAYER_TOL:
+            _fail(f"phase 10 (b): the first MoE layer on rank (data "
+                  f"{e['data']}, model {e['model']}): ids equal "
+                  f"{e['layer_ids_equal']}, output {e['layer_rel']:.3g} of "
+                  f"its largest, bar {EP_LAYER_TOL}")
+    print(f"phase 10 (b) prefill last logits against one rank's on the "
+          f"data row's prompts: {[round(e['last_logits_rel'], 5) for e in ep]}"
+          f" (norm of the difference over the norm, bar {EP_LOGIT_REL})")
+    if worst_rel > EP_LOGIT_REL:
+        _fail(f"phase 10 (b): prefill logits {worst_rel:.4f} from one "
+              f"rank's (norm of the difference over the norm), bar "
+              f"{EP_LOGIT_REL}")
+    for e in ep:
+        print(f"{card}: phase 10 (b) {e['arch']} rank (data {e['data']}, "
+              f"model {e['model']}): {e['expert_gib']:.3f} GiB of experts "
+              f"+ {e['rest_gib']:.3f} GiB of the rest, drawn in "
+              f"{e['init_s']:.1f} s; radix launches {e['radix_launches']} "
+              f"(implied {e['radix_launches_implied']}), "
+              f"{e['radix_calls']} calls equal to the plain version; "
+              f"prompt {e['prompt_ms']:.3f} ms, decode "
+              f"{e['decode_ms_median']:.3f} ms a step (median), "
+              f"{e['decode_tok_s']:.1f} tok/s on this rank's {rows} rows; "
+              f"{e['psums_a_step']:.0f} psums a step, "
+              f"{e['psum_host_ms_a_step']:.3f} ms of host time; "
+              f"max_memory_allocated {e['max_memory_allocated_gib']:.3f} "
+              f"GiB; last logits {e['last_logits_rel']:.5f} of one rank's "
+              f"(norm), max abs {e['last_logits_max_abs']:.4f}; first MoE "
+              f"layer {e['layer_rel']:.3g} of its largest, ids equal "
+              f"{e['layer_ids_equal']}")
+    dp = r0["dp"]
+    print(f"{card}: phase 10 (c) {DP_ARCH} ({DIST_WORLD} ranks, B "
+          f"{DP_BATCH} a rank, S {DP_SEQ}) at {DP_RATIO}: losses "
+          f"{dp['losses']}, step ms {[round(m, 3) for m in dp['step_ms']]}, "
+          f"collectives a step {dp['collectives_a_step']}, residual L1 "
+          f"{dp['residual_l1']:.4g}; ratio 1.0 vs plain pmean (float32, "
+          f"math attention): masters "
+          f"{dp['ratio_1_f32_vs_plain_f32_master_max_abs']:.3g} (bar "
+          f"{DP_EQ_TOL}), grads "
+          f"{dp['ratio_1_f32_vs_plain_f32_grad_rel']:.3g} of a leaf's "
+          f"largest (bar {DP_EQ_TOL}; max abs "
+          f"{dp['ratio_1_f32_vs_plain_f32_grad_max_abs']:.3g}); bf16 with "
+          f"flash attention: ratio 1.0 "
+          f"{dp['ratio_1_vs_plain_master_max_abs']:.3g} (grads "
+          f"{dp['ratio_1_vs_plain_grad_rel']:.3g} of a leaf's largest), a "
+          f"plain step again {dp['plain_again_vs_plain_master_max_abs']:.3g}"
+          f" (grads {dp['plain_again_vs_plain_grad_rel']:.3g}); steps "
+          f"{dp['plain_step_ms']:.3f} / {dp['ratio_1_step_ms']:.3f} "
+          f"ms (float32: {dp['plain_f32_step_ms']:.3f} / "
+          f"{dp['ratio_1_f32_step_ms']:.3f}), collectives "
+          f"{dp['plain_collectives']} / {dp['ratio_1_collectives']}; "
+          f"{dp['dense_arch']}: the plain DP "
+          f"step's grads {dp['dp_vs_one_grad_rel']:.3g} of one replica's "
+          f"(bar {DP_ONE_REL}), params {dp['dp_vs_one_param_rel']:.3g}")
+    pipe = r0["pipeline"]
+    print(f"{card}: phase 10 (d) pipeline {DIST_WORLD} stages x {PIPE_M} "
+          f"microbatches of {PIPE_MB + (PIPE_D,)}: {pipe['ms']:.3f} ms, "
+          f"{pipe['steps']} steps, {pipe['collectives']} collectives, max "
+          f"abs err {pipe['max_abs_err']:.3g} (bar {PIPE_TOL})")
+    t0 = time.perf_counter()
+    nccl = spawn(_phase10_nccl, 1, backend="nccl", device=DIST_DEVICE,
+                 timeout_s=300)[0]
+    nccl_s = time.perf_counter() - t0
+    print(f"phase 10 (e) one rank on {nccl['backend']}: DP step losses "
+          f"{nccl['losses']}, EP forward {nccl['ep_forward']}, all_reduce "
+          f"(sum, max, min), all_gather and broadcast on {nccl['dtypes']}; "
+          "nothing across cards is measured (one card)")
+    print(f"phase 10 ranks: {spawn_s:.1f} s (rank 0: (a) "
+          f"{r0['selection_s']:.1f}, (b) {r0['ep_s']:.1f}, (c) "
+          f"{r0['dp_s']:.1f}, (d) {r0['pipeline_s']:.1f}); (e) {nccl_s:.1f} s")
+    path = {k: dict(v, x=v["x"].to(DIST_DEVICE),
+                    kernel=[(x.to(DIST_DEVICE), kk) for x, kk in v["kernel"]])
+            for k, v in ep[0]["path"].items()}
+    run = dict(ep[0], path=path)
+    return {"ranks": [{k: v for k, v in r.items() if k != "ep"}
+                      for r in ranks],
+            "ep": [{k: v for k, v in e.items()
+                    if k not in ("path", "tokens", "last_logits", "layer_y",
+                                 "layer_ids")}
+                   for e in ep],
+            "nccl": nccl, "run": run, "spawn_s": spawn_s, "nccl_s": nccl_s}
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops_ms,
          library_ms, **extra) -> dict:
     """One entry of the ``kernels`` line; ``ops_ms`` is the operations'
@@ -2231,10 +2925,28 @@ def main() -> int:
                                    if k != "path"},
                       "training_smoke": smoke_train}))
     print(f"phase 9 (training) took {time.perf_counter() - t0:.1f} s")
+    # 10. distribution: ranks that share the card, over gloo; then one
+    # rank on nccl
+    t0 = time.perf_counter()
+    distribution = run_distribution(torch, np, card)
+    dist_rows = radix_path_rows(torch, np, [distribution["run"]])
+    for r in dist_rows:
+        print(f"{r['name']}: {r['ms']:.5f} ms a launch at {r['shape']}, "
+              f"{r['device_ms']:.5f} ms on the device, launch floor "
+              f"{r['launch_floor_device_ms']:.5f} ms; plain "
+              f"{r['plain_ms']:.3f} ms; torch.topk {r['library_ms']:.5f} ms "
+              f"({r['library_device_ms']:.5f} on the device); the whole "
+              f"radix_topk call {r['radix_topk_call_ms']:.5f} ms; bound "
+              f"{r['bound_ms']:.6f} ms by bytes; {r['launches']} launches "
+              f"in {r['calls_on_path']} calls on rank 0's path")
+    rows += dist_rows
+    print(json.dumps({"distribution": {k: v for k, v in distribution.items()
+                                       if k != "run"}}, default=str))
+    print(f"phase 10 (distribution) took {time.perf_counter() - t0:.1f} s")
     spilled = {k: v for k, v in spills.items() if any(v)}
     if spilled:
         _fail(f"the colskip register path spills: {spilled}")
-    # 10. the card again, the timings, and the verdict as the last line
+    # 11. the card again, the timings, and the verdict as the last line
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,8 @@
 Every entry point defaults to ``"cuda"``.  There is no fallback: asking
 for the card where none exists raises, and only an explicit ``"cpu"``
 runs the plain torch versions on the host (what the CPU tests do).
+``"meta"`` builds a model's shapes with no storage, for the sharding
+rules (``dist/sharding.py``); nothing runs there.
 """
 
 from __future__ import annotations
@@ -18,6 +20,6 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             f"device {str(device)!r} requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run the plain torch versions")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev

@@ -21,6 +21,7 @@ __all__ = [
     "from_sortable_uint",
     "kth_largest_sortable",
     "to_sortable_uint",
+    "topk",
     "topk_mask",
 ]
 
@@ -102,3 +103,18 @@ def topk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
     """Boolean mask of the top-k elements, lowest-index tie rule."""
     u = to_sortable_uint(x)
     return exact_k_mask(u, kth_largest_sortable(u, k)[..., None], k)
+
+
+def topk(x: torch.Tensor, k: int):
+    """Drop-in for ``lax.top_k`` on bit-plane selection: ``(values,
+    indices int32)`` over the trailing axis, values descending, the lowest
+    index first among equal values, as the reference's k arg-max passes
+    over the selected set give them (plain torch: the reference's ``topk``
+    calls no kernel either)."""
+    u = to_sortable_uint(x)
+    um = torch.where(exact_k_mask(u, kth_largest_sortable(u, k)[..., None],
+                                 k), u, 0)
+    # a stable descending sort keeps equal values in index order
+    vals_u, idx = torch.sort(um, dim=-1, descending=True, stable=True)
+    return (from_sortable_uint(vals_u[..., :k], x.dtype),
+            idx[..., :k].to(torch.int32))

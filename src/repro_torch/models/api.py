@@ -2,9 +2,9 @@
 exposes the same entry points.
 
     init(cfg, seed=0, device="cuda")                 -> model
-    loss(cfg, model, batch)                          -> (CE + aux, metrics)
-    prefill(cfg, model, batch)                       -> (logits, cache)
-    decode_step(cfg, model, tok, cache, n)           -> (logits, cache)
+    loss(cfg, model, batch, act_specs=)              -> (CE + aux, metrics)
+    prefill(cfg, model, batch, act_specs=)           -> (logits, cache)
+    decode_step(cfg, model, tok, cache, n, act_specs=) -> (logits, cache)
     init_cache(cfg, batch, max_len, model=, frames=, device=) -> cache
 
 The family picks the module, as the reference's ``_family_mod`` does:
@@ -12,8 +12,12 @@ The family picks the module, as the reference's ``_family_mod`` does:
 MoE and VLM families the generic decoder.  Each entry point runs on the
 model's device: ``"cuda"`` unless the caller built the model with
 ``device="cpu"``.  ``loss`` is the training objective; autograd records
-it once the model is :meth:`~.transformer.LM.trainable`.  The shape specs
-come with the tooling (ROADMAP Queue 1 item 6).
+it once the model is :meth:`~.transformer.LM.trainable`.  ``act_specs``
+(:func:`repro_torch.dist.sharding.act_specs`) carries a mesh to the MoE
+layers, which then run expert-parallel over its ``model`` axis; the
+reference's ``shard_act`` constraints have no counterpart (each rank
+already holds its own data shard), so the other families take no part.
+The shape specs come with the tooling (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -38,6 +42,13 @@ def model_class(cfg: ModelCfg):
     return _MODELS.get(cfg.family, transformer.DecoderLM)
 
 
+def _mesh_kw(cfg: ModelCfg, act_specs) -> dict:
+    """``act_specs`` for the generic decoder (its MoE layers read the
+    mesh); nothing for the families without a layer that communicates."""
+    return {"act_specs": act_specs} if _family_mod(cfg) is transformer \
+        else {}
+
+
 def init(cfg: ModelCfg, *, seed: int = 0, device="cuda"):
     """A model with weights drawn from a ``torch.Generator`` seeded with
     ``seed``, on ``device``."""
@@ -54,13 +65,14 @@ def _ce(logits, labels):
     return (torch.logsumexp(logits, -1) - correct).mean()
 
 
-def loss(cfg: ModelCfg, model, batch):
+def loss(cfg: ModelCfg, model, batch, *, act_specs=None):
     """Next-token CE (+ 0.01 x the MoE router's aux loss) -> (total,
     {"ce": ce}).  Labels are the tokens shifted left; a VLM scores only
     its text region (the patches come first).  Every layer's activations
     are recomputed in backward, as the reference's ``jax.checkpoint``
     bodies are."""
-    logits, aux = _family_mod(cfg).forward(cfg, model, batch)[:2]
+    logits, aux = _family_mod(cfg).forward(
+        cfg, model, batch, **_mesh_kw(cfg, act_specs))[:2]
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
     if cfg.family == "vlm":
         logits = logits[:, cfg.vision_patches:]
@@ -70,7 +82,7 @@ def loss(cfg: ModelCfg, model, batch):
 
 
 @torch.no_grad()
-def prefill(cfg: ModelCfg, model, batch):
+def prefill(cfg: ModelCfg, model, batch, *, act_specs=None):
     """The prompt -> (last logits (B, 1, V), decode state), each family as
     the reference: ``ssm`` returns its state after the prompt; ``encdec``
     and ``hybrid`` return forward's last logits with an *empty* state
@@ -88,13 +100,14 @@ def prefill(cfg: ModelCfg, model, batch):
         logits, _ = hymba.forward(cfg, model, batch)
         b, s = batch["tokens"].shape
         return logits[:, -1:], hymba.init_state(cfg, b, s, model.device)
-    return transformer.prefill(cfg, model, batch)
+    return transformer.prefill(cfg, model, batch, act_specs=act_specs)
 
 
 @torch.no_grad()
-def decode_step(cfg: ModelCfg, model, token, cache, cache_len):
+def decode_step(cfg: ModelCfg, model, token, cache, cache_len, *,
+                act_specs=None):
     return _family_mod(cfg).decode_step(cfg, model, token, cache,
-                                          cache_len)
+                                          cache_len, **_mesh_kw(cfg, act_specs))
 
 
 @torch.no_grad()

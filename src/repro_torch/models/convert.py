@@ -29,6 +29,8 @@ STACKED = {"layers": "blocks", "enc_layers": "enc_blocks",
            "dec_layers": "dec_blocks"}
 
 
+_PORT_TO_REF = {v: k for k, v in STACKED.items()}
+
 # the reference's bf16 leaves as np.savez writes them (ml_dtypes' bfloat16
 # has no numpy descriptor, so the bytes go out as a 2-byte void)
 BF16_BITS = np.dtype("V2")
@@ -107,6 +109,43 @@ def from_reference(cfg: ModelCfg, tree, *, device="cuda"):
     model = model_class(cfg)(cfg, device=device)
     load_tree(cfg, dict(model.named_parameters()), tree)
     return model
+
+
+def ref_path(name: str) -> tuple:
+    """A port parameter name as ``(the reference's dotted path, layer)``:
+    ``blocks.3.attn.wq`` -> ``("layers.attn.wq", 3)``; a leaf outside the
+    stacked subtrees has layer None."""
+    top, _, rest = name.partition(".")
+    if top in _PORT_TO_REF:
+        i, _, rest = rest.partition(".")
+        return f"{_PORT_TO_REF[top]}.{rest}", int(i)
+    return name, None
+
+
+def stack_layers(named) -> dict:
+    """``{reference path: tensor}``: the tensors of ``named`` (parameter
+    names -> tensors, e.g. a step's grads) as the reference's leaves, each
+    stacked subtree's layers on a new leading L axis (a copy)."""
+    out, layers = {}, {}
+    for name, t in named.items():
+        path, i = ref_path(name)
+        if i is None:
+            out[path] = t
+        else:
+            layers.setdefault(path, {})[i] = t
+    for path, ts in layers.items():
+        out[path] = torch.stack([ts[i] for i in range(len(ts))])
+    return out
+
+
+def unstack_layers(stacked: dict, names) -> dict:
+    """The inverse of :func:`stack_layers` for the parameter ``names``:
+    ``{name: its slice of the reference leaf}`` (views)."""
+    out = {}
+    for name in names:
+        path, i = ref_path(name)
+        out[name] = stacked[path] if i is None else stacked[path][i]
+    return out
 
 
 def to_reference(cfg: ModelCfg, named) -> dict:

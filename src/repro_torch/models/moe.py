@@ -1,6 +1,6 @@
 """Mixture-of-Experts layer: routing runs on the paper's selection engine.
 
-The port of ``repro/models/moe.py``'s single-device ("auto") path:
+The port of ``repro/models/moe.py``:
 
   * **router top-k**: per-token top-k over expert probabilities goes
     through :func:`repro_torch.kernels.radix_topk.radix_topk`, the radix
@@ -17,10 +17,22 @@ so its bf16 sums would change from run to run.  Here each token's
 ``top_k`` contributions are gathered back to choice order and summed by
 one reduction, the same every run.
 
+Two dispatch paths, as in the reference:
+
+  * ``auto``: every expert on this rank (one card, or the CPU);
+  * ``sharded``, expert parallelism over a mesh with a ``model`` axis
+    (``act_specs["mesh"]``): each rank holds its data
+    shard's tokens, and the ranks of one ``model`` row the same tokens,
+    so each routes them itself (a radix launch on every rank), selects
+    the tokens routed to *its* experts ``[col*e_loc, (col+1)*e_loc)`` of
+    the padded count (zero dispatch communication), runs their GEMMs, and
+    one ``psum`` over ``model`` combines the outputs.  A rank may hold
+    every expert or only its own (:func:`shard_experts`).
+
 Under autograd the router's weights learn only through the load-balance
 aux loss, as the reference's do: its radix top-k values carry no
-gradient (see :func:`_route`).  The sharded expert path (``shard_map``
-over a ``model`` axis) is ROADMAP Queue 1 item 4.
+gradient (see :func:`_route`).  Expert-parallel *training* is not ported
+(the sharded path runs under ``no_grad``: its ``psum`` has no backward).
 """
 
 from __future__ import annotations
@@ -29,6 +41,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelCfg
+from repro_torch.dist._comm import axis_index, pmean, psum
+from repro_torch.dist.sharding import dp_axes
 from repro_torch.kernels.radix_topk import radix_topk
 from .blocks import activation, dtype_of, normal
 
@@ -154,13 +168,16 @@ def _dispatch_compute(cfg, p, xf, weights, expert_idx, e_lo, e_count, c):
     return _rows(contrib, inv).reshape(t, k, d).sum(1)
 
 
-def apply_moe(cfg: ModelCfg, p, x, *, mesh=None, need_aux=True):
+def apply_moe(cfg: ModelCfg, p, x, *, act_specs=None, need_aux=True):
     """x: (B, S, d) -> ((B, S, d), aux), aux the router load-balance loss
     (None when ``need_aux`` is False: serving drops it, as the reference's
-    compiled serving steps do)."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded expert path is not ported "
-                                  "yet: ROADMAP Queue 1 item 4")
+    compiled serving steps do).  ``act_specs`` whose mesh has a ``model``
+    axis takes the expert-parallel path, as the reference's does (with one
+    ``model`` rank its ``psum`` is the identity and the aux is still
+    ``pmean``-ed over the data axes)."""
+    mesh = act_specs.get("mesh") if act_specs else None
+    if mesh is not None and "model" in mesh.axis_names:
+        return _apply_moe_sharded(cfg, p, x, mesh, need_aux)
     return _apply_moe_auto(cfg, p, x, need_aux)
 
 
@@ -180,4 +197,61 @@ def _apply_moe_auto(cfg: ModelCfg, p, x, need_aux=True):
     out = _dispatch_compute(cfg, p, xf, weights, expert_idx,
                             0, padded_experts(cfg), c)
     aux = _aux_loss(cfg, probs, expert_idx) if need_aux else None
+    return out.reshape(b, s, d), aux
+
+
+# ------------------------------------------------------ expert parallelism
+
+def expert_slice(cfg: ModelCfg, mesh) -> tuple:
+    """``(first, count)`` of this rank's experts of the padded count on
+    ``mesh``'s ``model`` axis."""
+    e_pad, n_model = padded_experts(cfg), mesh.shape["model"]
+    if e_pad % n_model:
+        raise ValueError(f"{cfg.name}: the model axis ({n_model} ranks) "
+                         f"does not divide the {e_pad} padded experts")
+    e_loc = e_pad // n_model
+    return axis_index(mesh, "model") * e_loc, e_loc
+
+
+def _local_experts(cfg: ModelCfg, p, mesh) -> dict:
+    lo, count = expert_slice(cfg, mesh)
+    held = p["gate"].shape[0]
+    if held == count:                    # only this rank's (shard_experts)
+        return {k: p[k] for k in ("gate", "up", "down")}
+    if held != padded_experts(cfg):
+        raise ValueError(f"{cfg.name}: {held} experts held, neither the "
+                         f"{padded_experts(cfg)} padded nor this rank's "
+                         f"{count}")
+    return {k: p[k][lo:lo + count] for k in ("gate", "up", "down")}
+
+
+def shard_experts(cfg: ModelCfg, model, mesh):
+    """Keep only this rank's experts in every MoE block of ``model``, in
+    place (the rest is freed); returns the model."""
+    for blk in model.blocks:
+        if hasattr(blk, "moe"):
+            local = _local_experts(cfg, blk.moe, mesh)
+            for k, t in local.items():
+                blk.moe[k] = torch.nn.Parameter(
+                    t.detach().clone(), requires_grad=t.requires_grad)
+    return model
+
+
+def _apply_moe_sharded(cfg: ModelCfg, p, x, mesh, need_aux=True):
+    """EP on this rank: local route, local expert select and GEMMs, one
+    ``psum`` over ``model``; the aux ``pmean``-ed over every axis."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError("expert-parallel training is not ported: "
+                                  "the sharded path runs without autograd")
+    lo, count = expert_slice(cfg, mesh)
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    weights, expert_idx, probs = _route(cfg, p["router"], xf)
+    c = capacity(cfg, t)
+    out = _dispatch_compute(cfg, _local_experts(cfg, p, mesh), xf, weights,
+                            expert_idx, lo, count, c)
+    out = psum(out, mesh, "model")
+    aux = (pmean(_aux_loss(cfg, probs, expert_idx), mesh,
+                 dp_axes(mesh) + ("model",)) if need_aux else None)
     return out.reshape(b, s, d), aux

@@ -166,7 +166,7 @@ def embed_inputs(cfg: ModelCfg, model: DecoderLM, batch):
 
 
 def _layer(cfg: ModelCfg, blk: Block, x, positions, rope, window: int,
-           need_aux: bool):
+           need_aux: bool, act_specs=None):
     """One block over a whole sequence -> (x, (k, v), aux or None)."""
     h = B.apply_norm(cfg, blk.ln1, x)
     q, k, v = B._qkv(cfg, blk.attn, h, positions, rope)
@@ -179,22 +179,25 @@ def _layer(cfg: ModelCfg, blk: Block, x, positions, rope, window: int,
         x = x + attn
         h2 = B.apply_norm(cfg, blk.ln2, x)
         if cfg.moe is not None:
-            y, aux = apply_moe(cfg, blk.moe, h2, need_aux=need_aux)
+            y, aux = apply_moe(cfg, blk.moe, h2, act_specs=act_specs,
+                               need_aux=need_aux)
         else:
             y = B.apply_mlp(cfg, blk.mlp, h2)
         x = x + y
     return x, (k, v), aux
 
 
-def forward(cfg: ModelCfg, model: DecoderLM, batch, *, remat=True):
+def forward(cfg: ModelCfg, model: DecoderLM, batch, *, act_specs=None,
+            remat=True):
     """Full-sequence forward.  Returns (logits (B, S, V), aux).  ``remat``:
-    each layer's activations are recomputed in backward."""
+    each layer's activations are recomputed in backward; ``act_specs``
+    (``dist.sharding.act_specs``) carries the mesh to the MoE layers."""
     x, positions = embed_inputs(cfg, model, batch)
     rope = model.rope(positions)
     aux = torch.zeros((), dtype=torch.float32, device=model.device)
 
     def body(x, blk, w):
-        x, _, a = _layer(cfg, blk, x, positions, rope, w, True)
+        x, _, a = _layer(cfg, blk, x, positions, rope, w, True, act_specs)
         return x, a
 
     for blk, w in zip(model.blocks, layer_windows(cfg)):
@@ -214,14 +217,15 @@ def init_cache(cfg: ModelCfg, batch, max_len, device="cuda"):
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
 
-def prefill(cfg: ModelCfg, model: DecoderLM, batch):
+def prefill(cfg: ModelCfg, model: DecoderLM, batch, *, act_specs=None):
     """Forward over the prompt -> (last logits (B, 1, V), cache of S
     slots)."""
     x, positions = embed_inputs(cfg, model, batch)
     rope = model.rope(positions)
     ks, vs = [], []
     for blk, w in zip(model.blocks, layer_windows(cfg)):
-        x, (k, v), _ = _layer(cfg, blk, x, positions, rope, int(w), False)
+        x, (k, v), _ = _layer(cfg, blk, x, positions, rope, int(w), False,
+                              act_specs)
         ks.append(k)
         vs.append(v)
     return model.logits(x[:, -1:]), {"k": torch.stack(ks),
@@ -229,7 +233,7 @@ def prefill(cfg: ModelCfg, model: DecoderLM, batch):
 
 
 def decode_step(cfg: ModelCfg, model: DecoderLM, token, cache,
-                cache_len: int, positions3=None):
+                cache_len: int, positions3=None, *, act_specs=None):
     """One-token decode.  token: (B, 1); ``positions3`` (B, 1, 3) under
     M-RoPE (None: ``cache_len`` on all three streams).  Writes slot
     ``cache_len`` of every layer's cache in place; returns (logits (B, 1,
@@ -266,7 +270,8 @@ def decode_step(cfg: ModelCfg, model: DecoderLM, token, cache,
         else:
             x = x + out
             h2 = B.apply_norm(cfg, blk.ln2, x)
-            y = (apply_moe(cfg, blk.moe, h2, need_aux=False)[0]
+            y = (apply_moe(cfg, blk.moe, h2, act_specs=act_specs,
+                           need_aux=False)[0]
                  if cfg.moe is not None else B.apply_mlp(cfg, blk.mlp, h2))
             x = x + y
     return model.logits(x), cache

@@ -1,7 +1,17 @@
 """The training step: loss, backward, an optional gradient hook, AdamW.
 
-The port of ``repro/train/loop.py``'s single-replica half.  The train
-state is ``{"model": the family's model (trainable), "opt": {"master",
+The port of ``repro/train/loop.py``.  Two step builders:
+
+  * :func:`make_train_step`, one replica's step, with the ``grad_reduce``
+    hook a wrapper uses to intercept the grads before the optimizer;
+  * :func:`make_dp_train_step`, data parallelism over a mesh axis, each
+    rank a replica: the grads are ``pmean``-ed, or go through the
+    error-feedback top-k compressed all-reduce
+    (:func:`repro_torch.dist.compress.ef_topk_psum_tree`), whose global
+    threshold is the paper's §IV multi-bank search; the residuals stay on
+    their rank in the ``"ef"`` slot of its state.
+
+The state is ``{"model": the family's model (trainable), "opt": {"master",
 "m", "v": dicts keyed by parameter name, "step": int32}}``, and a step
 updates it in place.  Each layer's activations are recomputed in
 backward, as the reference's ``jax.checkpoint`` bodies are, so a MoE
@@ -12,8 +22,7 @@ in float32 and averages them, as the reference's ``lax.scan`` does; its
 ``"ce"`` metric is then the total loss (CE + aux), which is what the
 reference reports there.  ``grad_reduce(grads, state) -> (grads,
 extra)`` runs between backward and the optimizer, and ``extra`` is merged
-into the state: the hook a data-parallel wrapper uses (ROADMAP Queue 1
-item 4, with ``make_dp_train_step``).
+into the state: the hook :func:`make_dp_train_step` plugs into.
 """
 
 from __future__ import annotations
@@ -23,7 +32,11 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelCfg
+from repro_torch.dist._comm import axis_index, axis_size, pmean
+from repro_torch.dist.compress import ef_topk_psum_tree
+from repro_torch.dist.sharding import stacked_shapes
 from repro_torch.models import api
+from repro_torch.models.convert import stack_layers, unstack_layers
 from .optimizer import adamw_init, adamw_update, cosine_lr
 
 TrainState = Dict[str, Any]   # {"model": LM, "opt": {master, m, v, step}}
@@ -99,3 +112,60 @@ def make_train_step(cfg: ModelCfg, *, peak_lr=3e-4, warmup=100,
                        **metrics}
 
     return train_step
+
+
+# ------------------------------------------------ explicit data parallelism
+
+def init_dp_state(cfg: ModelCfg, seed: int, mesh, *, axis_name="data",
+                  compress: bool = False) -> TrainState:
+    """This rank's train state for :func:`make_dp_train_step`: the replica
+    drawn from ``seed`` (the same on every rank) on the mesh's device.
+    With ``compress=True`` the state carries an ``"ef"`` dict of this
+    rank's float32 error-feedback residuals, zeros, one for each of the
+    reference's leaves (``convert.stack_layers``: the layers stacked, so
+    a leaf's top-k runs over all its layers, as the reference's does)."""
+    state = init_state(cfg, seed=seed, device=mesh.device)
+    if compress:
+        state["ef"] = {path: torch.zeros(shape, dtype=torch.float32,
+                                         device=mesh.device)
+                       for path, (shape, _) in
+                       stacked_shapes(state["model"]).items()}
+    return state
+
+
+def make_dp_train_step(cfg: ModelCfg, mesh, *, axis_name="data",
+                       compress_ratio: float | None = None, **kw):
+    """Data parallelism over ``mesh[axis_name]``: returns ``step(state,
+    batch) -> (state, metrics)``, run on every rank with the *global*
+    batch, of which each rank takes its slice (the leading axis split in
+    axis-index order).  Params and optimizer stay replicated: the grads
+    are ``pmean``-ed, each in its own dtype as the reference's are, before
+    the optimizer, or, with ``compress_ratio``, reduced by
+    :func:`~repro_torch.dist.compress.ef_topk_psum_tree` (in the
+    residual's float32) and divided by the axis size.
+    ``compress_ratio=1.0`` selects everything: the plain ``pmean`` step,
+    within the sum's order, for float32 leaves; a bf16 leaf's plain mean
+    rounds each partial sum where the compressed one rounds once.  The
+    metrics are ``pmean``-ed.  ``kw`` goes to :func:`make_train_step`.
+    Build the state with :func:`init_dp_state`."""
+    n = axis_size(mesh, axis_name)
+
+    def grad_reduce(grads, state):
+        if compress_ratio is None:
+            return {k: pmean(g, mesh, axis_name)
+                    for k, g in grads.items()}, {}
+        red, err = ef_topk_psum_tree(stack_layers(grads), state["ef"], mesh,
+                                     ratio=compress_ratio,
+                                     axis_name=axis_name)
+        red = {k: r / n for k, r in red.items()}
+        return unstack_layers(red, grads), {"ef": err}
+
+    inner = make_train_step(cfg, grad_reduce=grad_reduce, **kw)
+
+    def step(state, batch):
+        local = _slice(batch, axis_index(mesh, axis_name), n)
+        state, metrics = inner(state, local)
+        return state, {k: pmean(v, mesh, axis_name)
+                       for k, v in metrics.items()}
+
+    return step

@@ -516,3 +516,146 @@ def test_train_step_on_the_card_matches_cpu(cuda, no_tf32, arch):
     assert len(calls) == launches == routers
     for x, ids in calls:
         assert torch.equal(radix_topk(x, cfg.moe.top_k, device="cpu")[1], ids)
+
+
+# ---------------------------------------------------------------- distribution
+# ranks that share the card join gloo (NCCL refuses two ranks on one card)
+# and stage their collectives through the host; tests/_torch_dist_ranks.py
+# holds the rank bodies the CPU tests run against the JAX package
+
+DIST_DEVICE = "cuda:0"
+
+
+def _ranks(case, inp):
+    import _torch_dist_ranks as R
+    return R.run_case(case, inp, device=DIST_DEVICE)
+
+
+def _rel(a, b):
+    return float(np.abs(np.asarray(a, np.float64) - b).max()) / max(
+        float(np.abs(b).max()), 1e-30)
+
+
+def test_distsort_ranks_on_the_card(cuda):
+    """8 and 4 banks on the card: thresholds and minima equal numpy's,
+    masks equal one rank's ``topk_mask`` on the whole row."""
+    from _torch_dist_ranks import distsort_inputs
+    from repro_torch.core.topk import topk_mask
+    inp = distsort_inputs()
+    port = _ranks("distsort", inp)
+    for name in ("x", "ties"):
+        want = topk_mask(torch.as_tensor(inp[name]), 13).numpy()
+        for key in ("_mask8", "_mask8t"):
+            got = np.concatenate([p[name + key] for p in port], -1)
+            assert np.array_equal(got, want)
+    for j, (u, ks) in enumerate(zip(inp["trials"], inp["trial_ks"])):
+        for p in port:
+            for k in ks:
+                assert np.array_equal(p[f"t{j}_kth{k}"],
+                                      np.sort(u, axis=-1)[:, -k])
+            assert np.array_equal(p[f"t{j}_min"], u.min(-1))
+        mask = np.concatenate([p[f"t{j}_mask5"] for p in port[:4]], -1)
+        k = min(5, u.shape[-1])
+        assert np.array_equal(mask, topk_mask(torch.as_tensor(u), k).numpy())
+
+
+def test_compress_pipeline_and_meshes_on_the_card(cuda):
+    """ef_topk_psum (and _tree) against the one-process oracle, the
+    ratio-1.0 schedule against the pmean, the pipeline against its stages
+    one after another (1e-5, TF32 off), the collectives over two axes."""
+    from _torch_dist_ranks import compress_inputs, topk_oracle
+    inp = compress_inputs()
+    port = _ranks("compress", inp)
+    cat = lambda key: np.concatenate([p[key] for p in port])   # noqa: E731
+    g = inp["g"]
+    red, errs = topk_oracle(np.split(g, 4), 16)
+    assert np.array_equal(cat("err"), np.concatenate(errs))
+    np.testing.assert_allclose(port[0]["red"], red, rtol=0, atol=1e-6)
+    assert np.array_equal(cat("auto_one_red") / 4.0, cat("pmean"))
+    assert not cat("auto_one_err").any()
+    assert float(port[0]["auto_hot_ratio"]) > 0.25
+    for path in ("a", "b.c"):
+        cs = [(_leaf(inp["tree_g"][r], path) + _leaf(inp["tree_e"][r], path))
+              .ravel() for r in range(4)]
+        red, errs = topk_oracle(cs, round(0.1 * 4 * cs[0].size))
+        for r, p in enumerate(port):
+            assert np.array_equal(p[f"tree_err.{path}"].ravel(), errs[r])
+            np.testing.assert_allclose(p[f"tree_red.{path}"].ravel(), red,
+                                       rtol=0, atol=1e-6)
+    want = inp["xs"]
+    for i in range(4):
+        want = np.tanh(want @ inp["ws"][i])
+    for r, p in enumerate(port):
+        np.testing.assert_allclose(p["pipeline"], want, rtol=0, atol=1e-5)
+        assert p["gather_md"].ravel().tolist() == [1.0, 3.0, 2.0, 4.0]
+        assert p["pmax_both"].tolist() == [4.0]
+
+
+def _leaf(tree, path):
+    for key in path.split("."):
+        tree = tree[key]
+    return tree
+
+
+def test_dp_train_on_the_card(cuda):
+    """make_dp_train_step on 4 ranks on the card: ratio 1.0 equals the
+    plain pmean step, the plain step equals one replica on the whole batch
+    (1e-5 of each leaf's largest value), the grads the optimizer got equal
+    the mean of the shards' grads taken on the CPU (1e-5) and their norm
+    that mean's, 0.05 trains with a residual, and the tree's residuals
+    equal the one-process oracle's.  Each step runs its own backward, and
+    the card's attention backward adds in a varying order, so the grads
+    of two steps are held within 1e-5, not bit for bit."""
+    from _torch_dist_ranks import (_flat, dp_train_inputs_from_port,
+                                   topk_oracle)
+    inp = dp_train_inputs_from_port()
+    port = _ranks("dp_train", inp)
+    grads = [_flat(g) for g in inp["grads"]]
+    mean = {k: np.mean([g[k] for g in grads], axis=0, dtype=np.float64)
+            for k in grads[0]}
+    mean_norm = float(np.sqrt(sum(np.sum(g * g) for g in mean.values())))
+    for p in port:
+        assert p["comp_ef_max"] == 0.0
+        for k, want in p["plain_params"].items():
+            assert _rel(p["comp_params"][k], want) <= 1e-6, k
+            assert _rel(want, p["one_params"][k]) <= 1e-5, k
+        for k, want in mean.items():
+            assert _rel(p["plain_grads"][k], want) <= 1e-5, k
+            assert _rel(p["comp_grads"][k], p["plain_grads"][k]) <= 1e-5, k
+            assert _rel(p["plain_grads"][k], p["one_grads"][k]) <= 1e-5, k
+        for tag in ("plain", "comp", "one"):
+            assert abs(p[f"{tag}_gnorm"] - mean_norm) <= 1e-5 * mean_norm
+        assert all(np.isfinite(p["sparse_losses"])) and p["sparse_finite"]
+        assert p["sparse_ef_energy"] > 0.0
+    for path in grads[0]:
+        cs = [grads[r][path].astype(np.float32).ravel() for r in range(4)]
+        red, errs = topk_oracle(cs, round(0.05 * 4 * cs[0].size))
+        for r, p in enumerate(port):
+            assert np.array_equal(p[f"tree1_err.{path}"].ravel(), errs[r])
+            np.testing.assert_allclose(p[f"tree1_red.{path}"].ravel(), red,
+                                       rtol=0, atol=1e-6)
+
+
+def test_moe_ep_on_the_card(cuda):
+    """The expert-parallel MoE on a (data 2, model 4) mesh of 8 ranks on
+    the card against the auto path (2e-5, TF32 off), whether a rank holds
+    every expert or its own; granite-moe's greedy tokens on a (2, 2) mesh
+    equal one rank's, and the model ranks of a data row sample alike."""
+    from _torch_dist_ranks import moe_ep_inputs, qwen_ep_cfg
+    from repro_torch.models import moe
+    cfg = qwen_ep_cfg()
+    gen = torch.Generator().manual_seed(0)
+    params = {k: v.numpy() for k, v in moe.moe_params(cfg, gen, "cpu").items()}
+    port = _ranks("moe_ep", moe_ep_inputs(params))
+    for m in range(4):
+        rows = sorted((p["data"], p) for p in port if p["model"] == m)
+        y = np.concatenate([p["y"] for _, p in rows])
+        np.testing.assert_allclose(y, port[0]["y_auto"], rtol=0, atol=2e-5)
+        assert all(np.array_equal(p["y"], p["y_held"]) for _, p in rows)
+    in_mesh = [p for p in port if "greedy" in p]
+    one = port[0]["greedy_one"]
+    for r, p in enumerate(in_mesh):
+        assert np.array_equal(p["greedy"], one[2 * (r // 2):2 * (r // 2) + 2])
+    for d in range(2):
+        assert np.array_equal(in_mesh[2 * d]["sampled"],
+                              in_mesh[2 * d + 1]["sampled"])

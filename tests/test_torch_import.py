@@ -49,7 +49,10 @@ for name in ("repro_torch.dist", "repro_torch.dist.bankmesh",
              "repro_torch.data", "repro_torch.data.pipeline",
              "repro_torch.train", "repro_torch.train.optimizer",
              "repro_torch.train.loop", "repro_torch.ckpt",
-             "repro_torch.ckpt.manager", "repro_torch.launch.train"):
+             "repro_torch.ckpt.manager", "repro_torch.launch.train",
+             "repro_torch.dist._comm", "repro_torch.dist.compress",
+             "repro_torch.dist.sharding", "repro_torch.dist.pipeline",
+             "repro_torch.core.distsort", "repro_torch.launch.mesh"):
     assert name in names, name
 print(len(names))
 """
@@ -80,6 +83,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         threshold_sortable,
     )
     from repro_torch.dist.bankmesh import make_bank_mesh
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.kernels.colskip.ops import colskip_sort_mesh_batched
     from repro_torch.configs import get_config
     from repro_torch import train
@@ -99,6 +103,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
              lambda: sortserve.main(["--requests", "4", "--mesh"]),
              lambda: sortserve.main(["--requests", "4", "--replicas", "2"]),
              lambda: make_bank_mesh(),
+             lambda: make_host_mesh(2, 2),
              lambda: colskip_sort_mesh_batched(x, 2),
              lambda: api.init(get_config("gemma3-4b", smoke=True)),
              lambda: api.init_cache(get_config("gemma3-4b", smoke=True), 1,

@@ -266,9 +266,15 @@ def test_moe_layer(case):
 
 
 def test_moe_mesh_raises():
+    # the expert-parallel path refuses a model axis that does not divide
+    # the padded experts (tests/test_torch_moe_ep.py holds the path)
+    from repro_torch.dist._comm import AbstractMesh
     _, cfg = smoke("granite-moe-3b-a800m")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        moe.apply_moe(cfg, {}, torch.zeros(1, 1, 64), mesh=object())
+    mesh = AbstractMesh({"data": 1, "model": 5})
+    mesh.coords = {"data": 0, "model": 0}
+    with pytest.raises(ValueError, match="does not divide"):
+        moe.apply_moe(cfg, {"router": torch.zeros(64, cfg.moe.n_experts)},
+                      torch.zeros(1, 1, 64), act_specs={"mesh": mesh})
 
 
 def test_capacity_and_padding_at_full_size():
