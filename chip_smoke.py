@@ -54,12 +54,15 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      hits), and a ``--replicas 2 --rolling-restart --warm-state`` fleet (0
      sheds, 2 restarts), run twice so the second run reloads the artifact
      the first wrote;
-  6. the benchmark path: run the port's ten benchmark suites
+  6. the benchmark path: run the port's eleven benchmark suites
      (``repro_torch.benchmarks.run --out``) on ``cuda`` with every launch
      count reset just before and read just after: no suite may fail, no
      correctness predicate may MISS (sorted output, threshold and index
-     equality, CR parity, ``distserve``'s ``cycle_parity=ok``), and every
-     kernel must have launched; a MISS of a performance or paper band is
+     equality, CR parity, ``distserve``'s ``cycle_parity=ok``, every
+     ``hw/`` row: fused digests equal at fuse 1, 2, 4 with ``round_cr >=
+     1.5``, and a warm process with 0 persistent misses), and every
+     kernel must have launched (the mesh kernel also in ``hw_bench``'s
+     fused worker, whose count comes back in its rows); a MISS of a performance or paper band is
      printed as a finding; the rows of the redesigned dense colskip and
      radix kernels are printed beside their times before that redesign;
   7. time each kernel with CUDA events at a path shape beside its plain
@@ -164,7 +167,19 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      another (``PIPE_TOL``).  (e) One rank on ``nccl``: a DP step, the EP
      layer and the collectives on their dtypes.  Then the radix rows at
      the EP router's per-rank shapes;
- 11. print ``{"ok": true, "device": {...}}`` as the last line.
+ 11. the sort-serving hardware path: a profile from
+     ``repro_torch.benchmarks.hw_tune`` into a fresh directory, then
+     ``launch/sortserve.py --smoke --mesh --fuse 2 --compile-cache D
+     --hw-profile P`` twice, each in a fresh process (0 oracle mismatches;
+     the first builds libraries, persistent misses above 0; the second
+     builds none, 0 misses and hits above 0; both walls printed); the five
+     example twins (``examples/torch``) on ``cuda`` at once, each exiting
+     0 with its check printed; the dry-run of granite-moe-3b-a800m
+     ``train_4k`` on ``meta`` (status ok), its roofline printed beside
+     phase 9's step; and row 1e, the mesh kernel at ``hw_bench``'s shape
+     ((1, 1024), D = 4, F in {1, 2, 4}) against the plain mesh (exact),
+     with its own rounds and bound;
+ 12. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Exact integer outputs: every tolerance is equality (``max_abs_err`` 0).
 """
@@ -727,11 +742,12 @@ def serve_fleet(torch) -> None:
 
 
 # Rows whose PASS is a correctness predicate of the output (sorted values,
-# threshold or index equality, carrier parity); every other PASS/MISS is a
-# performance or paper band.
+# threshold or index equality, carrier parity; hw: a response digest equal
+# across fuse values, the static account's round CR, a build-free warm
+# start); every other PASS/MISS is a performance or paper band.
 CORRECTNESS_ROWS = ("kernel/", "serving/", "streaming/session_",
                     "streaming/degraded_", "streaming/fleet_steady",
-                    "streaming/fleet_rolling")
+                    "streaming/fleet_rolling", "hw/")
 
 
 def bench(torch) -> dict:
@@ -761,8 +777,19 @@ def bench(torch) -> dict:
     if rc != 0 or doc["errors"]:
         _fail(f"benchmark suites failed: {doc['errors']}")
     suites = {r["name"].split("/")[0].split("_")[0] for r in doc["rows"]}
-    if len(bench_run.SUITES) != 10 or "distserve" not in suites:
-        _fail(f"expected the ten suites, got {bench_run.SUITES}")
+    if len(bench_run.SUITES) != 11 or not {"distserve", "hw"} <= suites:
+        _fail(f"expected the eleven suites, got {bench_run.SUITES}")
+    # the hw suite's fused worker runs in a process of its own: its mesh
+    # kernel launches come back in its rows
+    hw_rows = [r for r in doc["rows"] if r["name"].startswith("hw/")]
+    launches["colskip_mesh_hw"] = sum(
+        int(m.group(1)) for r in hw_rows
+        for m in [re.search(r"mesh_launches=(\d+)", r["derived"])] if m)
+    for row in hw_rows:
+        print(f"{row['name']}: {row['us_per_call']:.1f} us "
+              f"{row['derived']}")
+    if len(hw_rows) != 5:
+        _fail(f"expected 5 hw rows (3 fused, 2 persist), got {hw_rows}")
     for row in doc["rows"]:
         if row["name"] in BEFORE_ROWS_US:
             print(f"{row['name']}: {row['us_per_call']:.1f} us (before: "
@@ -2761,6 +2788,200 @@ def run_distribution(torch, np, card) -> dict:
             "nccl": nccl, "run": run, "spawn_s": spawn_s, "nccl_s": nccl_s}
 
 
+# ---------------------------------------------------------------- phase 11
+
+# the sort-serving hardware path: the launcher's smoke over the mesh kernel
+# at fuse 2 with a persistent kernel-library directory and a profile from
+# the port's hw_tune, twice, each in a fresh process
+HW_LAUNCH = ["--smoke", "--mesh", "--fuse", "2"]
+HW_TUNE_REQUESTS = 4
+# the examples' twins (examples/torch/*.py) and what each must print
+EXAMPLE_CHECKS = {
+    "quickstart": "[cuda] the §III machine reproduces cycles exactly",
+    "sort_service": "verify failures: 0",
+    "trace_requests": "120 request chains",
+    "fleet_serve": "(oracle mismatches: 0)",
+    "fleet_view": "ALERT instant(s)",
+}
+# the dry-run cell traced on meta, beside phase 9's measured step
+DRYRUN_CELL = ("granite-moe-3b-a800m", "train_4k")
+
+
+def _py(args, cwd=None, timeout=900) -> tuple:
+    """``python args`` in a fresh process with ``src`` on its path: (exit
+    code, stdout, stderr, wall s)."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *args], cwd=cwd or ROOT, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    return out.returncode, out.stdout, out.stderr, time.perf_counter() - t0
+
+
+def _persistent_counts(stdout: str) -> tuple:
+    m = re.search(r"persistent cache: (\d+) hits / (\d+) misses", stdout)
+    if m is None:
+        _fail(f"no persistent cache line in the launcher's output:\n"
+              f"{stdout[-2000:]}")
+    return int(m.group(1)), int(m.group(2))
+
+
+def _hw_tune(work: Path) -> tuple:
+    """(b), first half: a profile from hw_tune into a fresh directory;
+    returns (profile path, cache directory)."""
+    cache, prof = work / "kernel_cache", work / "hwprofile.json"
+    rc, out, err, tune_s = _py(["-m", "repro_torch.benchmarks.hw_tune",
+                                "--out", str(prof), "--cache-dir", str(cache),
+                                "--requests", str(HW_TUNE_REQUESTS)])
+    if rc != 0:
+        _fail(f"hw_tune failed:\n{err[-3000:]}")
+    print(out.strip() + f" ({tune_s:.1f} s)")
+    return prof, cache
+
+
+def hw_launcher_runs(prof: Path, cache: Path) -> dict:
+    """(b), second half: the launcher twice on the profile's compile
+    cache, each in a fresh process, nothing else running."""
+    runs = []
+    for run in ("cold", "warm"):
+        rc, out, err, wall = _py(["-m", "repro_torch.launch.sortserve",
+                                  *HW_LAUNCH, "--compile-cache", str(cache),
+                                  "--hw-profile", str(prof)])
+        if rc != 0 or "oracle mismatches: 0" not in out \
+                or "hw profile: " not in out:
+            _fail(f"the {run} launcher run returned {rc}:\n{out[-2000:]}\n"
+                  f"{err[-2000:]}")
+        hits, misses = _persistent_counts(out)
+        runs.append({"run": run, "wall_s": wall, "persistent_hits": hits,
+                     "persistent_misses": misses})
+        print(f"launcher {' '.join(HW_LAUNCH)} --compile-cache "
+              f"--hw-profile, {run} process: {wall:.1f} s wall, "
+              f"persistent {hits} hits / {misses} misses, 0 oracle "
+              "mismatches")
+    cold, warm = runs
+    if cold["persistent_misses"] <= 0:
+        _fail(f"the cold launcher built no library: {cold}")
+    if warm["persistent_misses"] != 0 or warm["persistent_hits"] <= 0:
+        _fail(f"the warm launcher was not build-free: {warm}")
+    return {"cold": cold, "warm": warm}
+
+
+def start_examples(work: Path) -> dict:
+    """(c): the five twins on cuda, started at once, each in its own
+    directory; :func:`finish_examples` collects them."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = {}
+    for name in EXAMPLE_CHECKS:
+        cwd = work / name
+        cwd.mkdir(parents=True)
+        procs[name] = subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py"),
+             "--device", "cuda"], cwd=cwd, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    return procs
+
+
+def finish_examples(procs: dict, t0: float) -> dict:
+    walls = {}
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        walls[name] = time.perf_counter() - t0
+        if proc.returncode != 0 or EXAMPLE_CHECKS[name] not in out:
+            _fail(f"examples/torch/{name}.py returned "
+                  f"{proc.returncode}:\n{out[-2000:]}\n{err[-2000:]}")
+        print(f"examples/torch/{name}.py on cuda: exit 0 within "
+              f"{walls[name]:.1f} s; {out.strip().splitlines()[-1]}")
+    return walls
+
+
+def run_hw_path(train: dict) -> dict:
+    """Phase 11 but row 1e: the examples and the dry-run run beside
+    hw_tune; the launcher pair runs alone, so its walls are its own."""
+    import shutil
+    work = ROOT / "build" / "chip_smoke" / "hw"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    procs = start_examples(work / "examples")
+    prof, cache = _hw_tune(work)
+    dry = dryrun_beside_training(train)
+    walls = finish_examples(procs, t0)
+    return {"launcher": hw_launcher_runs(prof, cache), "examples_s": walls,
+            "dryrun": dry}
+
+
+def dryrun_beside_training(train: dict) -> dict:
+    """(d): one cell's roofline on meta, printed beside phase 9's step."""
+    import tempfile
+    from repro_torch.launch import dryrun
+    arch, shape = DRYRUN_CELL
+    with tempfile.TemporaryDirectory() as td:
+        rec = dryrun.run_cell(arch, shape, False, td)
+    if rec["status"] != "ok":
+        _fail(f"dry-run of {arch} {shape} on meta: {rec}")
+    rl = rec["roofline"]
+    step = train["step_ms_median_after_first"]
+    # the cell's device holds 1 of its 256 sequences of 4,096 tokens; the
+    # card's step in phase 9 ran 2
+    print(f"dry-run {arch} {shape} on meta (a device of 16 x 16, "
+          f"{rec['trace_s']} s): compute {rl['t_compute'] * 1e3:.3f} ms, "
+          f"memory {rl['t_memory'] * 1e3:.3f} ms a device's 4,096 tokens "
+          f"({rl['bottleneck']}-bound, useful {rl['useful_ratio']:.3f}); "
+          f"twice that, {2e3 * max(rl['t_compute'], rl['t_memory']):.3f} "
+          f"ms, beside phase 9's measured {step:.3f} ms for 2 x 4,096 "
+          f"tokens; args {rec['mem']['args_gb']} GiB a device")
+    return {k: rec[k] for k in ("roofline", "mem", "microbatches",
+                                "trace_s")}
+
+
+def measure_hw_mesh(torch, np, hw_launches: int) -> dict:
+    """Row 1e: the mesh kernel at hw_bench's shape, (1, 1024) uint32, D = 4,
+    F in {1, 2, 4}, each held against the plain mesh (exact), with its own
+    rounds; bound: the row's min searches x one cross-bank round."""
+    from repro_torch.benchmarks import hw_bench
+    from repro_torch.kernels.colskip import ops, ref
+    dev = torch.device("cuda")
+    w, k, banks = hw_bench.W, 2, hw_bench.BANKS
+    host = torch.from_numpy(hw_bench.workload(1)[0].payload[None].copy())
+    x = host.to(dev)
+    searches = max(_searches(x))
+    t0 = time.perf_counter()
+    want = ref.sort_mesh_ref(host, banks, w, k, fuse=2)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ops.mesh_chain(1000, banks)
+    round_ns = _time_ms(lambda: ops.mesh_chain(MESH_ROUNDS, banks), 3) \
+        * 1e6 / MESH_ROUNDS
+    table, err = [], 0
+    for fuse in hw_bench.FUSE_VALUES:
+        got = ops.colskip_sort_mesh_batched(x, banks, w, k, fuse=fuse,
+                                            return_rounds=True)
+        err = max(err, _hold(f"colskip_mesh (1, {x.shape[1]}) fuse={fuse}",
+                             got[:4], want[:4]))
+        ms = _time_ms(lambda: ops.colskip_sort_mesh_batched(
+            x, banks, w, k, fuse=fuse), 10)
+        table.append({"fuse": fuse, "ms": ms,
+                      "rounds_max_row": int(got[4].max())})
+        print(f"colskip_mesh_hw fuse={fuse}: {ms:.4f} ms at (1, "
+              f"{x.shape[1]}) D={banks}, {table[-1]['rounds_max_row']} "
+              "exchange rounds")
+    main = next(r for r in table if r["fuse"] == 2)
+    n = x.shape[1]
+    return _row("colskip_mesh_hw",
+                "src/repro_torch/kernels/colskip/csrc/colskip_mesh.cu",
+                "src/repro/dist/bankmesh.py:126 (not a Pallas kernel)",
+                hw_launches, err, main["ms"], plain_ms, n * 4 + n * 8 + 12,
+                searches * round_ns * 1e-6, None,
+                shape=f"(1, {n}) uint32 w={w} k={k}, D={banks} banks, "
+                      "fuse=2 (hw_bench)", plain_device="cpu",
+                searches_max_row=searches, round_ns=round_ns,
+                rounds_max_row=main["rounds_max_row"], table=table)
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops_ms,
          library_ms, **extra) -> dict:
     """One entry of the ``kernels`` line; ``ops_ms`` is the operations'
@@ -2943,10 +3164,18 @@ def main() -> int:
     print(json.dumps({"distribution": {k: v for k, v in distribution.items()
                                        if k != "run"}}, default=str))
     print(f"phase 10 (distribution) took {time.perf_counter() - t0:.1f} s")
+    # 11. the sort-serving hardware path: the launcher twice on one compile
+    # cache with a hw_tune profile, the five examples, a dry-run cell on
+    # meta, and the mesh kernel at hw_bench's shape
+    t0 = time.perf_counter()
+    hw = run_hw_path(train)
+    rows.append(measure_hw_mesh(torch, np, bench_launches["colskip_mesh_hw"]))
+    print(json.dumps({"hw_path": hw}))
+    print(f"phase 11 (hardware path) took {time.perf_counter() - t0:.1f} s")
     spilled = {k: v for k, v in spills.items() if any(v)}
     if spilled:
         _fail(f"the colskip register path spills: {spilled}")
-    # 11. the card again, the timings, and the verdict as the last line
+    # 12. the card again, the timings, and the verdict as the last line
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

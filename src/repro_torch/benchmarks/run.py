@@ -24,9 +24,7 @@ import sys
 
 from repro_torch._device import resolve_device
 
-# Ten of the reference's eleven suites.  Not ported: hw_bench, which
-# tunes XLA flags and jax's persistent compilation cache, neither of
-# which has a counterpart in the port yet (ROADMAP Queue 1 item 12).
+# The reference's eleven suites (hw_bench without its XLA flag sweep).
 SUITES = [
     "repro_torch.benchmarks.fig6_speedup",
     "repro_torch.benchmarks.fig7_area_power",
@@ -38,6 +36,7 @@ SUITES = [
     "repro_torch.benchmarks.packed_bench",
     "repro_torch.benchmarks.streaming_bench",
     "repro_torch.benchmarks.distserve_bench",
+    "repro_torch.benchmarks.hw_bench",
 ]
 
 

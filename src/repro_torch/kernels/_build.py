@@ -11,6 +11,17 @@ beside its library as ``.log``.  :func:`build_all` starts one ``nvcc`` per
 library that is missing (or lacks its report), all at once, and waits for
 them; :func:`load` builds one library if it is missing and opens it.
 Nothing here runs at import time.
+
+The build directory is the port's persistent kernel-library cache, the
+counterpart of jax's persistent compilation cache: :func:`set_build_dir`
+repoints it at run time (the serving engine's ``compile_cache``), and
+every lookup reads :data:`BUILD_DIR` when it is called.  While a listener
+is set, :func:`load` reports each library it opens from that directory:
+``"hit"`` when the library was on disk (built by an earlier process) and
+``"miss"`` when ``nvcc`` built it in this process.  A library already
+open in the process is neither.  Builds write a temporary file and
+``os.replace`` it into place, so a process that reads the directory
+while another builds sees a whole library or none.
 """
 
 from __future__ import annotations
@@ -23,15 +34,30 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "load", "sources"]
+__all__ = ["BUILD_DIR", "DEFAULT_BUILD_DIR", "NVCC_FLAGS", "build_all",
+           "load", "set_build_dir", "sources"]
 
 PKG_DIR = Path(__file__).resolve().parents[1]          # src/repro_torch
-BUILD_DIR = PKG_DIR.parents[1] / "build" / "repro_torch"
+DEFAULT_BUILD_DIR = PKG_DIR.parents[1] / "build" / "repro_torch"
+BUILD_DIR = DEFAULT_BUILD_DIR     # where lookups go; see set_build_dir
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_built_here: set[Path] = set()    # libraries nvcc built in this process
+_listener = None                  # called with "hit" or "miss" by load
+
+
+def set_build_dir(path=None, listener=None) -> Path:
+    """Point every later lookup at ``path`` (None: the default
+    ``build/repro_torch/``) and set the lookup listener (None: none).
+    Libraries already open stay open.  Returns the directory."""
+    global BUILD_DIR, _listener
+    with _lock:
+        BUILD_DIR = Path(path) if path is not None else DEFAULT_BUILD_DIR
+        _listener = listener
+        return BUILD_DIR
 
 
 def sources() -> dict[str, Path]:
@@ -88,6 +114,7 @@ def build_all(names=None) -> dict[str, str]:
             tmp.with_suffix(".log").write_text(log)
             os.replace(tmp.with_suffix(".log"), out.with_suffix(".log"))
             os.replace(tmp, out)
+            _built_here.add(out)
             built[nm] = log
         else:
             tmp.unlink(missing_ok=True)
@@ -99,7 +126,8 @@ def build_all(names=None) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built first if it is missing."""
+    """The kernel library ``name``, built first if it is missing; the
+    listener hears whether it came from disk or from ``nvcc``."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -107,5 +135,7 @@ def load(name: str) -> ctypes.CDLL:
             if not path.exists():
                 build_all([name])
             lib = _libs[name] = ctypes.CDLL(str(path))
+            if _listener is not None:
+                _listener("miss" if path in _built_here else "hit")
         return lib
 

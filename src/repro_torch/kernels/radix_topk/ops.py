@@ -154,6 +154,8 @@ def threshold_sortable(u, k: int, *, device="cuda"):
 def radix_topk_threshold(x, k: int, *, device="cuda") -> torch.Tensor:
     """Sortable-uint32 threshold (k-th largest) per row of ``x`` (B, N)."""
     x = torch.as_tensor(x, device=resolve_device(device))
+    if x.device.type == "meta":
+        return torch.empty(x.shape[:-1], dtype=torch.uint32, device="meta")
     return threshold_f32(x.to(torch.float32), k)[0]
 
 
@@ -197,12 +199,24 @@ def _topk_rows(xf: torch.Tensor, k: int):
     return compact_topk(xf, to_sortable_uint(xf.to(torch.float32)), mask, k)
 
 
+def _meta_topk(x: torch.Tensor, k: int):
+    """``radix_topk``'s outputs for a ``meta`` input: shapes and dtypes
+    only.  ``meta`` holds no values and runs nothing (the dry-run traces
+    a step there), so this is no stand-in for the kernel: a ``cuda`` or
+    ``cpu`` input never comes here."""
+    shape = x.shape[:-1] + (k,)
+    return (torch.empty(shape, dtype=x.dtype, device="meta"),
+            torch.empty(shape, dtype=torch.int32, device="meta"))
+
+
 def radix_topk(x, k: int, *, bank_width: int = MAX_N, device="cuda"):
     """Top-k ``(values, indices)`` over the trailing axis, ``lax.top_k``
     semantics; rows wider than ``bank_width`` take the two-level bank
     reduction."""
     x = torch.as_tensor(x, device=resolve_device(device))
     orig_shape = x.shape
+    if x.device.type == "meta":
+        return _meta_topk(x, k)
     n = orig_shape[-1]
     xf = x.reshape(-1, n)
     b = xf.shape[0]

@@ -5,6 +5,8 @@
     PYTHONPATH=src python -m repro_torch.launch.sortserve --smoke --mesh --fuse 2
     PYTHONPATH=src python -m repro_torch.launch.sortserve --smoke \
         --replicas 2 --rolling-restart --warm-state warm.json
+    PYTHONPATH=src python -m repro_torch.launch.sortserve --smoke --mesh \
+        --fuse 2 --compile-cache DIR --hw-profile hwprofile.json
 
 The torch port of ``repro.launch.sortserve``.  Generates a seeded stream of
 sort / argsort / topk / kmin requests over uint32 / int32 / float32
@@ -15,9 +17,12 @@ oracle, and prints the aggregate telemetry (optionally to ``--json``).
 ``--mesh`` serves colskip tiles through the mesh bank pool (on the card
 the mesh kernel: a thread-block cluster a row, a CTA a bank); ``--replicas
 N`` through a fleet of N engine replicas behind a ``FleetRouter``, with
-``--warm-state`` and ``--rolling-restart``.  The hardware-profile and
-compile-cache flags of the reference (XLA flags and jax's persistent
-cache) have no counterpart yet.
+``--warm-state`` and ``--rolling-restart``.  ``--compile-cache DIR`` keeps
+the kernel libraries in ``DIR`` (a second process on the same directory
+builds none); ``--hw-profile`` applies a profile written by
+``repro_torch.benchmarks.hw_tune`` (routing priors, calibration rows, a
+compile-cache directory) and refuses one that carries XLA flags, which
+mean nothing here.
 """
 
 from __future__ import annotations
@@ -76,6 +81,36 @@ def check_against_oracle(req: SortRequest, resp) -> bool:
         if resp.values.dtype != req.payload.dtype:
             return False
     return True
+
+
+def apply_hw_profile(path: str) -> dict:
+    """Load a tuned-hardware profile (``repro_torch.benchmarks.hw_tune``,
+    or the reference's ``scripts/hw_tune.py``).
+
+    The profile's keys are the reference's: ``device_kind``, ``platform``,
+    ``xla_flags``, ``compile_cache``, ``priors`` (:meth:`CostPolicy.load_priors`
+    rows), ``calibration`` (:meth:`CalibrationTable.seed_rows` rows) and
+    ``sweep``.  XLA flags have no meaning in the port, and dropping them
+    would hide a tuned profile that does not apply, so a profile with any
+    raises :class:`ValueError` naming each flag.  Returns the profile for
+    the caller to wire up."""
+    with open(path) as f:
+        prof = json.load(f)
+    flags = list(prof.get("xla_flags") or [])
+    if flags:
+        raise ValueError(
+            f"hw profile {path} carries XLA flags {flags}: they tune XLA, "
+            "which the port does not run; write the profile with "
+            "repro_torch.benchmarks.hw_tune")
+    return prof
+
+
+def seed_from_profile(engine, profile: dict) -> tuple[int, int]:
+    """Seed ``engine``'s routing policy with the profile's ``priors`` and
+    its calibration table with the ``calibration`` rows; returns the
+    counts applied."""
+    return (engine.policy.load_priors(profile.get("priors", [])),
+            engine._calib.seed_rows(profile.get("calibration", [])))
 
 
 def _serve_fleet(args, router, reqs) -> int:
@@ -172,6 +207,13 @@ def main(argv=None):
                          "path (1-8; the card's kernel is built for 1, 2 "
                          "and 4); results are fuse-invariant, only "
                          "collectives.rounds changes")
+    ap.add_argument("--compile-cache", default="", dest="compile_cache",
+                    help="persistent kernel-library directory: CUDA "
+                         "libraries built once survive process restarts")
+    ap.add_argument("--hw-profile", default="", dest="hw_profile",
+                    help="tuned-hardware profile JSON from "
+                         "repro_torch.benchmarks.hw_tune (compile cache + "
+                         "routing/calibration priors; XLA flags refused)")
     ap.add_argument("--tile_rows", type=int, default=8)
     ap.add_argument("--banks", type=int, default=8)
     ap.add_argument("--bank_width", type=int, default=1024)
@@ -222,6 +264,15 @@ def main(argv=None):
     ap.add_argument("--snapshot-out", default="", dest="snapshot_out",
                     help="write the mergeable telemetry snapshot JSON here")
     args = ap.parse_args(argv)
+
+    profile = None
+    if args.hw_profile:
+        try:
+            profile = apply_hw_profile(args.hw_profile)
+        except ValueError as e:
+            ap.error(str(e))
+    compile_cache = args.compile_cache or (
+        profile.get("compile_cache") if profile else None) or None
 
     backends = tuple(s for s in args.backends.split(",") if s)
     if args.mesh_hosts > 1 and not args.mesh:
@@ -285,6 +336,7 @@ def main(argv=None):
         mesh=args.mesh,
         mesh_hosts=args.mesh_hosts,
         fuse=args.fuse,
+        compile_cache=compile_cache,
         packed=not args.dense,
         adaptive_policy=not args.static_policy,
         admission=admission,
@@ -316,6 +368,12 @@ def main(argv=None):
         print(f"warm state <- {args.warm_state} "
               f"({stats['signatures']} signatures, "
               f"{stats['priors']} priors, {stats['prewarmed']} prewarmed)")
+    if profile:
+        n_pri, n_cal = seed_from_profile(engine, profile)
+        print(f"hw profile: {args.hw_profile} "
+              f"(device_kind={profile.get('device_kind', '?')}, "
+              f"{len(profile.get('xla_flags', []))} xla flags, "
+              f"{n_pri} routing priors, {n_cal} calibration rows)")
     reqs = make_workload(args.requests, args.min_len, args.max_len, args.seed)
 
     if args.mesh:
@@ -369,6 +427,10 @@ def main(argv=None):
             print(f"mesh kernel: {ShardedColskipBackend.kernel_rounds} "
                   "exchange rounds on the tiles' slowest rows, of a static "
                   f"account of {ShardedColskipBackend.static_rounds}")
+    if compile_cache:
+        ec = telem["executor_cache"]
+        print(f"persistent cache: {ec['persistent_hits']} hits / "
+              f"{ec['persistent_misses']} misses -> {compile_cache}")
     print(f"scheduler drains: {telem['scheduler']['drains']}  "
           f"oversized waves: {telem['scheduler']['oversized_waves']}  "
           f"mid-wave admissions: {telem['scheduler']['mid_wave_admissions']}")

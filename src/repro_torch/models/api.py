@@ -17,7 +17,9 @@ it once the model is :meth:`~.transformer.LM.trainable`.  ``act_specs``
 layers, which then run expert-parallel over its ``model`` axis; the
 reference's ``shard_act`` constraints have no counterpart (each rank
 already holds its own data shard), so the other families take no part.
-The shape specs come with the tooling (ROADMAP Queue 1 item 6).
+:func:`input_specs`, :func:`cache_specs` and :func:`cache_kinds` give
+the reference's ``ShapeDtypeStruct`` specs as tensors on the ``meta``
+device (shapes and dtypes, no storage), for the dry-run.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.configs.base import ModelCfg
+from repro_torch.configs.base import ModelCfg, ShapeCell
+from . import blocks as B
 from . import hymba, rwkv6, transformer, whisper
 
 _MODULES = {"ssm": rwkv6, "hybrid": hymba, "encdec": whisper}
@@ -126,3 +129,77 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int, *, model=None,
     if cfg.family == "hybrid":
         return hymba.init_state(cfg, batch, max_len, device)
     return transformer.init_cache(cfg, batch, max_len, device=device)
+
+
+# ------------------------------------------------------------ input specs
+
+def _sds(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelCfg, cell: ShapeCell):
+    """Batch dict of ``meta`` tensors for (train|prefill) steps."""
+    b, s = cell.global_batch, cell.seq_len
+    batch = {}
+    if cfg.family == "encdec":
+        batch["frames"] = _sds((b, cfg.enc_ctx, cfg.d_model), torch.float32)
+        batch["tokens"] = _sds((b, s), torch.int32)
+    elif cfg.family == "vlm":
+        p = cfg.vision_patches
+        batch["tokens"] = _sds((b, s - p), torch.int32)
+        batch["patches"] = _sds((b, p, cfg.d_model), torch.float32)
+        batch["positions3"] = _sds((b, s, 3), torch.int32)
+    else:
+        batch["tokens"] = _sds((b, s), torch.int32)
+    return batch
+
+
+def cache_specs(cfg: ModelCfg, batch: int, max_len: int, quant: bool = False):
+    """``meta`` tensors of the decode state (KV cache of ``max_len``).
+
+    ``quant=True`` (transformer family): int8 cache + per-(slot, head) fp32
+    scales — the kv8 serving variant; its zeros made real are a kv8 cache
+    for :func:`decode_step`."""
+    dt = B.dtype_of(cfg)
+    L = cfg.n_layers
+    kv = (L, batch, max_len, cfg.n_kv, cfg.head_dim)
+    if quant and cfg.family in ("dense", "moe", "vlm"):
+        return {
+            "k": _sds(kv, torch.int8),
+            "v": _sds(kv, torch.int8),
+            "k_scale": _sds(kv[:4], torch.float32),
+            "v_scale": _sds(kv[:4], torch.float32),
+        }
+    if cfg.family == "ssm":
+        return {
+            "wkv": _sds((L, batch, cfg.n_heads, cfg.head_dim, cfg.head_dim),
+                        torch.float32),
+            "x_tm": _sds((L, batch, cfg.d_model), dt),
+            "x_cm": _sds((L, batch, cfg.d_model), dt),
+        }
+    if cfg.family == "hybrid":
+        di = cfg.ssm.expand * cfg.d_model
+        return {
+            "k": _sds(kv, dt),
+            "v": _sds(kv, dt),
+            "conv": _sds((L, batch, cfg.ssm.d_conv - 1, di), dt),
+            "ssm": _sds((L, batch, di, cfg.ssm.state_dim), torch.float32),
+        }
+    if cfg.family == "encdec":
+        xkv = (L, batch, cfg.enc_ctx, cfg.n_kv, cfg.head_dim)
+        return {"k": _sds(kv, dt), "v": _sds(kv, dt),
+                "xk": _sds(xkv, dt), "xv": _sds(xkv, dt)}
+    return {"k": _sds(kv, dt), "v": _sds(kv, dt)}
+
+
+def cache_kinds(cfg: ModelCfg, quant: bool = False):
+    """Map cache leaf name -> sharding kind (see dist.sharding.cache_spec)."""
+    if quant and cfg.family in ("dense", "moe", "vlm"):
+        return {"k": "kv", "v": "kv", "k_scale": "kvscale", "v_scale": "kvscale"}
+    if cfg.family == "ssm":
+        return {"wkv": "wkv", "x_tm": "vec", "x_cm": "vec"}
+    if cfg.family == "hybrid":
+        return {"k": "kv", "v": "kv", "conv": "conv", "ssm": "ssm"}
+    if cfg.family == "encdec":
+        return {"k": "kv", "v": "kv", "xk": "xkv", "xv": "xkv"}
+    return {"k": "kv", "v": "kv"}

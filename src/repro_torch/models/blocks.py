@@ -240,11 +240,41 @@ def sdpa(q, k, v, mask, cfg: ModelCfg):
 _BACKENDS = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
              SDPBackend.MATH]
 
+# The attention cost model of ``launch/analytic.py``: on the card a causal
+# attention is one flash kernel at every length (no switch by length, as
+# the reference's blockwise scan has from 2048 on), modelled as streaming
+# K/V once a query tile of 128 rows.  The reference's constants are 512
+# and 2048.
+FLASH_BLOCK = 128
+FLASH_MIN_SEQ = 1
+
+
+def fused_path(t: torch.Tensor) -> bool:
+    """Whether attention on ``t`` takes :func:`sdpa_fused`: on the card,
+    and on ``meta``, where the dry-run traces the card's step."""
+    return t.device.type in ("cuda", "meta")
+
+
+def _flash_shapes(q, k, v, causal):
+    """The flash kernel's op on ``meta`` (shapes only: the dry-run), whose
+    cost the FLOP counter knows; ``F.scaled_dot_product_attention``
+    lowers to its math backend there."""
+    h, kv = q.shape[2], k.shape[2]
+    if h != kv:       # GQA: the op takes H heads; meta has no values to copy
+        k = k.new_empty(k.shape[:2] + (h,) + k.shape[3:])
+        v = v.new_empty(v.shape[:2] + (h,) + v.shape[3:])
+    return torch.ops.aten._scaled_dot_product_flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), 0.0,
+        causal)[0].transpose(1, 2)
+
 
 def sdpa_fused(q, k, v, mask=None, causal=False):
     """:func:`sdpa` through ``F.scaled_dot_product_attention`` (CUDA
     tensors): ``mask`` (S, T) bool, True where a key is seen.  GQA maps
-    query head h on KV head h // (H / KV), as :func:`sdpa` does."""
+    query head h on KV head h // (H / KV), as :func:`sdpa` does.  On
+    ``meta`` an unmasked call is the flash kernel's op."""
+    if q.device.type == "meta" and mask is None:
+        return _flash_shapes(q, k, v, causal)
     with sdpa_kernel(_BACKENDS):
         out = F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -271,7 +301,7 @@ def attend(q, k, v, window: int, cfg: ModelCfg):
     :func:`sdpa` at every length."""
     s = q.shape[1]
     windowed = 0 < window < s
-    if q.device.type == "cuda":
+    if fused_path(q):
         if not windowed:
             return sdpa_fused(q, k, v, causal=True)
         return sdpa_fused(q, k, v, causal_mask(s, s, window,
@@ -283,7 +313,7 @@ def attend(q, k, v, window: int, cfg: ModelCfg):
 def _attend_cache(cfg, q, cache_k, cache_v, cache_len, window):
     """One query against cache slots [0, cache_len], window-clipped."""
     lo = 0 if window is None else max(0, cache_len - window + 1)
-    if q.device.type == "cuda":
+    if fused_path(q):
         return sdpa_fused(q, cache_k[:, lo:cache_len + 1],
                           cache_v[:, lo:cache_len + 1])
     kpos = torch.arange(cache_k.shape[1], device=q.device)

@@ -79,7 +79,7 @@ def _heads(cfg: ModelCfg, t, n):
 
 def _attention(cfg: ModelCfg, q, k, v):
     """Unmasked attention (the encoder's, the cross-attention)."""
-    if q.device.type == "cuda":
+    if B.fused_path(q):
         return B.sdpa_fused(q, k, v)
     return B.sdpa(q, k, v, None, cfg)
 

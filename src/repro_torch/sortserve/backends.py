@@ -81,9 +81,7 @@ class ExecutorCache:
     ``nvcc`` the first time in a checkout), so a miss is the port's
     analogue of the reference's AOT compile and a hit skips it.  The cache
     is process-global like the reference's; hit/miss counters feed the
-    serving telemetry.  The reference's persistent compilation-cache
-    layer has no counterpart here: :meth:`persistent_counters` reports
-    zeros only so every ``executor_cache.*`` key exists.
+    serving telemetry.
     """
 
     def __init__(self):
@@ -92,9 +90,38 @@ class ExecutorCache:
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        # the persistent layer underneath: an in-process miss whose kernel
+        # library is already in the compile-cache directory is a load, not
+        # an nvcc build — the split feeds executor_cache telemetry
+        self.persistent_hits = 0
+        self.persistent_misses = 0
+        self.persistent_dir: str | None = None
+
+    def enable_persistent(self, cache_dir) -> bool:
+        """Keep the kernel libraries in ``cache_dir``
+        (:func:`repro_torch.kernels._build.set_build_dir`).
+
+        Every library a launcher needs is then looked up there: one found
+        on disk is opened (a persistent hit), a missing one is built by
+        ``nvcc`` into it (a miss), so a fresh process pointed at the same
+        directory starts without a build.  Returns True.  Idempotent —
+        re-enabling only repoints the directory."""
+        from repro_torch.kernels import _build
+        _build.set_build_dir(cache_dir, self._on_cache_event)
+        self.persistent_dir = str(cache_dir)
+        return True
+
+    def _on_cache_event(self, event: str) -> None:
+        # one event per library opened from the compile-cache directory
+        with self._lock:
+            if event == "hit":
+                self.persistent_hits += 1
+            elif event == "miss":
+                self.persistent_misses += 1
 
     def persistent_counters(self) -> tuple[int, int]:
-        return 0, 0
+        with self._lock:
+            return self.persistent_hits, self.persistent_misses
 
     def get(self, key, build):
         """Return ``(launcher, warm)`` for ``key``, building on miss.

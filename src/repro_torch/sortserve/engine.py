@@ -5,10 +5,12 @@ backends run the port's kernels on ``EngineConfig.device`` (default
 ``"cuda"``; ``"cpu"`` runs the plain torch versions).  ``mesh=True``
 serves through :class:`~repro_torch.dist.bankmesh.MeshBankPool`, whose
 ``colskip_mesh`` backend runs the mesh kernel on the card (a thread-block
-cluster a row, a CTA a bank) and the plain mesh on the CPU.  The
-persistent compilation cache has no counterpart yet; asking for it raises
-:class:`NotImplementedError`.  :func:`config_from_reference` builds a
-config from the reference's.
+cluster a row, a CTA a bank) and the plain mesh on the CPU.
+``compile_cache=dir`` keeps the kernel libraries in ``dir``, the port's
+counterpart of jax's persistent compilation cache: a fresh process pointed
+at the same directory opens them instead of running ``nvcc``
+(``executor_cache.persistent_{hits,misses}``).  :func:`config_from_reference`
+builds a config from the reference's.
 
 The data path is session-shaped (the continuous core is the only core):
 
@@ -139,8 +141,7 @@ class EngineConfig:
                                     # mesh (the same banks, folded)
     fuse: int = 1                   # bit planes per fused manager round on
                                     # the mesh path (results fuse-invariant)
-    compile_cache: str | None = None  # persistent compile cache: no
-                                      # counterpart in the port yet
+    compile_cache: str | None = None  # persistent kernel-library cache dir
     cache_size: int = 1024          # result-cache entries (0 disables)
     packed: bool = True             # lane-packed masks in the §III machine
                                     # (False: the dense carrier)
@@ -176,10 +177,6 @@ class EngineConfig:
         if self.mesh_hosts > 1 and not self.mesh:
             raise ValueError("mesh_hosts > 1 needs mesh=True (the hosts "
                              "axis only exists on the mesh pool)")
-        if self.compile_cache:
-            raise NotImplementedError(
-                "compile_cache: the persistent compilation cache has no "
-                "counterpart in the port yet (ROADMAP Queue 1)")
         resolve_device(self.device)
 
 
@@ -207,6 +204,12 @@ class SortServeEngine:
         for name in ("colskip", "colskip_mesh", "radix_topk", "jaxsort"):
             kwargs[name] = {**kwargs.get(name, {})}
             kwargs[name].setdefault("device", self.config.device)
+        if self.config.compile_cache:
+            # persistent kernel-library cache under the executor cache:
+            # every library a launcher builds below lands on disk, and a
+            # fresh process pointed at the same directory opens it instead
+            # of running nvcc
+            EXECUTOR_CACHE.enable_persistent(self.config.compile_cache)
         if self.config.mesh:
             from repro_torch.dist.bankmesh import MeshBankPool
             self.pool = MeshBankPool(self.config.banks, self.config.bank_width,
@@ -660,8 +663,8 @@ class SortServeEngine:
 
     def _executor_cache_stats(self) -> dict:
         hits, misses = self._exec_stats["hits"], self._exec_stats["misses"]
-        # the persistent split has no counterpart in the port (always 0);
-        # kept so every executor_cache key of the reference exists
+        # the persistent split is process-global (like "size"): library
+        # lookups in the compile-cache directory; 0 while none is set
         p_hits, p_misses = EXECUTOR_CACHE.persistent_counters()
         return {"hits": hits, "misses": misses,
                 "prewarmed": self._exec_stats["prewarmed"],
@@ -1455,10 +1458,9 @@ def config_from_reference(d: dict, *, device="cuda") -> EngineConfig:
     Raises on what this slice does not support: unknown fields, a set
     ``use_pallas``/``interpret`` (Pallas switches), objects of the
     reference package in ``admission``/``tracer``/``slo``/``faults`` (build
-    the port's own and pass them to :class:`EngineConfig`), and the
-    compile-cache option, which has no counterpart yet
-    (:class:`NotImplementedError`).  ``mesh``, ``mesh_hosts`` and ``fuse``
-    cross as they are."""
+    the port's own and pass them to :class:`EngineConfig`).  ``mesh``,
+    ``mesh_hosts``, ``fuse`` and ``compile_cache`` (a directory, here of
+    kernel libraries) cross as they are."""
     d = dict(d)
     for name in _PALLAS_ONLY:
         value = d.pop(name, None)

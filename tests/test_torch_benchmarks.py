@@ -114,12 +114,12 @@ def test_runner_document_and_exit_code(tmp_path, capsys, monkeypatch):
 
 
 def test_runner_ports_eight_suites_and_asks_for_the_card(monkeypatch):
-    # eight suites at first; streaming and distserve since: ten of eleven
+    # eight suites at first; streaming and distserve, then hw: all eleven
     names = [m.rsplit(".", 1)[1] for m in bench_run.SUITES]
     assert names == ["fig6_speedup", "fig7_area_power", "fig8a_summary",
                      "fig8b_multibank", "kernel_bench", "serving_bench",
                      "sortserve_bench", "packed_bench", "streaming_bench",
-                     "distserve_bench"]
+                     "distserve_bench", "hw_bench"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         bench_run.main(["--only", "fig8a"])

@@ -52,7 +52,11 @@ for name in ("repro_torch.dist", "repro_torch.dist.bankmesh",
              "repro_torch.ckpt.manager", "repro_torch.launch.train",
              "repro_torch.dist._comm", "repro_torch.dist.compress",
              "repro_torch.dist.sharding", "repro_torch.dist.pipeline",
-             "repro_torch.core.distsort", "repro_torch.launch.mesh"):
+             "repro_torch.core.distsort", "repro_torch.launch.mesh",
+             "repro_torch.benchmarks.hw_bench",
+             "repro_torch.benchmarks.hw_tune",
+             "repro_torch.launch.analytic", "repro_torch.launch.roofline",
+             "repro_torch.launch.dryrun"):
     assert name in names, name
 print(len(names))
 """
@@ -91,6 +95,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from repro_torch.launch import train as launch_train
     from repro_torch.models import api
     from repro_torch.sortserve import EngineConfig
+    from repro_torch.benchmarks import hw_bench
+    import runpy
+    examples = {name: runpy.run_path(
+        str(ROOT / "examples" / "torch" / f"{name}.py"))["main"]
+        for name in ("sort_service", "trace_requests", "fleet_view")}
 
     x = np.arange(64, dtype=np.uint32).reshape(2, 32)
     xf = np.linspace(-1, 1, 64, dtype=np.float32).reshape(2, 32)
@@ -110,7 +119,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
                                     4),
              lambda: serve.main(["--smoke"]),
              lambda: train.init_state(get_config("gemma3-4b", smoke=True)),
-             lambda: launch_train.main(["--smoke", "--steps", "1"])]
+             lambda: launch_train.main(["--smoke", "--steps", "1"]),
+             lambda: hw_bench.worker_fused((1,), 1),
+             lambda: hw_bench.worker_persist("unused", 1),
+             *[lambda m=m: m([]) for m in examples.values()]]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()

@@ -95,3 +95,11 @@ def test_build_keeps_the_ptxas_report_beside_the_library(tmp_path,
     lib.with_suffix(".log").unlink()           # a library with no report
     assert _build.build_all() == first
     assert (tmp_path / "calls").read_text().count("call") == 2
+
+
+def test_persistent_counts_read_the_launcher_line(smoke):
+    out = ("oracle mismatches: 0\n"
+           "persistent cache: 2 hits / 0 misses -> /tmp/kc\nSMOKE OK\n")
+    assert smoke._persistent_counts(out) == (2, 0)
+    with pytest.raises(SystemExit):
+        smoke._persistent_counts("SMOKE OK\n")
