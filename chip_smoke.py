@@ -292,6 +292,19 @@ def register_path_spills(log: str) -> dict:
     return out
 
 
+def mesh_spills(log: str) -> dict:
+    """The mesh kernel instances that spill in an ``-Xptxas -v`` log: the
+    kernel and its template arguments (mangled) -> the spill line."""
+    lines = log.splitlines()
+    out = {}
+    for i, line in enumerate(lines[:-1]):
+        m = re.search(r"Function properties for \S*?\d(colskip_mesh"
+                      r"(?:_dense)?_kernel)I(\w+?)EEv", line)
+        if m and re.search(r"[1-9]\d* bytes spill", lines[i + 1]):
+            out[f"{m.group(1)}<{m.group(2)}>"] = lines[i + 1].strip()
+    return out
+
+
 def _host_ms(fn) -> float:
     """Host time of one call of ``fn()`` in ms (a plain version on the
     CPU)."""
@@ -518,6 +531,11 @@ def hold_radix(torch, np) -> int:
     return worst
 
 
+# fuse values held in phase 4 beside 1, 2 and 4: a ragged top block (3, 5)
+# and a pattern set of 8 words (8); phase 7 times these with 6 and 7
+MESH_NEW_FUSES = (3, 5, 8)
+
+
 def hold_mesh(torch, np) -> dict:
     """The mesh kernels (both carriers) against the local packed kernel
     (exact), the plain mesh of their carrier on the host (widths up to 256:
@@ -541,6 +559,13 @@ def hold_mesh(torch, np) -> dict:
                                         (8, 16, "uniform"),
                                         (2, 1, "mapreduce"))]
         cases.append((banks, 4, 2, banks * 4096, 2, 16, "uniform"))  # smem
+        # fuse 3 and 5 (a ragged top block) and 8 (a pattern set of 8
+        # words): lighter shapes, the full sorts at D x 256
+        for fuse in MESH_NEW_FUSES:
+            cases += [(banks, fuse, 8, banks * 32, 2, None, "mapreduce"),
+                      (banks, fuse, 4, banks * 256, 1, None, "uniform"),
+                      (banks, fuse, 3, banks * 2048, 8, 16, "normal"),
+                      (banks, fuse, 2, banks * 4096, 0, 1, "kruskal")]
     cases = [(packed,) + c for c in cases for packed in (True, False)]
     for packed, banks, fuse, b, n, k, stop, data in cases:
         x = _rows(data, b, n, 17 * banks + fuse + k)
@@ -560,7 +585,9 @@ def hold_mesh(torch, np) -> dict:
         if not 0 < rounds <= acct["rounds"]:
             _fail(f"mesh kernel made {rounds} rounds at {what}, static "
                   f"account {acct['rounds']}")
-        if n <= 256:
+        # the plain mesh on the host where it is quick (its speculative
+        # tree grows with 2^fuse)
+        if n <= 256 and (fuse <= 4 or s <= 64):
             worst[name] = max(worst[name], _hold(
                 f"mesh kernel != plain mesh at {what}", got[:4],
                 ref.sort_mesh_ref(torch.from_numpy(x), banks, 32, k, s,
@@ -571,9 +598,10 @@ def hold_mesh(torch, np) -> dict:
                         f"mesh kernel at {what}")
     print(f"colskip mesh kernels (packed, dense) == local packed kernel (and "
           f"plain mesh at N <= 256, numpy model on uniform rows): "
-          f"{len(cases)} cases, D in {{2, 4, 8}}, fuse in {{1, 2, 4}}, k in "
-          "{0, 2, 8}, stop_after in {1, 16, N}, N up to D x 4096; rounds "
-          "within the static account")
+          f"{len(cases)} cases, D in {{2, 4, 8}}, fuse in "
+          f"{sorted((1, 2, 4) + MESH_NEW_FUSES)}, k in {{0, 1, 2, 8}}, "
+          "stop_after in {1, 16, N}, N up to D x 4096; rounds within the "
+          "static account")
     return worst
 
 
@@ -613,24 +641,25 @@ def serve(torch) -> dict:
     return launches
 
 
-def serve_mesh(torch, dense: bool = False) -> dict:
-    """The smoke workload through ``--mesh --fuse 2`` (``--dense``: on the
+def serve_mesh(torch, dense: bool = False, fuse: int = 2) -> dict:
+    """The smoke workload through ``--mesh --fuse F`` (``--dense``: on the
     dense carrier): the mesh kernel's launches (and the local fallback's),
     the collectives section and the kernel's own rounds beside the static
-    account."""
+    account; at F = 2 on the packed carrier also the double buffer."""
     from repro_torch.kernels.colskip import ops as colskip_ops
     from repro_torch.kernels.radix_topk import ops as radix_ops
     from repro_torch.launch import sortserve
     from repro_torch.sortserve.backends import ShardedColskipBackend
     out = ROOT / "build" / "chip_smoke"
     out.mkdir(parents=True, exist_ok=True)
-    label = "dense mesh" if dense else "mesh"
+    label = ("dense mesh" if dense else "mesh") + (
+        "" if fuse == 2 else f" fuse {fuse}")
     telem_path = out / f"{label.replace(' ', '_')}_telemetry.json"
     colskip_ops.reset_launches()
     radix_ops.reset_launches()
     t0 = time.perf_counter()
     rc = sortserve.main(["--smoke", "--device", "cuda", "--mesh", "--fuse",
-                         "2", "--requests", "200", "--min_len", "64",
+                         str(fuse), "--requests", "200", "--min_len", "64",
                          "--max_len", "4096", "--seed", "0",
                          "--sim_width_cap", "2048", "--json", str(telem_path)]
                         + (["--dense"] if dense else []))
@@ -660,7 +689,11 @@ def serve_mesh(torch, dense: bool = False) -> dict:
           f"{rounds['static']}")
     if launches[kernel] <= 0 or launches["radix_threshold"] <= 0:
         _fail(f"the {label} smoke launched {launches}")
-    if dense:
+    if telem["verify_failures"]:
+        _fail(f"the {label} smoke: {telem['verify_failures']} mismatches")
+    if not 0 < rounds["kernel"] <= rounds["static"]:
+        _fail(f"{label} kernel rounds {rounds} over the static account")
+    if dense or fuse != 2:
         return launches
     # the double buffer on the card: six whole-pool tiles arrive at vt 0,
     # so each admit after the first stages its successor's copy on the
@@ -823,9 +856,9 @@ def bench(torch) -> dict:
 def measure_mesh(torch, np, mesh_launches: int, err: int,
                  packed: bool = True) -> dict:
     """The carrier's mesh kernel row: (8, 2048) uniform at D in {2, 4, 8} x
-    fuse in {1, 2, 4} beside the carrier's local kernel on the same tile;
-    the row's own numbers at D = 4, fuse = 2 (the ``--mesh --fuse 2``
-    smoke's)."""
+    fuse in {1, 2, 4}, and at D = 4 x fuse in {3, 5, 6, 7, 8}, beside the
+    carrier's local kernel on the same tile; the row's own numbers at
+    D = 4, fuse = 2 (the ``--mesh --fuse 2`` smoke's)."""
     from repro_torch.dist.bankmesh import collective_rounds
     from repro_torch.kernels.colskip import ops, ref
     dev = torch.device("cuda")
@@ -860,6 +893,28 @@ def measure_mesh(torch, np, mesh_launches: int, err: int,
                   f"slowest row "
                   f"(static account {table[-1]['static_rounds']}); one "
                   f"cross-bank round {round_ns:.1f} ns")
+    # every other fuse at D = 4 (the packed row beside row 1c)
+    chain_ms = _time_ms(lambda: ops.mesh_chain(MESH_ROUNDS, 4), 3)
+    round_ns = chain_ms * 1e6 / MESH_ROUNDS
+    for fuse in (3, 5, 6, 7, 8):
+        out = ops.colskip_sort_mesh_batched(x, 4, w, k, fuse=fuse,
+                                            packed=packed, return_rounds=True)
+        err = max(err, _hold(f"{name} D=4 fuse={fuse} != local kernel",
+                             out[:4], ops.colskip_sort_batched(x, w, k)))
+        ms = _time_ms(lambda: ops.colskip_sort_mesh_batched(
+            x, 4, w, k, fuse=fuse, packed=packed), 5)
+        rounds = int(out[4].max())
+        table.append({"banks": 4, "fuse": fuse, "ms": ms,
+                      "rounds_max_row": rounds,
+                      "static_rounds": collective_rounds(w, n, fuse)[
+                          "rounds"],
+                      "round_ns": round_ns,
+                      "bound_ms": searches * round_ns * 1e-6,
+                      "chain_ms": rounds * round_ns * 1e-6})
+        print(f"{name} D=4 fuse={fuse}: {ms:.4f} ms at ({b}, {n}) uniform; "
+              f"{rounds} exchange rounds on the slowest row (static account "
+              f"{table[-1]['static_rounds']}); one cross-bank round "
+              f"{round_ns:.1f} ns")
     main = next(r for r in table if r["banks"] == 4 and r["fuse"] == 2)
     plain_ms = _host_ms(lambda: ref.sort_mesh_ref(x.cpu(), 4, w, k, fuse=2,
                                                   packed=packed))
@@ -2545,6 +2600,124 @@ def _pipeline(torch, mesh) -> dict:
             "steps": PIPE_M + n - 1, "staged_through_host": mesh.staged}
 
 
+# (f) expert-parallel training: granite-moe-3b-a800m at full width on the
+# (data 2, model 2) mesh, each rank its 24 experts, cut to EPT_LAYERS of its
+# 32 layers (four ranks share the card: at full depth a rank holds some
+# 2.2 B parameters, about 37 GB with float32 master, m, v and grads) and
+# to EPT_BATCH sequences of EPT_SEQ tokens, in float32 with TF32 off.  The
+# step's loss and the grads of EPT_LEAVES against the same ranks' plain
+# data-parallel grads (every expert on every rank; no optimizer): the loss
+# within EPT_LOSS_REL, each grad's difference within EPT_GRAD_REL of its
+# norm.  The psum adds each rank's experts' sums where one rank sums them
+# all in another order, so later layers' routers see inputs an ulp apart,
+# and a token whose 8th and 9th experts are that close may route apart
+EPT_LAYERS, EPT_BATCH, EPT_SEQ = 4, 4, 512
+EPT_LEAVES = ("embed", "blocks.0.attn.wq", "blocks.0.moe.router",
+              "blocks.3.moe.down", "final_norm.scale")
+EPT_LOSS_REL, EPT_GRAD_REL = 1e-4, 1e-2
+# (g) the §IV bank mesh over the ranks: a (2, 256) uniform tile, 4 banks
+# of 64 columns, stop_after 16, fuse 4, k = 2, exact against the plain
+# mesh on the host
+BMR_TILE, BMR_STOP, BMR_FUSE = (2, 256), 16, 4
+
+
+def _ep_training(torch, np, mesh) -> dict:
+    """(f): one expert-parallel train step (``make_dp_train_step`` on the
+    (data, model) mesh) against the plain data-parallel grads."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.dist import _comm
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    from repro_torch.models import api, moe
+    from repro_torch.train import init_dp_state, loop, make_dp_train_step
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=EPT_LAYERS,
+                              dtype="float32")
+    dev = mesh.device
+    g = torch.Generator(device="cpu").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (EPT_BATCH, EPT_SEQ),
+                           generator=g).to(dev)
+    state = init_dp_state(cfg, 0, mesh)
+    got = {}
+    update = loop.adamw_update
+
+    def capture(params, grads, opt, **kw):
+        got.update({k: grads[k].detach().clone() for k in EPT_LEAVES})
+        return update(params, grads, opt, **kw)
+
+    step = make_dp_train_step(cfg, mesh)
+    loop.adamw_update = capture
+    try:
+        torch.cuda.synchronize()
+        radix_ops.reset_launches()
+        _comm.reset_collectives()
+        t0 = time.perf_counter()
+        state, m = step(state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        loop.adamw_update = update
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "step_ms": step_ms, "radix_launches": radix_ops.launches,
+           "collectives": _comm.collectives,
+           "collective_host_ms": _comm.collective_s * 1e3,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated(dev) / 2**30}
+    lo, count = moe.expert_slice(cfg, mesh)
+    del state, step
+    torch.cuda.empty_cache()
+    # the plain data-parallel grads of the same data: every rank every
+    # expert, the same initial weights (no optimizer state)
+    plain = api.init(cfg, seed=0, device=dev).trainable(True)
+    d, n = _comm.axis_index(mesh, "data"), mesh.shape["data"]
+    rows = EPT_BATCH // n
+    loss, _, grads = loop._grads(cfg, plain, {"tokens":
+                                              tokens[d * rows:(d + 1) * rows]})
+    loss = _comm.pmean(loss, mesh, "data")
+    out["plain_loss"] = float(loss)
+    out["loss_rel"] = abs(out["loss"] - out["plain_loss"]) / abs(
+        out["plain_loss"])
+    rel = {}
+    for k in EPT_LEAVES:
+        want = _comm.pmean(grads[k], mesh, "data")
+        if got[k].shape != want.shape:            # this rank's experts
+            want = want[lo:lo + count]
+        diff = float((got[k] - want).norm())
+        rel[k] = diff / float(want.norm()) if diff else 0.0
+    out["grad_rel"] = rel
+    del plain, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bank_mesh_ranks(torch, np, mesh) -> dict:
+    """(g): one tile through ``sharded_tile_fn``, a bank a rank, against
+    the plain mesh on the host."""
+    from repro_torch.dist import _comm
+    from repro_torch.dist.bankmesh import collective_rounds, sharded_tile_fn
+    from repro_torch.kernels.colskip.ref import sort_mesh_ref
+    x = torch.from_numpy(_rows("uniform", *BMR_TILE, 23))
+    banks = mesh.shape["banks"]
+    fn = sharded_tile_fn(mesh, "banks", 32, 2, BMR_STOP, True, BMR_FUSE)
+    _comm.reset_collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn(x.to(mesh.device))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = sort_mesh_ref(x, banks, 32, 2, BMR_STOP, fuse=BMR_FUSE)
+    err = max(_max_err(g.cpu(), w) for g, w in zip(got, want))
+    if err:
+        raise AssertionError(f"the bank mesh over ranks != the plain mesh: "
+                             f"{err}")
+    account = collective_rounds(32, BMR_STOP, BMR_FUSE)["rounds"]
+    if not 0 < _comm.collectives <= account:
+        raise AssertionError(f"{_comm.collectives} collectives, static "
+                             f"account {account}")
+    return {"ms": ms, "collectives": _comm.collectives, "account": account,
+            "collective_host_ms": _comm.collective_s * 1e3,
+            "max_abs_err": err, "device": str(got[0].device)}
+
+
 def _phase10_rank(rank):
     """Phase 10 on one rank of a gloo group on the card: (a) to (d)."""
     import numpy as np
@@ -2572,6 +2745,15 @@ def _phase10_rank(rank):
     out["pipeline"] = _pipeline(torch, make_mesh((DIST_WORLD,), ("stage",),
                                                  device=DIST_DEVICE))
     out["pipeline_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["ep_train"] = _ep_training(torch, np, make_mesh(
+        EP_MESH, ("data", "model"), device=DIST_DEVICE))
+    out["ep_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["bank_mesh"] = _bank_mesh_ranks(torch, np, make_mesh(
+        (DIST_WORLD,), ("banks",), device=DIST_DEVICE))
+    out["bank_mesh_s"] = time.perf_counter() - t0
     return out
 
 
@@ -2764,6 +2946,33 @@ def run_distribution(torch, np, card) -> dict:
           f"microbatches of {PIPE_MB + (PIPE_D,)}: {pipe['ms']:.3f} ms, "
           f"{pipe['steps']} steps, {pipe['collectives']} collectives, max "
           f"abs err {pipe['max_abs_err']:.3g} (bar {PIPE_TOL})")
+    for r in ranks:
+        e = r["ep_train"]
+        print(f"{card}: phase 10 (f) {TRAIN_ARCH} expert-parallel train "
+              f"step, rank {r['rank']} of (data, model) {EP_MESH}, "
+              f"{EPT_LAYERS} of 32 layers, B {EPT_BATCH} x S {EPT_SEQ}, "
+              f"float32: {e['step_ms']:.3f} ms, {e['collectives']} "
+              f"collectives staged through the host in "
+              f"{e['collective_host_ms']:.3f} ms; radix launches "
+              f"{e['radix_launches']}; loss {e['loss']:.6f} against the "
+              f"plain DP step's {e['plain_loss']:.6f} ({e['loss_rel']:.3g}, "
+              f"bar {EPT_LOSS_REL}); grads against the plain DP step's "
+              f"(norm of the difference over the norm, bar {EPT_GRAD_REL}):"
+              f" {json.dumps({k: round(v, 8) for k, v in e['grad_rel'].items()})}"
+              f"; max_memory_allocated {e['max_memory_allocated_gib']:.3f} "
+              "GiB")
+        if (e["radix_launches"] <= 0 or e["loss_rel"] > EPT_LOSS_REL
+                or max(e["grad_rel"].values()) > EPT_GRAD_REL):
+            _fail(f"phase 10 (f) on rank {r['rank']}: {e}")
+    for r in ranks:
+        b = r["bank_mesh"]
+        print(f"{card}: phase 10 (g) the bank mesh over ranks, rank "
+              f"{r['rank']} ({b['device']}): {BMR_TILE} uniform, "
+              f"{DIST_WORLD} banks, stop_after {BMR_STOP}, fuse "
+              f"{BMR_FUSE}: exact against the plain mesh, "
+              f"{b['collectives']} collectives (static account "
+              f"{b['account']}), {b['ms']:.3f} ms, of it "
+              f"{b['collective_host_ms']:.3f} ms staged collectives")
     t0 = time.perf_counter()
     nccl = spawn(_phase10_nccl, 1, backend="nccl", device=DIST_DEVICE,
                  timeout_s=300)[0]
@@ -2774,7 +2983,9 @@ def run_distribution(torch, np, card) -> dict:
           "nothing across cards is measured (one card)")
     print(f"phase 10 ranks: {spawn_s:.1f} s (rank 0: (a) "
           f"{r0['selection_s']:.1f}, (b) {r0['ep_s']:.1f}, (c) "
-          f"{r0['dp_s']:.1f}, (d) {r0['pipeline_s']:.1f}); (e) {nccl_s:.1f} s")
+          f"{r0['dp_s']:.1f}, (d) {r0['pipeline_s']:.1f}, (f) "
+          f"{r0['ep_train_s']:.1f}, (g) {r0['bank_mesh_s']:.1f}); (e) "
+          f"{nccl_s:.1f} s")
     path = {k: dict(v, x=v["x"].to(DIST_DEVICE),
                     kernel=[(x.to(DIST_DEVICE), kk) for x, kk in v["kernel"]])
             for k, v in ep[0]["path"].items()}
@@ -2930,13 +3141,15 @@ def dryrun_beside_training(train: dict) -> dict:
     # card's step in phase 9 ran 2
     print(f"dry-run {arch} {shape} on meta (a device of 16 x 16, "
           f"{rec['trace_s']} s): compute {rl['t_compute'] * 1e3:.3f} ms, "
-          f"memory {rl['t_memory'] * 1e3:.3f} ms a device's 4,096 tokens "
+          f"memory {rl['t_memory'] * 1e3:.3f} ms, collectives "
+          f"{rl['t_collective'] * 1e3:.3f} ms ({rec['collectives']['total']}"
+          f" B a device, a model) a device's 4,096 tokens "
           f"({rl['bottleneck']}-bound, useful {rl['useful_ratio']:.3f}); "
           f"twice that, {2e3 * max(rl['t_compute'], rl['t_memory']):.3f} "
           f"ms, beside phase 9's measured {step:.3f} ms for 2 x 4,096 "
           f"tokens; args {rec['mem']['args_gb']} GiB a device")
     return {k: rec[k] for k in ("roofline", "mem", "microbatches",
-                                "trace_s")}
+                                "trace_s", "collectives")}
 
 
 def measure_hw_mesh(torch, np, hw_launches: int) -> dict:
@@ -3031,10 +3244,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     for name, log in sorted(logs.items()):
         print(f"--- nvcc -Xptxas -v: {name}\n{log.strip()}")
-    mesh_spills = [line.strip() for line in
-                   logs.get("colskip_mesh", "").splitlines()
-                   if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
-    print(f"colskip_mesh instances that spill: {mesh_spills or 'none'}")
+    print(f"colskip_mesh instances that spill: "
+          f"{mesh_spills(logs.get('colskip_mesh', '')) or 'none'}")
     spills = register_path_spills(logs.get("colskip", ""))
     print(f"colskip register-path spills (stores, loads): "
           f"{json.dumps(spills)}")
@@ -3058,6 +3269,7 @@ def main() -> int:
     launches = serve(torch)
     t0 = time.perf_counter()
     mesh_launches = {**serve_mesh(torch), **serve_mesh(torch, dense=True)}
+    serve_mesh(torch, fuse=3)          # a ragged top block of planes
     serve_fleet(torch)
     print(f"phase 5 (mesh and fleet smokes) took "
           f"{time.perf_counter() - t0:.1f} s")

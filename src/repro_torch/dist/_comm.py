@@ -24,6 +24,19 @@ through the host explicitly (``Mesh.staged``); ``nccl`` takes them
 directly.  ``collectives`` counts the calls that communicated, and
 ``collective_s`` their host time, since import or
 :func:`reset_collectives`.
+
+Three of them carry a backward for autograd, the pair that a layer
+computed in parts over an axis needs (Megatron's f and g) and the mean
+of a loss term:
+
+  * :func:`copy_to` is the identity, and its backward a ``psum``: an input
+    replicated over the axis that each rank uses for only its part of the
+    work gets the sum of the parts' gradients;
+  * :func:`psum_replicated` is a ``psum`` whose backward passes the
+    cotangent through, which every rank already holds whole;
+  * :func:`pmean_replicated` is a ``pmean`` whose backward passes the
+    cotangent through: each rank's gradient is its own term's, and a data
+    parallel step's ``pmean`` of the grads makes the mean.
 """
 
 from __future__ import annotations
@@ -36,8 +49,9 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 __all__ = ["AbstractMesh", "Mesh", "all_gather", "axis_index", "axis_size",
-           "collective_s", "collectives", "pmax", "pmean", "pmin",
-           "ppermute", "psum", "reset_collectives"]
+           "collective_s", "collectives", "copy_to", "pmax", "pmean",
+           "pmean_replicated", "pmin", "ppermute", "psum",
+           "psum_replicated", "reset_collectives"]
 
 collectives = 0
 collective_s = 0.0
@@ -166,6 +180,50 @@ def _reduce(x, mesh, axis, op):
 def psum(x: torch.Tensor, mesh, axis) -> torch.Tensor:
     """Sum over ``axis``, on every rank of the group."""
     return _reduce(x, mesh, axis, dist.ReduceOp.SUM)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.mesh, ctx.axis), None, None
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, mean):
+        return pmean(x, mesh, axis) if mean else psum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def copy_to(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """``x`` itself; under autograd its gradient is ``psum``-ed over
+    ``axis`` (one collective a backward)."""
+    if axis_size(mesh, axis) == 1 or not torch.is_grad_enabled():
+        return x
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def psum_replicated(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """:func:`psum`; under autograd the cotangent, replicated over
+    ``axis``, passes through."""
+    if not torch.is_grad_enabled():
+        return psum(x, mesh, axis)
+    return _Replicated.apply(x, mesh, axis, False)
+
+
+def pmean_replicated(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """:func:`pmean`; under autograd the cotangent passes through."""
+    if not torch.is_grad_enabled():
+        return pmean(x, mesh, axis)
+    return _Replicated.apply(x, mesh, axis, True)
 
 
 def pmax(x: torch.Tensor, mesh, axis) -> torch.Tensor:

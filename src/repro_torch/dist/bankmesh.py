@@ -22,7 +22,11 @@ a cluster of ``D`` CTAs a row, the gates a distributed-shared-memory
 exchange behind a cluster barrier), and on the CPU the bank-stacked rows
 of the plain machine (:func:`repro_torch.kernels.colskip.ref.sort_mesh_ref`).
 A mesh has 1 to 8 banks (the portable cluster size), 4 by default, the
-topology the reference's parity tests force on the CPU.
+topology the reference's parity tests force on the CPU.  The reference's
+own realization, one bank a process with the gates as collectives, is
+:func:`_colskip_tile_local` over the ranks of a
+:class:`repro_torch.dist._comm.Mesh` (:func:`sharded_tile_fn`): a
+distributed path, not the serving one.
 
 Because §V.C's result — bank management never changes the cycle count —
 holds for either realization, :class:`MeshBankPool` telemetry is
@@ -43,12 +47,15 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.core.bitmatrix import as_words, to_uint32
+from repro_torch.dist import _comm
 from repro_torch.kernels.colskip import ops as colskip_ops
+from repro_torch.kernels.colskip.ref import colskip_machine
 from repro_torch.sortserve.scheduler import BankPool
 
 __all__ = ["DEFAULT_BANKS", "MAX_BANKS", "BankMesh", "MeshBankPool",
            "collective_rounds", "colskip_sort_mesh", "make_bank_mesh",
-           "topology_fingerprint"]
+           "sharded_tile_fn", "topology_fingerprint"]
 
 DEFAULT_BANKS = 4       # the reference's parity topology (4 host devices)
 MAX_BANKS = 8           # the portable thread-block cluster size
@@ -164,9 +171,9 @@ def colskip_sort_mesh(x, mesh: BankMesh, *, w: int = 32, k: int = 2,
     tuple); callers fall back to one bank otherwise.  ``packed`` selects
     the mask carrier inside each bank; ``fuse`` batches that many bit
     planes per manager round (results are fuse-invariant).  On the card
-    the carrier's mesh kernel runs (``fuse`` in
-    :data:`repro_torch.kernels.colskip.ops.MESH_FUSES`; another raises
-    :class:`NotImplementedError`), on the CPU the plain mesh.
+    the carrier's mesh kernel runs (``fuse`` in 1 to 8, as
+    :data:`repro_torch.kernels.colskip.ops.MESH_FUSES`), on the CPU the
+    plain mesh.
     ``return_rounds=True`` adds the (B,) cross-bank exchanges each row
     made on the kernel (None on the CPU).
     """
@@ -180,6 +187,77 @@ def colskip_sort_mesh(x, mesh: BankMesh, *, w: int = 32, k: int = 2,
     return colskip_ops.colskip_sort_mesh_batched(
         x, nbanks, w, k, stop_after=stop, packed=packed, fuse=fuse,
         device=mesh.device, return_rounds=return_rounds)
+
+
+def _colskip_tile_local(u_local, mesh, *, w: int, k: int, stop: int,
+                        axis_name, packed: bool = True, fuse: int = 1):
+    """This rank's bank of the sharded sort: the reference's
+    ``_colskip_tile_local`` (``repro/dist/bankmesh.py:126-181``), one bank a
+    process of ``mesh`` (a :class:`repro_torch.dist._comm.Mesh`).
+
+    ``u_local``: (TB, N_local), this bank's column shard of the tile.  The
+    §III machine is the port's plain
+    :func:`~repro_torch.kernels.colskip.ref.colskip_machine`; the manager's
+    combine points are collectives over the bank axes (``("banks",)`` or
+    ``("hosts", "banks")``): ``or_any`` a ``psum`` of the predicate bits
+    (one a fused block, one a load), ``drain_counts`` an ``all_gather`` of
+    the survivor counts with the bank-major prefix, and two ``psum``s
+    assemble the output.  Returns ``(values (TB, stop) uint32, order (TB,
+    stop) int32, crs (TB,) int32, cycles (TB,) int32)`` on every bank,
+    bit-identical to the local machine."""
+    u = as_words(torch.as_tensor(u_local))
+    tb, n_loc = u.shape
+    axes = _axes_tuple(axis_name)
+    nbanks = _comm.axis_size(mesh, axes)
+    bank = _comm.axis_index(mesh, axes)
+    stop = min(stop, n_loc * nbanks)
+    dev = u.device
+
+    def or_any(local_bits):
+        return _comm.psum(local_bits.to(torch.int32), mesh, axes) > 0
+
+    def drain_counts(m_local):
+        m_all = _comm.all_gather(m_local, mesh, axes)            # (C, TB)
+        ahead = torch.arange(nbanks, device=dev)[:, None] < bank
+        return m_all.sum(0), torch.where(ahead, m_all, 0).sum(0)
+
+    sorted_mask, out_pos, crs, drains = colskip_machine(
+        u, w, k, stop, or_any=or_any, drain_counts=drain_counts,
+        packed=packed, fuse=fuse)
+    # each bank scatters its drained elements into the global (TB, stop)
+    # result (zeros elsewhere, a spare column for the undrained); a psum
+    # assembles it on every bank
+    pos = torch.where(sorted_mask, out_pos, stop)
+    cols = bank * n_loc + torch.arange(n_loc, device=dev).expand(tb, n_loc)
+    order = torch.zeros((tb, stop + 1), dtype=torch.int64, device=dev)
+    vals = torch.zeros((tb, stop + 1), dtype=torch.int64, device=dev)
+    order = _comm.psum(order.scatter_(1, pos, cols)[:, :stop], mesh, axes)
+    vals = _comm.psum(vals.scatter_(1, pos, u)[:, :stop], mesh, axes)
+    return (to_uint32(vals), order.to(torch.int32), crs.to(torch.int32),
+            (crs + drains).to(torch.int32))
+
+
+def sharded_tile_fn(mesh, axis_name, w: int, k: int, stop: int,
+                    packed: bool, fuse: int = 1):
+    """The sharded tile body over the ranks of ``mesh``: the reference's
+    ``sharded_tile_fn``.  Returns ``fn(x)`` for every rank to call with the
+    whole (B, N) tile; each rank takes its contiguous column shard (its
+    index on ``axis_name``, one axis or the 2-axis hosts tuple) and runs
+    :func:`_colskip_tile_local`.  ``fn`` returns the replicated outputs."""
+    axes = _axes_tuple(axis_name)
+
+    def fn(x):
+        x = torch.as_tensor(x, device=mesh.device)
+        n = x.shape[1]
+        nbanks = _comm.axis_size(mesh, axes)
+        if n % nbanks:
+            raise ValueError(f"N={n} not divisible over {nbanks} mesh banks")
+        n_loc = n // nbanks
+        i = _comm.axis_index(mesh, axes)
+        return _colskip_tile_local(x[:, i * n_loc:(i + 1) * n_loc], mesh,
+                                   w=w, k=k, stop=stop, axis_name=axes,
+                                   packed=packed, fuse=fuse)
+    return fn
 
 
 class MeshBankPool(BankPool):

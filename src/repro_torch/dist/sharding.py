@@ -31,7 +31,8 @@ under the reference's paths with their layers stacked on a leading L axis
 leaf.  Only shapes are read, so a model built on ``device="meta"`` (no
 storage) will do.  An impossible axis size (``2**62``) turns an axis off
 through rule 1.  No FSDP runtime uses these specs yet; the rules are the
-placement a runtime would follow.
+placement a runtime would follow, and the dry-run's collective bytes
+(``launch/dryrun.py``) are those of a runtime that follows them.
 """
 
 from __future__ import annotations

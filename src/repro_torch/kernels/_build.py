@@ -9,7 +9,10 @@ of the checkout; an edited source therefore rebuilds, an unchanged one
 loads.  The compiler's report (``-Xptxas -v``: registers, spills) is kept
 beside its library as ``.log``.  :func:`build_all` starts one ``nvcc`` per
 library that is missing (or lacks its report), all at once, and waits for
-them; :func:`load` builds one library if it is missing and opens it.
+them; :func:`load` builds one library if it is missing and opens it.  A
+library listed in :data:`PARTS` builds as that many objects side by side
+(``nvcc -c`` with ``-D<NAME>_PARTS=n -D<NAME>_PART=p``, each holding its
+share of the source's template instances) linked into one library.
 Nothing here runs at import time.
 
 The build directory is the port's persistent kernel-library cache, the
@@ -34,14 +37,17 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "DEFAULT_BUILD_DIR", "NVCC_FLAGS", "build_all",
-           "load", "set_build_dir", "sources"]
+__all__ = ["BUILD_DIR", "DEFAULT_BUILD_DIR", "NVCC_FLAGS", "PARTS",
+           "build_all", "load", "set_build_dir", "sources"]
 
 PKG_DIR = Path(__file__).resolve().parents[1]          # src/repro_torch
 DEFAULT_BUILD_DIR = PKG_DIR.parents[1] / "build" / "repro_torch"
 BUILD_DIR = DEFAULT_BUILD_DIR     # where lookups go; see set_build_dir
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+# libraries built as several objects side by side: the mesh kernels'
+# instances at fuse 1 to 8 take minutes of one nvcc
+PARTS = {"colskip_mesh": 8}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -80,7 +86,24 @@ def _lib_path(src: Path) -> Path:
     for hdr in sorted(PKG_DIR.rglob("csrc/*.cuh")):
         h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(str(PARTS.get(src.stem, 1)).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def _commands(name: str, src: Path, tmp: Path) -> tuple:
+    """The ``nvcc`` commands that build ``src`` into ``tmp``, to run side
+    by side, and the objects they leave for the link (none: they build the
+    library itself)."""
+    inc = ["-I", str(src.parent)]
+    parts = PARTS.get(name, 1)
+    if parts == 1:
+        return [[_nvcc(), *NVCC_FLAGS, *inc, "-o", str(tmp), str(src)]], []
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    macro = name.upper()
+    objs = [tmp.with_suffix(f".{p}.o") for p in range(parts)]
+    return [[_nvcc(), *flags, "-c", f"-D{macro}_PARTS={parts}",
+             f"-D{macro}_PART={p}", *inc, "-o", str(o), str(src)]
+            for p, o in enumerate(objs)], objs
 
 
 def build_all(names=None) -> dict[str, str]:
@@ -102,15 +125,23 @@ def build_all(names=None) -> dict[str, str]:
             built[nm] = out.with_suffix(".log").read_text()
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        inc = str(srcs[nm].parent)
-        procs[nm] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-I", inc, "-o", str(tmp), str(srcs[nm])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, out)
+        cmds, objs = _commands(nm, srcs[nm], tmp)
+        procs[nm] = ([subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for cmd in cmds], objs, tmp, out)
     failed = {}
-    for nm, (proc, tmp, out) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode == 0:
+    for nm, (running, objs, tmp, out) in procs.items():
+        log = "".join(proc.communicate()[0] for proc in running)
+        ok = all(proc.returncode == 0 for proc in running)
+        if ok and objs:
+            link = subprocess.run(
+                [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            log += link.stdout
+            ok = link.returncode == 0
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if ok:
             tmp.with_suffix(".log").write_text(log)
             os.replace(tmp.with_suffix(".log"), out.with_suffix(".log"))
             os.replace(tmp, out)

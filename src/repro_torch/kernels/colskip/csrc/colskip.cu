@@ -25,14 +25,15 @@
 //     does it: planes are walked in blocks of kFuse, aligned at multiples
 //     of kFuse (planes bF + F - 1 .. bF; a plane above the search's start
 //     is inactive), one warp round a block.  Each lane sets bit p of a
-//     2^F-bit word when one of its alive elements shows the F-bit pattern
-//     p on the block's planes; one __reduce_or_sync gives the warp's
+//     2^F-bit set (pat_words(F) words) when one of its alive elements
+//     shows the F-bit pattern p on the block's planes; one
+//     __reduce_or_sync a word gives the warp's
 //     patterns, and the verdicts resolve in registers plane by plane: a
 //     plane is mixed when the patterns still alive show both of its bits,
 //     and then keeps those with a 0.  This is the reference's speculation
 //     (a saw-a-1 and a saw-a-0 bit for each plane under each hypothesis of
 //     the earlier planes' verdicts) in 2^F bits instead of 2 (2^F - 1).
-//     kFuse = 2 (COLSKIP_FUSE at build time: 1, 2 or 4).  On an H100 it
+//     kFuse = 2 (COLSKIP_FUSE at build time, 1 to 8).  On an H100 it
 //     beat F = 4 on distinct 32-bit rows, the serving traffic, and lost to
 //     it on duplicate-heavy ones (PERF.md, scripts/colskip_fuse.py);
 //   * a walk stops at a lone alive element: its alive count rides in the
@@ -52,7 +53,7 @@
 //   * planes and table in registers up to WPL = 2 (N <= 2048, the serving
 //     cap): the 32 x WPL plane words and the kMaxK x WPL table words of a
 //     lane are register arrays indexed only by compile-time constants
-//     (the block walk is unrolled over the 32 / kFuse blocks), so a table
+//     (the block walk is unrolled over the ceil(32 / kFuse) blocks), so a table
 //     push is register moves and `-Xptxas -v` shows no spill.  Wider rows
 //     (WPL 4 to 32, N up to 32768) keep planes and table masks in shared
 //     memory, lane-interleaved (the lane's q-th word at q * 32 + lane, no
@@ -139,9 +140,11 @@ struct WarpGate {
     __device__ __forceinline__ uint32_t any(uint32_t bits) {
         return __reduce_or_sync(kFull, bits);
     }
-    __device__ __forceinline__ void patterns(uint32_t& pats, int& cnt) {
+    template <int NW>
+    __device__ __forceinline__ void patterns(uint32_t (&pats)[NW], int& cnt) {
         cnt = __reduce_add_sync(kFull, cnt);
-        pats = __reduce_or_sync(kFull, pats);
+#pragma unroll
+        for (int h = 0; h < NW; ++h) pats[h] = __reduce_or_sync(kFull, pats[h]);
     }
     // a drain whose survivors sit in one lane skips the scan (a ballot
     // says so)
@@ -156,14 +159,16 @@ struct WarpGate {
 };
 
 // One bank of W warps a row (the dense carrier).  Each warp reduces with
-// one REDUX; W > 1 warps then meet once in shared memory (`xch`, two
-// buffers of [2][W] words) behind one barrier.  The buffers alternate
-// (`par`), so one barrier a round suffices: no warp rewrites a buffer
-// before every warp has passed the barrier after its last read.
-template <int W>
+// one REDUX a word; W > 1 warps then meet once in shared memory (`xch`,
+// two buffers of [NW + 1][W] words: the pattern words, then the counts)
+// behind one barrier.  The buffers alternate (`par`), so one barrier a
+// round suffices: no warp rewrites a buffer before every warp has passed
+// the barrier after its last read.
+template <int W, int NW = pat_words(kFuse)>
 struct BlockGate {
     static constexpr int bank = 0, banks = 1;
-    static constexpr int kWords = W > 1 ? 4 * W : 0;   // shared words
+    static constexpr int kSlot = (NW + 1) * W;         // words a buffer
+    static constexpr int kWords = W > 1 ? 2 * kSlot : 0;   // shared words
     uint32_t* xch;
     int par = 0;
     __device__ explicit BlockGate(uint32_t* x) : xch(x) {}
@@ -171,7 +176,7 @@ struct BlockGate {
     __device__ __forceinline__ uint32_t any(uint32_t bits) {
         bits = __reduce_or_sync(kFull, bits);
         if (W > 1) {
-            uint32_t* xb = xch + par * 2 * W;
+            uint32_t* xb = xch + par * kSlot;
             if ((threadIdx.x & 31) == 0) xb[threadIdx.x >> 5] = bits;
             __syncthreads();
             bits = 0u;
@@ -181,23 +186,27 @@ struct BlockGate {
         }
         return bits;
     }
-    __device__ __forceinline__ void patterns(uint32_t& bits, int& cnt) {
-        bits = __reduce_or_sync(kFull, bits);
+    __device__ __forceinline__ void patterns(uint32_t (&bits)[NW], int& cnt) {
+#pragma unroll
+        for (int h = 0; h < NW; ++h) bits[h] = __reduce_or_sync(kFull, bits[h]);
         cnt = __reduce_add_sync(kFull, cnt);
         if (W > 1) {
-            uint32_t* xb = xch + par * 2 * W;
+            uint32_t* xb = xch + par * kSlot;
             const int warp = threadIdx.x >> 5;
             if ((threadIdx.x & 31) == 0) {
-                xb[warp] = bits;
-                xb[W + warp] = (uint32_t)cnt;
+#pragma unroll
+                for (int h = 0; h < NW; ++h) xb[h * W + warp] = bits[h];
+                xb[NW * W + warp] = (uint32_t)cnt;
             }
             __syncthreads();
-            bits = 0u;
             cnt = 0;
 #pragma unroll
+            for (int h = 0; h < NW; ++h) bits[h] = 0u;
+#pragma unroll
             for (int i = 0; i < W; ++i) {
-                bits |= xb[i];
-                cnt += (int)xb[W + i];
+#pragma unroll
+                for (int h = 0; h < NW; ++h) bits[h] |= xb[h * W + i];
+                cnt += (int)xb[NW * W + i];
             }
             par ^= 1;
         }
@@ -212,7 +221,7 @@ struct BlockGate {
                        ? warp_inclusive_scan(mine, lane) - mine : 0;
         }
         const int incl = warp_inclusive_scan(mine, lane);
-        uint32_t* xb = xch + par * 2 * W;
+        uint32_t* xb = xch + par * kSlot;
         const int warp = threadIdx.x >> 5;
         if (lane == 31) xb[warp] = (uint32_t)incl;
         __syncthreads();
@@ -300,9 +309,10 @@ int launch(const uint32_t* x, uint32_t* vals, int32_t* order, int32_t* crs,
            int32_t* cyc, int b, int n, int w, int k, int stop,
            cudaStream_t stream) {
     const int kk = k > 0 ? k : 1;
-    const int masks = WPL <= 2 ? 0 : kPlanes + kk;
+    constexpr bool kRegs = packed_in_registers(WPL, kFuse);
+    const int masks = kRegs ? 0 : kPlanes + kk;
     const size_t smem = (size_t)masks * 32 * WPL * sizeof(uint32_t);
-    if (WPL > 2) {
+    if (!kRegs) {
         static std::atomic<bool> done[kMaxDevices];
         const int most = (kPlanes + kMaxK) * 32 * WPL * (int)sizeof(uint32_t);
         cudaError_t err = allow_smem(colskip_sort_kernel<WPL>, most, done);
@@ -319,7 +329,7 @@ int launch_dense_at(const uint32_t* x, uint32_t* vals, int32_t* order,
                     int stop, cudaStream_t stream) {
     const int kk = k > 0 ? k : 1;
     constexpr int T = 32 * W;
-    size_t smem = W > 1 ? 4 * W * sizeof(uint32_t) : 0;   // exchange words
+    size_t smem = BlockGate<W>::kWords * sizeof(uint32_t);   // exchange words
     if (C == 0) {
         // values and (2 + kk) flag bytes an element, in shared memory
         const int c = (n + T - 1) / T;

@@ -8,9 +8,9 @@
 //
 //   * g.any(bits): OR of a per-thread word over the row's threads (the SL
 //     gate of a load: each table entry's still-live bit);
-//   * g.patterns(pats, cnt): OR of `pats` and sum of `cnt` over the row, in
-//     one round (a fused block's set of F-bit patterns and the alive
-//     count);
+//   * g.patterns(pats, cnt): OR of the words `pats` and sum of `cnt` over
+//     the row, in one round (a fused block's set of F-bit patterns, 2^F
+//     bits in pat_words(F) words, and the alive count);
 //   * g.rank(mine, total): this thread's exclusive prefix of `mine` in
 //     element order over the row (bank-major, then thread order) and the
 //     row's total (a drain's rank and survivor count);
@@ -48,12 +48,20 @@ __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
 // 1 if any bit of `t` is set, else 0 (one IMNMX, no compare and select)
 __device__ __forceinline__ uint32_t nonzero(uint32_t t) { return min(t, 1u); }
 
-// The F-bit patterns (plane i of a block at bit F - 1 - i) whose bit j is
-// set, as a 2^F-bit mask.
-__host__ __device__ constexpr uint32_t pattern_mask(int f, int j) {
+// Words of a block's pattern set: 2^F bits, pattern p at bit p % 32 of
+// word p / 32 (one word up to F = 5; 2, 4 and 8 words at F = 6, 7, 8).
+__host__ __device__ constexpr int pat_words(int f) {
+    return f <= 5 ? 1 : 1 << (f - 5);
+}
+
+// Word h of the set of F-bit patterns (plane i of a block at bit F - 1 - i)
+// whose bit j is set.
+__host__ __device__ constexpr uint32_t pattern_mask(int f, int j, int h) {
     uint32_t m = 0u;
-    for (int p = 0; p < (1 << f); ++p)
-        if ((p >> j) & 1) m |= 1u << p;
+    for (int b = 0; b < 32; ++b) {
+        const int p = 32 * h + b;
+        if (p < (1 << f) && ((p >> j) & 1)) m |= 1u << b;
+    }
     return m;
 }
 
@@ -74,40 +82,78 @@ __device__ __forceinline__ uint32_t pack_bits(uint32_t (&bits)[N]) {
 // elements show (plane i at bit F - 1 - i of a pattern).  Bit i of the
 // result is set when plane i is active (at or below `start`) and mixed:
 // the patterns still alive show both of its bits; a mixed plane then keeps
-// those with a 0 there.  Both carriers resolve their blocks here, as the
-// reference's carriers share _traverse_planes.
+// those with a 0 there.  A plane above 31 (the top block when F does not
+// divide 32) is above every start, so never active.  Both carriers resolve
+// their blocks here, as the reference's carriers share _traverse_planes.
 template <int F>
-__device__ __forceinline__ uint32_t resolve_block(uint32_t pats, int base,
-                                                  int start) {
+__device__ __forceinline__ uint32_t resolve_block(
+        const uint32_t (&set)[pat_words(F)], int base, int start) {
+    constexpr int NW = pat_words(F);
+    uint32_t pats[NW];
+#pragma unroll
+    for (int h = 0; h < NW; ++h) pats[h] = set[h];
     uint32_t mixed = 0u;
 #pragma unroll
     for (int i = 0; i < F; ++i) {
-        const uint32_t has1 = pattern_mask(F, F - 1 - i);
-        const uint32_t ones = pats & has1;
-        const uint32_t zeros = pats & ~has1;
+        uint32_t ones = 0u, zeros = 0u;
+#pragma unroll
+        for (int h = 0; h < NW; ++h) {
+            ones |= pats[h] & pattern_mask(F, F - 1 - i, h);
+            zeros |= pats[h] & ~pattern_mask(F, F - 1 - i, h);
+        }
         const bool on = base + F - 1 - i <= start && ones != 0u &&
                         zeros != 0u;
-        pats = on ? zeros : pats;
+#pragma unroll
+        for (int h = 0; h < NW; ++h)
+            pats[h] = on ? pats[h] & ~pattern_mask(F, F - 1 - i, h) : pats[h];
         mixed |= (uint32_t)on << i;
     }
     return mixed;
 }
 
+// The packed carrier keeps planes and table masks in registers (and
+// unrolls its block walk) up to WPL = 2 words a lane and F = 4 planes a
+// block; past either, in shared memory ([32 + kk] masks of 32 * WPL
+// words), with the walk rolled.  (At F > 4 the unrolled walk's pattern
+// trees spill and take minutes of ptxas.)
+__host__ __device__ constexpr bool packed_in_registers(int wpl, int f) {
+    return wpl <= 2 && f <= 4;
+}
+
+// The bits of `alive` (one packed word) whose top kHi planes of the block
+// at `base` (planes base + F - 1 .. base + F - kHi) read h, top plane
+// first; col(s) is the word's plane s.
+template <int F, int kHi, class Col>
+__device__ __forceinline__ uint32_t select_high(uint32_t alive, int h,
+                                                Col col, int base) {
+#pragma unroll
+    for (int i = 0; i < kHi; ++i) {
+        const uint32_t c = col(base + F - 1 - i);
+        alive &= ((h >> (kHi - 1 - i)) & 1) ? c : ~c;
+    }
+    return alive;
+}
+
 // Packed carrier, one warp a bank.  The bank holds `nl` elements of the
 // row at xr (columns col0 ..), lane l the packed words l * WPL .. l * WPL
-// + WPL - 1 (word i holds elements 32i .. 32i + 31).  Up to WPL = 2 the
-// planes and the table masks live in registers and the block walk is
-// unrolled; wider banks keep them in shared memory (`smem`: [32 + kk]
-// masks of 32 * WPL words) and take the walk rolled.  Writes order[] (in
+// + WPL - 1 (word i holds elements 32i .. 32i + 31).  On the register
+// path (packed_in_registers) the planes and the table masks live in
+// registers and the block walk is unrolled; otherwise they live in shared
+// memory (`smem`) and the walk is rolled.  Writes order[] (in
 // row columns) for the elements it drains; returns the row's CRs and
 // drains (the same in every bank).
+//
+// Blocks are aligned at multiples of F, ceil(32 / F) of them; when F does
+// not divide 32 the top block runs past plane 31, and such a plane reads
+// as a zero column (never active: resolve_block).  A search from `start`
+// walks floor(start / F) + 1 blocks, at most ceil(w / F).
 template <int WPL, int F, class Gate>
 __device__ __forceinline__ void packed_row(
         Gate& g, const uint32_t* __restrict__ xr, int32_t* __restrict__ ordr,
         int nl, int col0, int w, int k, int stop, uint32_t* smem,
         int& crs_out, int& drains_out) {
-    static_assert(kPlanes % F == 0, "blocks tile the 32 planes");
-    constexpr bool kRegs = WPL <= 2;       // planes and table in registers
+    static_assert(F >= 1 && F <= 8, "a block of 1 to 8 planes");
+    constexpr bool kRegs = packed_in_registers(WPL, F);
     constexpr int kStride = 32 * WPL;      // shared words of one mask
     constexpr int kPR = kRegs ? kPlanes : 1, kPC = kRegs ? WPL : 1;
     constexpr int kTR = kRegs ? kMaxK : 1, kTC = kRegs ? WPL : 1;
@@ -171,15 +217,25 @@ __device__ __forceinline__ void packed_row(
     const uint32_t slotmask = kk >= 8 ? kFull : (1u << (4 * kk)) - 1u;
     int s_top = w - 1, count = 0, crs = 0, drains = 0;
 
-    // plane s, the lane's word q; table entry e's mask word q (compile-time
-    // indices on the register path: the walk below is unrolled there)
-#define COL(s, q) (kRegs ? pl[kRegs ? (s) : 0][kRegs ? (q) : 0] \
-                         : splanes[(s) * kStride + (q) * 32 + lane])
+    // plane s, the lane's word q (zero above plane 31); table entry e's
+    // mask word q (compile-time indices on the register path: the walk
+    // below is unrolled there)
+#define COL(s, q) ((s) >= kPlanes ? 0u                                     \
+                   : kRegs ? pl[kRegs && (s) < kPlanes ? (s) : 0]          \
+                               [kRegs ? (q) : 0]                           \
+                           : splanes[(s) * kStride + (q) * 32 + lane])
 #define TMASK(e, q) (kRegs ? tm[kRegs ? (e) : 0][kRegs ? (q) : 0] \
                            : stable[((tslot >> (4 * (e))) & 15u) * kStride \
                                     + (q) * 32 + lane])
-    constexpr int kWalkUnroll = kRegs ? kPlanes / F : 1;
-    constexpr int kPats = 1 << F;          // patterns of a block's planes
+    constexpr int kBlocks = (kPlanes + F - 1) / F;
+    constexpr int kWalkUnroll = kRegs ? kBlocks : 1;
+    // a block's pattern set is built kT <= 4 planes at a time: each of the
+    // 2^kHi settings of its top kHi planes selects the alive elements that
+    // show it, and a tree over the low kT planes gives their 2^kT patterns,
+    // so the registers do not grow with 2^F
+    constexpr int kT = F < 4 ? F : 4, kHi = F - kT;
+    constexpr int kPats = 1 << kT;         // patterns of a subset
+    constexpr int kNW = pat_words(F);
     bool fresh = true, seen = false;
     int start = 0;
 
@@ -226,7 +282,7 @@ __device__ __forceinline__ void packed_row(
         seen = false;
         bool lone = false;                 // the walk stopped at one element
 #pragma unroll (kWalkUnroll)
-        for (int bi = kPlanes / F - 1; bi >= 0; --bi) {
+        for (int bi = kBlocks - 1; bi >= 0; --bi) {
             if (bi * F > start) continue;
             const int base = bi * F;
             // in the same round as the verdicts: the alive count.  A lone
@@ -239,58 +295,76 @@ __device__ __forceinline__ void packed_row(
             // F - 1 - i) that the alive elements show.  A plane is mixed
             // when the patterns still alive show both of its bits; it then
             // keeps those with a 0 there
-            uint32_t bits[kPats];
-            if (kRegs) {
-                uint32_t pm[kPats][WPL];
+            uint32_t seen_pats[kNW];
 #pragma unroll
-                for (int q = 0; q < WPL; ++q) pm[0][q] = alive[q];
+            for (int h = 0; h < kNW; ++h) seen_pats[h] = 0u;
 #pragma unroll
-                for (int i = 0; i < F; ++i) {
-                    const int s = base + F - 1 - i;
+            // the lane's word q of the alive elements whose top kHi planes
+            // read h
+#define SEL(h, q) select_high<F, kHi>(alive[q], h, [&](int s) {     \
+                      return COL(s, q); }, base)
+            // (rolled: unrolled over 2^kHi subsets, and 32 words a lane
+            // on the shared path, a block took ptxas a minute at F = 8)
+#pragma unroll 1
+            for (int h = 0; h < (1 << kHi); ++h) {
+                uint32_t bits[kPats];
+                if (kRegs) {
+                    uint32_t pm[kPats][WPL];
 #pragma unroll
-                    for (int p = kPats - 1; p >= 0; --p) {
-                        if (p >= (1 << i)) continue;
+                    for (int q = 0; q < WPL; ++q) pm[0][q] = SEL(h, q);
 #pragma unroll
-                        for (int q = 0; q < WPL; ++q) {
-                            const uint32_t v = pm[p][q];
-                            pm[(2 * p + 1) % kPats][q] = v & COL(s, q);
-                            pm[(2 * p) % kPats][q] = v & ~COL(s, q);
-                        }
-                    }
-                }
-#pragma unroll
-                for (int p = 0; p < kPats; ++p) {
-                    uint32_t t = 0u;
-#pragma unroll
-                    for (int q = 0; q < WPL; ++q) t |= pm[p][q];
-                    bits[p] = nonzero(t);
-                }
-            } else {
-                uint32_t t[kPats];
-#pragma unroll
-                for (int p = 0; p < kPats; ++p) t[p] = 0u;
-#pragma unroll
-                for (int q = 0; q < WPL; ++q) {
-                    uint32_t pm[kPats];
-                    pm[0] = alive[q];
-#pragma unroll
-                    for (int i = 0; i < F; ++i) {
-                        const uint32_t c = COL(base + F - 1 - i, q);
+                    for (int i = 0; i < kT; ++i) {
+                        const int s = base + kT - 1 - i;
 #pragma unroll
                         for (int p = kPats - 1; p >= 0; --p) {
                             if (p >= (1 << i)) continue;
-                            const uint32_t v = pm[p];
-                            pm[(2 * p + 1) % kPats] = v & c;
-                            pm[(2 * p) % kPats] = v & ~c;
+#pragma unroll
+                            for (int q = 0; q < WPL; ++q) {
+                                const uint32_t v = pm[p][q];
+                                pm[(2 * p + 1) % kPats][q] = v & COL(s, q);
+                                pm[(2 * p) % kPats][q] = v & ~COL(s, q);
+                            }
                         }
                     }
 #pragma unroll
-                    for (int p = 0; p < kPats; ++p) t[p] |= pm[p];
-                }
+                    for (int p = 0; p < kPats; ++p) {
+                        uint32_t t = 0u;
 #pragma unroll
-                for (int p = 0; p < kPats; ++p) bits[p] = nonzero(t[p]);
+                        for (int q = 0; q < WPL; ++q) t |= pm[p][q];
+                        bits[p] = nonzero(t);
+                    }
+                } else {
+                    uint32_t t[kPats];
+#pragma unroll
+                    for (int p = 0; p < kPats; ++p) t[p] = 0u;
+#pragma unroll
+                    for (int q = 0; q < WPL; ++q) {
+                        uint32_t pm[kPats];
+                        pm[0] = SEL(h, q);
+#pragma unroll
+                        for (int i = 0; i < kT; ++i) {
+                            const uint32_t c = COL(base + kT - 1 - i, q);
+#pragma unroll
+                            for (int p = kPats - 1; p >= 0; --p) {
+                                if (p >= (1 << i)) continue;
+                                const uint32_t v = pm[p];
+                                pm[(2 * p + 1) % kPats] = v & c;
+                                pm[(2 * p) % kPats] = v & ~c;
+                            }
+                        }
+#pragma unroll
+                        for (int p = 0; p < kPats; ++p) t[p] |= pm[p];
+                    }
+#pragma unroll
+                    for (int p = 0; p < kPats; ++p) bits[p] = nonzero(t[p]);
+                }
+                // patterns h * 2^kT .. of the set (word h * 2^kT / 32)
+                const uint32_t word = pack_bits(bits) << ((h * kPats) & 31);
+#pragma unroll
+                for (int i = 0; i < kNW; ++i)
+                    seen_pats[i] |= i == (h * kPats) >> 5 ? word : 0u;
             }
-            uint32_t seen_pats = pack_bits(bits);
+#undef SEL
             g.patterns(seen_pats, here);
             if (here <= 1) {
                 lone = true;
@@ -414,7 +488,8 @@ __device__ __forceinline__ void dense_row(
     constexpr int T = 32 * W;              // threads a bank
     constexpr int E = C ? 4 : 1;           // elements a flag unit holds
     constexpr uint32_t kOne = C ? 0x01010101u : 0x01u;  // a unit's flags
-    constexpr int kPats = 1 << F;
+    constexpr uint32_t kPatMask = (1u << F) - 1u;  // a block's F bits
+    constexpr int kNW = pat_words(F);
     constexpr int kTE = kRegTab ? kRegTable : 1;
     const int t = threadIdx.x;
     const int c = C ? C : (nl + T - 1) / T;     // elements a thread
@@ -513,23 +588,31 @@ __device__ __forceinline__ void dense_row(
         }
 
         crs += start + 1;                     // start >= -1
-        // --- traverse planes start..0 in blocks of F, one round a block:
-        // each thread ORs the one-hot pattern of every alive element (a
-        // column read is (v >> sig) & 1 of its value), and the alive count
-        // rides in the same round
+        // --- traverse planes start..0 in blocks of F aligned at multiples
+        // of F (a plane above 31 reads 0), one round a block: each thread
+        // ORs the one-hot pattern of every alive element (a column read is
+        // (v >> sig) & 1 of its value) into the block's pattern set, and
+        // the alive count rides in the same round
         bool seen = false, lone = false;
         for (int bi = start >= 0 ? start / F : -1; bi >= 0; --bi) {
             const int base = bi * F;
-            uint32_t pats = 0u;
+            uint32_t pats[kNW];
+#pragma unroll
+            for (int h = 0; h < kNW; ++h) pats[h] = 0u;
             int here = 0;
 #pragma unroll
             for (int u = 0; u < U; ++u) {
                 const uint32_t a = DA(u);
                 here += __popc(a);
 #pragma unroll
-                for (int j = 0; j < E; ++j)
-                    pats |= ((a >> (8 * j)) & 1u)
-                            << ((DV(u * E + j) >> base) & (kPats - 1));
+                for (int j = 0; j < E; ++j) {
+                    const uint32_t p = (DV(u * E + j) >> base) & kPatMask;
+                    const uint32_t on = (a >> (8 * j)) & 1u;
+#pragma unroll
+                    for (int h = 0; h < kNW; ++h)
+                        pats[h] |= (kNW == 1 || (p >> 5) == (uint32_t)h
+                                        ? on : 0u) << (p & 31u);
+                }
             }
             g.patterns(pats, here);
             // a lone element makes every plane from here down uniform

@@ -40,7 +40,7 @@
 //
 //   * OR-gate round, one a fused block of F planes: the set of F-bit
 //     patterns present among the shard's alive elements (the single-bank
-//     kernels' verdict word); the union over the banks is the row's set,
+//     kernels' verdict words); the union over the banks is the row's set,
 //     so resolve_block<F>() runs unchanged and locally.  Blocks above the
 //     search's start are skipped with no exchange;
 //   * lone-element stop: the alive count rides in the same round (added,
@@ -56,12 +56,14 @@
 //     barrier the row's CTAs gather the values through order[] together;
 //     no assembly pass follows.
 //
-// fuse (F) is a template parameter, built for F in {1, 2, 4} (a pattern
-// set of 2^F <= 16 bits fits one word) on both carriers; any other F is
-// refused.  Each row returns the exchanges it made ("rounds"), at most the
-// reference's static account collective_rounds(w, stop, fuse)["rounds"],
-// since skipped planes, lone elements and a load with an empty table make
-// none.
+// fuse (F) is a template parameter, built for F in 1..8 on both carriers
+// (blocks aligned at multiples of F, the top one ragged when F does not
+// divide 32; the pattern set of 2^F bits in pat_words(F) words, which one
+// exchange carries together); any other F is refused.  Each row returns
+// the exchanges it made ("rounds"), at most the reference's static account
+// collective_rounds(w, stop, fuse)["rounds"], since a search walks at most
+// ceil(w / F) blocks, and skipped planes, lone elements and a load with an
+// empty table make none.
 //
 // What bounds it: latency.  A row is one dependency chain of exchanges,
 // each a cluster barrier plus a DSMEM read, so the least time is the
@@ -77,6 +79,20 @@
 
 #include "colskip_body.cuh"
 
+// The library is built in parts (kernels/_build.py, PARTS): nvcc compiles
+// part p of COLSKIP_MESH_PARTS with -DCOLSKIP_MESH_PART=p, which holds the
+// instances of the fuse values F with (F - 1) % parts == p (part 0 also
+// the C interface and the chain probe), and the parts link into one
+// library, so its 104 instances build side by side (at 8 parts, one fuse
+// value a part).  Compiled as one unit
+// (the defaults) the library holds everything.
+#ifndef COLSKIP_MESH_PARTS
+#define COLSKIP_MESH_PARTS 1
+#endif
+#ifndef COLSKIP_MESH_PART
+#define COLSKIP_MESH_PART 0
+#endif
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -85,42 +101,57 @@ constexpr int kMaxBanks = 8;    // the portable cluster size
 constexpr int kDenseWarps = 4;  // dense: warps a bank, registers
 constexpr int kDenseRegN = 2048;   // dense: widest shard held in registers
 constexpr int kMaxDevices = 64;
+constexpr int kMaxFuse = 8;     // planes a round: built for 1 to 8
+static_assert(COLSKIP_MESH_PARTS >= 1 && COLSKIP_MESH_PARTS <= kMaxFuse &&
+                  COLSKIP_MESH_PART >= 0 &&
+                  COLSKIP_MESH_PART < COLSKIP_MESH_PARTS,
+              "one to eight parts");
 
 // The §IV manager between the D CTAs of a row's cluster, W warps each
 // (see the head of this file).  Slots: two buffers (round parity) of
-// [2][W] words, a word and a count per warp.  `rounds` counts the
-// exchanges made.
-template <int W>
+// [NW + 1][W] words: NW words a warp (a block's pattern set; the other
+// gates post one) and a count per warp.  `rounds` counts the exchanges
+// made.
+template <int W, int NW = 1>
 struct ClusterGate {
-    static constexpr int kWords = 4 * W;   // shared words of the slots
+    static constexpr int kSlot = (NW + 1) * W;  // words a buffer
+    static constexpr int kWords = 2 * kSlot;    // shared words of the slots
     static_assert(kMaxBanks * W <= 32, "a lane reads each bank's warp slot");
     uint32_t* xch;
     int banks, bank, par = 0, rounds = 0;
     __device__ ClusterGate(uint32_t* x, int nb, int b)
         : xch(x), banks(nb), bank(b) {}
 
-    // `bits` and `cnt` are the warp's (warp-reduced); returns the row's
-    // OR and sum, and in `below` the sum over the warps before this one
-    // in element order (bank-major)
-    __device__ __forceinline__ void exchange(uint32_t& bits, int& cnt,
+    // `bits` (N <= NW words) and `cnt` are the warp's (warp-reduced);
+    // returns the row's ORs and sum, and in `below` the sum over the warps
+    // before this one in element order (bank-major).  Lane i < D * W reads
+    // warp i % W's slot of CTA i / W: N + 1 words, one barrier a round
+    template <int N>
+    __device__ __forceinline__ void exchange(uint32_t (&bits)[N], int& cnt,
                                              int* below) {
+        static_assert(N <= NW, "the slots hold NW words a warp");
         cg::cluster_group cluster = cg::this_cluster();
         const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-        uint32_t* xb = xch + par * 2 * W;
+        uint32_t* xb = xch + par * kSlot;
         if (lane == 0) {
-            xb[warp] = bits;
-            xb[W + warp] = (uint32_t)cnt;
+#pragma unroll
+            for (int h = 0; h < N; ++h) xb[h * W + warp] = bits[h];
+            xb[NW * W + warp] = (uint32_t)cnt;
         }
         cluster.sync();
-        uint32_t b = 0u;
+        uint32_t b[N];
+#pragma unroll
+        for (int h = 0; h < N; ++h) b[h] = 0u;
         int c = 0;
         if (lane < banks * W) {
             const uint32_t* remote =
                 cluster.map_shared_rank(xb, (unsigned)(lane / W));
-            b = remote[lane % W];
-            c = (int)remote[W + lane % W];
+#pragma unroll
+            for (int h = 0; h < N; ++h) b[h] = remote[h * W + lane % W];
+            c = (int)remote[NW * W + lane % W];
         }
-        bits = __reduce_or_sync(kFull, b);
+#pragma unroll
+        for (int h = 0; h < N; ++h) bits[h] = __reduce_or_sync(kFull, b[h]);
         cnt = __reduce_add_sync(kFull, c);
         if (below != nullptr)
             *below = __reduce_add_sync(kFull,
@@ -129,19 +160,20 @@ struct ClusterGate {
         ++rounds;
     }
     __device__ __forceinline__ uint32_t any(uint32_t bits) {
-        bits = __reduce_or_sync(kFull, bits);
+        uint32_t word[1] = {__reduce_or_sync(kFull, bits)};
         int none = 0;
-        exchange(bits, none, nullptr);
-        return bits;
+        exchange(word, none, nullptr);
+        return word[0];
     }
-    __device__ __forceinline__ void patterns(uint32_t& pats, int& cnt) {
-        pats = __reduce_or_sync(kFull, pats);
+    __device__ __forceinline__ void patterns(uint32_t (&pats)[NW], int& cnt) {
+#pragma unroll
+        for (int h = 0; h < NW; ++h) pats[h] = __reduce_or_sync(kFull, pats[h]);
         cnt = __reduce_add_sync(kFull, cnt);
         exchange(pats, cnt, nullptr);
     }
     __device__ __forceinline__ int rank(int mine, int& total) {
         const int incl = warp_inclusive_scan(mine, threadIdx.x & 31);
-        uint32_t none = 0u;
+        uint32_t none[1] = {0u};
         int cnt = __shfl_sync(kFull, incl, 31), below = 0;
         exchange(none, cnt, &below);
         total = cnt;
@@ -154,6 +186,10 @@ struct ClusterGate {
         return bank == 0 && threadIdx.x == 0;
     }
 };
+
+// The gate of a mesh kernel at F planes a round, W warps a bank
+template <int W, int F>
+using MeshGate = ClusterGate<W, pat_words(F)>;
 
 // The bank's place in its cluster and row
 struct MeshRow {
@@ -175,11 +211,11 @@ colskip_mesh_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ vals,
     const MeshRow m(banks, n);
     const uint32_t* xrow = x + (size_t)m.row * n;
     int32_t* ordr = order + (size_t)m.row * stop;
-    ClusterGate<1> g(smem, banks, m.bank);
+    MeshGate<1, F> g(smem, banks, m.bank);
     int crs = 0, drains = 0;
     packed_row<WPL, F>(g, xrow + (size_t)m.bank * m.nl, ordr, m.nl,
                        m.bank * m.nl, w, k, stop,
-                       smem + ClusterGate<1>::kWords, crs, drains);
+                       smem + MeshGate<1, F>::kWords, crs, drains);
     g.done();
     finish_row(g, xrow, vals + (size_t)m.row * stop, ordr, stop, crs, drains,
                crs_out, cyc_out, m.row);
@@ -201,17 +237,18 @@ colskip_mesh_dense_kernel(const uint32_t* __restrict__ x,
     const MeshRow m(banks, n);
     const uint32_t* xrow = x + (size_t)m.row * n;
     int32_t* ordr = order + (size_t)m.row * stop;
-    ClusterGate<W> g(smem, banks, m.bank);
+    MeshGate<W, F> g(smem, banks, m.bank);
     int crs = 0, drains = 0;
     dense_row<C, kRegTab, W, F>(g, xrow + (size_t)m.bank * m.nl, ordr, m.nl,
                                 m.bank * m.nl, w, k, stop,
-                                smem + ClusterGate<W>::kWords, crs, drains);
+                                smem + MeshGate<W, F>::kWords, crs, drains);
     g.done();
     finish_row(g, xrow, vals + (size_t)m.row * stop, ordr, stop, crs, drains,
                crs_out, cyc_out, m.row);
     if (g.lead()) rounds_out[m.row] = g.rounds;
 }
 
+#if COLSKIP_MESH_PART == 0
 // `rounds` dependent exchanges between the `banks` CTAs of one cluster:
 // each posted word depends on the last round's OR, as a block's patterns
 // depend on the last verdict.  The time per round prices one step of a
@@ -223,14 +260,15 @@ mesh_chain_kernel(int32_t* __restrict__ out, uint32_t seed, int rounds,
     ClusterGate<1> g(smem, banks, (int)cg::this_cluster().block_rank());
     int acc = 0;
     for (int r = 0; r < rounds; ++r) {
-        uint32_t bits = ((seed >> (r & 31)) ^ (uint32_t)acc ^ g.bank) & 1u;
+        uint32_t bits[1] = {((seed >> (r & 31)) ^ (uint32_t)acc ^ g.bank) & 1u};
         int cnt = 1;
         g.exchange(bits, cnt, nullptr);
-        acc += (int)bits;
+        acc += (int)bits[0];
     }
     g.done();
     if (g.lead()) out[0] = acc;
 }
+#endif
 
 // Opt `kernel` in to `bytes` of dynamic shared memory on the current
 // device, once per device (`done` is the kernel's own flag array)
@@ -281,24 +319,47 @@ int launch_clusters(void (*kernel)(Args...), int clusters, int banks,
     return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+namespace colskip_mesh {
+
+// one launch's arguments, the same type in every part
 struct Args {
     const uint32_t* x;
     uint32_t* vals;
     int32_t *order, *crs, *cyc, *rounds;
-    int b, n, banks, w, k, stop;
+    int b, n, banks, w, k, stop, packed;
     cudaStream_t stream;
 };
+
+// the launch of fuse values of part p ((fuse - 1) % parts == p), defined
+// by that part
+int launch_part_0(const Args& a, int fuse);
+int launch_part_1(const Args& a, int fuse);
+int launch_part_2(const Args& a, int fuse);
+int launch_part_3(const Args& a, int fuse);
+int launch_part_4(const Args& a, int fuse);
+int launch_part_5(const Args& a, int fuse);
+int launch_part_6(const Args& a, int fuse);
+int launch_part_7(const Args& a, int fuse);
+
+}  // namespace colskip_mesh
+
+namespace {
+
+using colskip_mesh::Args;
 
 template <int WPL, int F>
 int launch_packed(const Args& a) {
     auto kernel = colskip_mesh_kernel<WPL, F>;
     const int kk = a.k > 0 ? a.k : 1;
-    const int masks = WPL <= 2 ? 0 : kPlanes + kk;
-    const size_t smem = (size_t)(ClusterGate<1>::kWords + masks * 32 * WPL) *
+    constexpr bool kRegs = packed_in_registers(WPL, F);
+    const int masks = kRegs ? 0 : kPlanes + kk;
+    const size_t smem = (size_t)(MeshGate<1, F>::kWords + masks * 32 * WPL) *
                         sizeof(uint32_t);
-    if (WPL > 2) {
+    if (!kRegs) {
         static std::atomic<bool> done[kMaxDevices];
-        const int most = (ClusterGate<1>::kWords +
+        const int most = (MeshGate<1, F>::kWords +
                           (kPlanes + kMaxK) * 32 * WPL) * (int)sizeof(uint32_t);
         cudaError_t err = allow_smem(kernel, most, done);
         if (err != cudaSuccess) return (int)err;
@@ -324,7 +385,7 @@ int launch_dense_at(const Args& a) {
     auto kernel = colskip_mesh_dense_kernel<C, kRegTab, W, F>;
     const int kk = a.k > 0 ? a.k : 1;
     constexpr int T = 32 * W;
-    size_t smem = (size_t)ClusterGate<W>::kWords * sizeof(uint32_t);
+    size_t smem = (size_t)MeshGate<W, F>::kWords * sizeof(uint32_t);
     if (C == 0) {
         // values and (2 + kk) flag bytes an element, in shared memory
         const int c = (a.n / a.banks + T - 1) / T;
@@ -358,6 +419,53 @@ int launch_dense_f(const Args& a) {
     return launch_dense_reg<true, F>(a);
 }
 
+// the carrier's instance for `fuse`, among this part's fuse values F..8
+template <int F>
+int launch_owned(const Args& a, int fuse) {
+    if constexpr (F <= kMaxFuse) {
+        if constexpr ((F - 1) % COLSKIP_MESH_PARTS == COLSKIP_MESH_PART) {
+            if (fuse == F)
+                return a.packed ? launch_packed_f<F>(a) : launch_dense_f<F>(a);
+        }
+        return launch_owned<F + 1>(a, fuse);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+#define COLSKIP_MESH_PART_FN_(p) launch_part_##p
+#define COLSKIP_MESH_PART_FN(p) COLSKIP_MESH_PART_FN_(p)
+int colskip_mesh::COLSKIP_MESH_PART_FN(COLSKIP_MESH_PART)(const Args& a,
+                                                         int fuse) {
+    return launch_owned<1>(a, fuse);
+}
+
+#if COLSKIP_MESH_PART == 0
+namespace {
+
+// the launch at `fuse` planes a round, in the part that owns it
+int launch_fuse(const Args& a, int fuse) {
+    using namespace colskip_mesh;
+    const int part = (fuse - 1) % COLSKIP_MESH_PARTS;
+    if (part == 0) return launch_part_0(a, fuse);
+    if constexpr (COLSKIP_MESH_PARTS > 1)
+        if (part == 1) return launch_part_1(a, fuse);
+    if constexpr (COLSKIP_MESH_PARTS > 2)
+        if (part == 2) return launch_part_2(a, fuse);
+    if constexpr (COLSKIP_MESH_PARTS > 3)
+        if (part == 3) return launch_part_3(a, fuse);
+    if constexpr (COLSKIP_MESH_PARTS > 4)
+        if (part == 4) return launch_part_4(a, fuse);
+    if constexpr (COLSKIP_MESH_PARTS > 5)
+        if (part == 5) return launch_part_5(a, fuse);
+    if constexpr (COLSKIP_MESH_PARTS > 6)
+        if (part == 6) return launch_part_6(a, fuse);
+    if constexpr (COLSKIP_MESH_PARTS > 7)
+        if (part == 7) return launch_part_7(a, fuse);
+    return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -370,15 +478,13 @@ int colskip_mesh_shard_max(int packed, int k) {
     if (k < 0 || k > kMaxK) return 0;
     if (packed) return 32 * 32 * 32;
     const int kk = k > 0 ? k : 1;
-    const int optin = smem_optin() - ClusterGate<1>::kWords * 4;
+    const int optin = smem_optin() - MeshGate<1, kMaxFuse>::kWords * 4;
     return optin > 0 ? optin / (6 + kk) / 32 * 32 : 0;
 }
 int colskip_mesh_max_banks(void) { return kMaxBanks; }
 int colskip_mesh_max_k(void) { return kMaxK; }
-// 1 when the kernels are built for `fuse` planes a round
-int colskip_mesh_fuse_built(int fuse) {
-    return fuse == 1 || fuse == 2 || fuse == 4;
-}
+// 1 when the kernels are built for `fuse` planes a round (1 to 8)
+int colskip_mesh_fuse_built(int fuse) { return fuse >= 1 && fuse <= kMaxFuse; }
 
 // x (b, n) uint32 over `banks` banks of n / banks columns -> vals (b, stop)
 // uint32, order (b, stop) int32, crs, cyc and rounds (b,) int32, on the
@@ -397,15 +503,9 @@ int colskip_mesh_launch(const void* x, void* vals, void* order, void* crs,
     const Args a{static_cast<const uint32_t*>(x), static_cast<uint32_t*>(vals),
                  static_cast<int32_t*>(order), static_cast<int32_t*>(crs),
                  static_cast<int32_t*>(cyc), static_cast<int32_t*>(rounds),
-                 b, n, banks, w, k, stop, static_cast<cudaStream_t>(stream)};
-    if (packed) {
-        if (fuse == 1) return launch_packed_f<1>(a);
-        if (fuse == 2) return launch_packed_f<2>(a);
-        return launch_packed_f<4>(a);
-    }
-    if (fuse == 1) return launch_dense_f<1>(a);
-    if (fuse == 2) return launch_dense_f<2>(a);
-    return launch_dense_f<4>(a);
+                 b, n, banks, w, k, stop, packed,
+                 static_cast<cudaStream_t>(stream)};
+    return launch_fuse(a, fuse);
 }
 
 // out (1,) int32 <- the count of true words in a chain of `rounds`
@@ -422,3 +522,4 @@ int colskip_mesh_chain_launch(void* out, unsigned seed, int rounds, int banks,
 }
 
 }  // extern "C"
+#endif  // COLSKIP_MESH_PART == 0

@@ -38,8 +38,9 @@ launches_dense = 0
 launches_mesh = 0
 launches_mesh_dense = 0
 
-# planes a round the mesh kernel is built for (colskip_mesh.cu)
-MESH_FUSES = (1, 2, 4)
+# planes a round the mesh kernel is built for (colskip_mesh.cu), the
+# reference's range
+MESH_FUSES = (1, 2, 3, 4, 5, 6, 7, 8)
 
 
 def reset_launches() -> None:
@@ -275,10 +276,9 @@ def colskip_sort_mesh_batched(x, banks: int, w: int = 32, k: int = 2, *,
     ``banks``, ``packed`` and ``fuse`` (§V.C).
 
     On the card the carrier's mesh kernel runs (one thread-block cluster a
-    row, a CTA a bank), built for ``fuse`` in :data:`MESH_FUSES`; another
-    ``fuse`` raises :class:`NotImplementedError`, never runs another
-    depth.  On the CPU the plain mesh (:func:`.ref.sort_mesh_ref`) runs
-    at any ``fuse`` in 1..8.  ``return_rounds=True``
+    row, a CTA a bank), built for every ``fuse`` in :data:`MESH_FUSES`
+    (1 to 8); on the CPU the plain mesh (:func:`.ref.sort_mesh_ref`).
+    Another ``fuse`` raises :class:`ValueError`.  ``return_rounds=True``
     adds a fifth output: the (B,) cross-bank exchanges each row made on the
     kernel (None on the CPU, where rounds are not a property of the plain
     version)."""
@@ -290,15 +290,11 @@ def colskip_sort_mesh_batched(x, banks: int, w: int = 32, k: int = 2, *,
     stop = n if stop_after is None else min(int(stop_after), n)
     if stop < 1:
         raise ValueError(f"stop_after={stop_after} must be >= 1")
-    if not 1 <= fuse <= 8:
+    if fuse not in MESH_FUSES:
         raise ValueError(f"fuse={fuse} out of range [1, 8]")
     if dev.type == "cpu":
         out = _ref.sort_mesh_ref(x, banks, w, k, stop, packed=packed,
                                  fuse=fuse)
         return (*out, None) if return_rounds else out
-    if fuse not in MESH_FUSES:
-        raise NotImplementedError(
-            f"fuse={fuse}: the mesh kernel is built for fuse in {MESH_FUSES} "
-            "(ROADMAP Queue 1)")
     out = _launch_mesh(x.contiguous(), banks, w, k, stop, fuse, packed)
     return out if return_rounds else out[:4]

@@ -9,9 +9,10 @@ Each figure is NVIDIA's H100 SXM5 80GB datasheet's, without sparsity, at
 the card's 700 W power limit; a card set below it runs slower.  The
 reference's ``collective_bytes(hlo_text)`` parses XLA's optimized HLO for
 collective ops, which the port never has (no compiler partitions its
-steps, and no runtime shards them by ``dist/sharding``'s specs yet), so it
-does not come across: :func:`roofline_terms` takes collective bytes as
-given, and ``None`` leaves the collective term out of the bottleneck.
+steps); ``launch/dryrun.py`` counts them as a model of a runtime that
+follows ``dist/sharding``'s specs instead.  :func:`roofline_terms` takes
+collective bytes as given, and ``None`` leaves the collective term out of
+the bottleneck.
 """
 
 from __future__ import annotations

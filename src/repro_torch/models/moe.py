@@ -31,8 +31,15 @@ Two dispatch paths, as in the reference:
 
 Under autograd the router's weights learn only through the load-balance
 aux loss, as the reference's do: its radix top-k values carry no
-gradient (see :func:`_route`).  Expert-parallel *training* is not ported
-(the sharded path runs under ``no_grad``: its ``psum`` has no backward).
+gradient (see :func:`_route`).  The sharded path trains too: the tokens
+and the gate weights enter a rank's dispatch through
+:func:`~repro_torch.dist._comm.copy_to`, so their gradients are the sum
+of every model rank's experts' parts; the output's ``psum`` and the
+aux's ``pmean`` pass their cotangents through.  The router, which each
+model rank runs whole, then gets the same gradient on every model rank,
+and each rank's gradient is that of the single-rank layer on its data
+shard, its own experts' slices included (a data-parallel step averages
+them over the data ranks).
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelCfg
-from repro_torch.dist._comm import axis_index, pmean, psum
+from repro_torch.dist._comm import (axis_index, copy_to, pmean_replicated,
+                                    psum_replicated)
 from repro_torch.dist.sharding import dp_axes
 from repro_torch.kernels.radix_topk import radix_topk
 from .blocks import activation, dtype_of, normal
@@ -225,6 +233,13 @@ def _local_experts(cfg: ModelCfg, p, mesh) -> dict:
     return {k: p[k][lo:lo + count] for k in ("gate", "up", "down")}
 
 
+def is_expert_leaf(name: str) -> bool:
+    """Whether the parameter ``name`` holds experts, the leaves an
+    expert-parallel rank holds only in part."""
+    head, _, leaf = name.rpartition(".")
+    return head.endswith("moe") and leaf in ("gate", "up", "down")
+
+
 def shard_experts(cfg: ModelCfg, model, mesh):
     """Keep only this rank's experts in every MoE block of ``model``, in
     place (the rest is freed); returns the model."""
@@ -239,19 +254,20 @@ def shard_experts(cfg: ModelCfg, model, mesh):
 
 def _apply_moe_sharded(cfg: ModelCfg, p, x, mesh, need_aux=True):
     """EP on this rank: local route, local expert select and GEMMs, one
-    ``psum`` over ``model``; the aux ``pmean``-ed over every axis."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError("expert-parallel training is not ported: "
-                                  "the sharded path runs without autograd")
+    ``psum`` over ``model``; the aux ``pmean``-ed over every axis.  Under
+    autograd the dispatch's inputs sum their gradients over ``model``
+    (see the head of this module)."""
     lo, count = expert_slice(cfg, mesh)
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
     weights, expert_idx, probs = _route(cfg, p["router"], xf)
     c = capacity(cfg, t)
-    out = _dispatch_compute(cfg, _local_experts(cfg, p, mesh), xf, weights,
-                            expert_idx, lo, count, c)
-    out = psum(out, mesh, "model")
-    aux = (pmean(_aux_loss(cfg, probs, expert_idx), mesh,
-                 dp_axes(mesh) + ("model",)) if need_aux else None)
+    out = _dispatch_compute(cfg, _local_experts(cfg, p, mesh),
+                            copy_to(xf, mesh, "model"),
+                            copy_to(weights, mesh, "model"), expert_idx, lo,
+                            count, c)
+    out = psum_replicated(out, mesh, "model")
+    aux = (pmean_replicated(_aux_loss(cfg, probs, expert_idx), mesh,
+                            dp_axes(mesh) + ("model",)) if need_aux else None)
     return out.reshape(b, s, d), aux

@@ -381,12 +381,9 @@ class ShardedColskipBackend(Backend):
         self.mesh = mesh if mesh is not None else make_bank_mesh(
             axis_name=axis_name, device=device)
         self.device = self.mesh.device
-        if self.device.type == "cuda" and fuse not in colskip_ops.MESH_FUSES:
-            # refuse what the mesh kernel is not built for now, not at the
-            # first mesh tile
-            raise NotImplementedError(
-                f"fuse={fuse}: the mesh kernel is built for fuse in "
-                f"{colskip_ops.MESH_FUSES} (ROADMAP Queue 1)")
+        if fuse not in colskip_ops.MESH_FUSES:
+            # the reference's range check, now and not at the first tile
+            raise ValueError(f"fuse={fuse} out of range [1, 8]")
         # launcher keys carry the topology fingerprint, NOT the mesh object:
         # an equal mesh rebuilt after a restart must hit, not rebuild
         self._fingerprint = topology_fingerprint(self.mesh)

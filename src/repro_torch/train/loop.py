@@ -9,7 +9,10 @@ The port of ``repro/train/loop.py``.  Two step builders:
     error-feedback top-k compressed all-reduce
     (:func:`repro_torch.dist.compress.ef_topk_psum_tree`), whose global
     threshold is the paper's §IV multi-bank search; the residuals stay on
-    their rank in the ``"ef"`` slot of its state.
+    their rank in the ``"ef"`` slot of its state.  On a mesh with a
+    ``model`` axis of more than one rank the MoE layers also run expert
+    parallel, each rank holding only its experts: the reference's
+    ``make_train_step(cfg, act_specs=act_specs(mesh))`` under its mesh.
 
 The state is ``{"model": the family's model (trainable), "opt": {"master",
 "m", "v": dicts keyed by parameter name, "step": int32}}``, and a step
@@ -32,10 +35,11 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelCfg
-from repro_torch.dist._comm import axis_index, axis_size, pmean
+from repro_torch.dist._comm import axis_index, axis_size, pmean, psum
 from repro_torch.dist.compress import ef_topk_psum_tree
+from repro_torch.dist.sharding import act_specs as mesh_act_specs
 from repro_torch.dist.sharding import stacked_shapes
-from repro_torch.models import api
+from repro_torch.models import api, moe
 from repro_torch.models.convert import stack_layers, unstack_layers
 from .optimizer import adamw_init, adamw_update, cosine_lr
 
@@ -49,13 +53,13 @@ def init_state(cfg: ModelCfg, seed: int = 0, device="cuda") -> TrainState:
     return {"model": model, "opt": adamw_init(model.named_parameters())}
 
 
-def _grads(cfg: ModelCfg, model, batch):
+def _grads(cfg: ModelCfg, model, batch, act_specs=None):
     """Loss, metrics and every parameter's gradient (zeros where the loss
     does not reach a parameter, as ``jax.grad`` gives)."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
-    total, metrics = api.loss(cfg, model, batch)
+    total, metrics = api.loss(cfg, model, batch, act_specs=act_specs)
     total.backward()
     grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
              for n, p in params.items()}
@@ -74,22 +78,27 @@ def _slice(batch, i: int, n: int):
     return {k: one(v) for k, v in batch.items()}
 
 
-def make_train_step(cfg: ModelCfg, *, peak_lr=3e-4, warmup=100,
-                    total_steps=10_000, weight_decay=0.1, clip=1.0,
-                    microbatches=1, grad_reduce=None):
+def make_train_step(cfg: ModelCfg, *, act_specs=None, peak_lr=3e-4,
+                    warmup=100, total_steps=10_000, weight_decay=0.1,
+                    clip=1.0, microbatches=1, grad_reduce=None,
+                    grad_norm=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; metrics
     are 0-d float32 tensors on the model's device: ``loss``, ``lr``,
-    ``grad_norm`` and ``ce``."""
+    ``grad_norm`` and ``ce``.  ``act_specs`` goes to the loss (a mesh with
+    a ``model`` axis runs the MoE layers expert parallel);
+    ``grad_norm(grads)`` gives the norm the clip reads when a rank holds
+    some leaves in part."""
 
     def train_step(state: TrainState, batch):
         model = state["model"]
         if microbatches == 1:
-            total, metrics, grads = _grads(cfg, model, batch)
+            total, metrics, grads = _grads(cfg, model, batch, act_specs)
         else:
             grads, total = None, 0.0
             for i in range(microbatches):
                 loss_i, _, g = _grads(cfg, model,
-                                      _slice(batch, i, microbatches))
+                                      _slice(batch, i, microbatches),
+                                      act_specs)
                 total = total + loss_i
                 if grads is None:
                     grads = {n: t.float() for n, t in g.items()}
@@ -107,7 +116,8 @@ def make_train_step(cfg: ModelCfg, *, peak_lr=3e-4, warmup=100,
         lr = cosine_lr(opt["step"] + 1, peak=peak_lr, warmup=warmup,
                        total=total_steps).to(total.device)
         gnorm = adamw_update(dict(model.named_parameters()), grads, opt,
-                             lr=lr, weight_decay=weight_decay, clip=clip)
+                             lr=lr, weight_decay=weight_decay, clip=clip,
+                             gnorm=grad_norm(grads) if grad_norm else None)
         return state, {"loss": total, "lr": lr, "grad_norm": gnorm,
                        **metrics}
 
@@ -123,8 +133,17 @@ def init_dp_state(cfg: ModelCfg, seed: int, mesh, *, axis_name="data",
     With ``compress=True`` the state carries an ``"ef"`` dict of this
     rank's float32 error-feedback residuals, zeros, one for each of the
     reference's leaves (``convert.stack_layers``: the layers stacked, so
-    a leaf's top-k runs over all its layers, as the reference's does)."""
+    a leaf's top-k runs over all its layers, as the reference's does).
+    On a mesh with a ``model`` axis of more than one rank the model keeps
+    only this rank's experts (:func:`~repro_torch.models.moe.shard_experts`)
+    and the optimizer only their slots."""
     state = init_state(cfg, seed=seed, device=mesh.device)
+    if _expert_parallel(cfg, mesh):
+        if compress:
+            raise ValueError("the compressed all-reduce takes replicated "
+                             "leaves: no expert-parallel mesh")
+        moe.shard_experts(cfg, state["model"], mesh)
+        state["opt"] = adamw_init(state["model"].named_parameters())
     if compress:
         state["ef"] = {path: torch.zeros(shape, dtype=torch.float32,
                                          device=mesh.device)
@@ -147,8 +166,21 @@ def make_dp_train_step(cfg: ModelCfg, mesh, *, axis_name="data",
     within the sum's order, for float32 leaves; a bf16 leaf's plain mean
     rounds each partial sum where the compressed one rounds once.  The
     metrics are ``pmean``-ed.  ``kw`` goes to :func:`make_train_step`.
-    Build the state with :func:`init_dp_state`."""
+    Build the state with :func:`init_dp_state`.
+
+    With a ``model`` axis of more than one rank (a MoE config) the step
+    is expert parallel: the loss gets the mesh's ``act_specs``, each
+    rank's grads are those of its data shard (its experts' in full, the
+    rest the same on every model rank), the ``pmean`` over ``axis_name``
+    averages them, and the clip reads the global norm, the expert
+    leaves' squares summed over ``model``."""
     n = axis_size(mesh, axis_name)
+    if _expert_parallel(cfg, mesh):
+        if compress_ratio is not None:
+            raise ValueError("the compressed all-reduce takes replicated "
+                             "leaves: no expert-parallel mesh")
+        kw = {"act_specs": mesh_act_specs(mesh),
+              "grad_norm": lambda grads: _ep_norm(grads, mesh), **kw}
 
     def grad_reduce(grads, state):
         if compress_ratio is None:
@@ -169,3 +201,20 @@ def make_dp_train_step(cfg: ModelCfg, mesh, *, axis_name="data",
                        for k, v in metrics.items()}
 
     return step
+
+
+def _expert_parallel(cfg: ModelCfg, mesh) -> bool:
+    return (cfg.moe is not None and "model" in mesh.axis_names
+            and mesh.shape["model"] > 1)
+
+
+def _ep_norm(grads, mesh) -> torch.Tensor:
+    """The global norm of an expert-parallel rank's grads: the expert
+    leaves' squares summed over ``model`` (one collective), the rest,
+    the same on every model rank, counted once."""
+    sq = {True: 0.0, False: 0.0}
+    for name, g in grads.items():
+        sq[moe.is_expert_leaf(name)] += torch.sum(torch.square(g.float()))
+    experts = torch.as_tensor(sq[True], dtype=torch.float32,
+                              device=mesh.device)
+    return torch.sqrt(sq[False] + psum(experts, mesh, "model"))

@@ -58,14 +58,16 @@ def global_norm(grads) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(params, grads, opt, *, lr, b1=0.9, b2=0.95, eps=1e-8,
-                 weight_decay=0.1, clip=1.0) -> torch.Tensor:
+                 weight_decay=0.1, clip=1.0, gnorm=None) -> torch.Tensor:
     """One AdamW step in place: ``opt``'s slots and ``step``, and each
     tensor of ``params`` (a mapping) set to its new master value in its
     own dtype.  ``grads`` maps every name of ``params`` to its gradient,
-    in any float dtype.  ``lr``: a float or a 0-d tensor.  Returns the
-    global norm of the unclipped grads."""
+    in any float dtype.  ``lr``: a float or a 0-d tensor.  ``gnorm``, the
+    global norm the clip reads, is ``global_norm(grads)`` unless given
+    (a rank that holds some leaves in part).  Returns it."""
     opt["step"] += 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(clip / (gnorm + 1e-9), max=1.0)
     step = opt["step"].float()
     c1 = 1 - b1 ** step

@@ -178,6 +178,53 @@ def moe_ep(inp):
             "ids": np.asarray(ids)}
 
 
+def ep_train(inp):
+    """The reference's expert-parallel layer and train step on a (data 2,
+    model 2) mesh: ``jax.grad`` of ``sum(out * ct) / 2 + aux`` (the mean
+    over the two data shards of each shard's ``sum(out * ct)``) through
+    the ``shard_map`` layer and through the auto layer, and one
+    ``make_train_step(cfg, act_specs=...)`` step under the mesh."""
+    import dataclasses
+    from repro.configs import get_config
+    from repro.dist import sharding as shd
+    from repro.models.moe import _route, apply_moe
+    from repro.train.loop import make_train_step
+    from repro.train.optimizer import adamw_init
+    cfg0 = get_config("qwen3-moe-235b-a22b", smoke=True)
+    cfg = dataclasses.replace(cfg0, moe=dataclasses.replace(
+        cfg0.moe, n_experts=16, capacity_factor=8.0))
+    p = {k: jnp.asarray(v) for k, v in inp["params"].items()}
+    x, ct = jnp.asarray(inp["x"]), jnp.asarray(inp["ct"])
+    mesh = jax.make_mesh((2, 2), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    aspecs = shd.act_specs(mesh)
+
+    def objective(specs):
+        def f(x, p):
+            y, aux = apply_moe(cfg, p, x, act_specs=specs)
+            return jnp.sum(y * ct) / 2 + aux
+        return jax.jit(jax.grad(f, argnums=(0, 1)))
+
+    out = {"ids": np.asarray(_route(cfg, p["router"],
+                                    x.reshape(-1, cfg.d_model))[1])}
+    with mesh:
+        gx, gp = objective(aspecs)(x, p)
+    out.update(ep_g_x=np.asarray(gx),
+               **{f"ep_g_{k}": np.asarray(v) for k, v in gp.items()})
+    gx, gp = objective(None)(x, p)
+    out.update(auto_g_x=np.asarray(gx),
+               **{f"auto_g_{k}": np.asarray(v) for k, v in gp.items()})
+
+    params = jax.tree.map(jnp.asarray, inp["model"])
+    state = {"params": params, "opt": adamw_init(params)}
+    batch = {"tokens": jnp.asarray(inp["tokens"], jnp.int32)}
+    with mesh:
+        st, m = jax.jit(make_train_step(cfg, act_specs=aspecs))(state, batch)
+    out.update(step_params=flat(st["params"]), step_loss=float(m["loss"]),
+               step_gnorm=float(m["grad_norm"]))
+    return out
+
+
 if __name__ == "__main__":
     with open(os.path.join(DIR, "in.pkl"), "rb") as f:
         inputs = pickle.load(f)

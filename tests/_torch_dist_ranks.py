@@ -28,7 +28,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
 from repro_torch.dist import _comm  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh, make_mesh, spawn  # noqa: E402
 
-WORLD = {"distsort": 8, "compress": 4, "dp_train": 4, "moe_ep": 8}
+WORLD = {"distsort": 8, "compress": 4, "dp_train": 4, "moe_ep": 8,
+         "ep_train": 4, "bankmesh": 4}
 
 
 def _t(a, dev):
@@ -328,6 +329,123 @@ def case_moe_ep(rank, inp, device):
         full = api.init(gcfg, seed=0, device=dev)
         out["greedy_one"] = _np(generate(gcfg, full, prompts,
                                          max_new_tokens=4, top_k=1))
+    return out
+
+
+# ---------------------------------------------------------------- EP train
+
+def ep_train_cfg():
+    """qwen3-moe-235b-a22b at smoke size with 16 experts (8 on each of two
+    model ranks, none of them padding) and capacity factor 8."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-moe-235b-a22b", smoke=True)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=16, capacity_factor=8.0))
+
+
+def _layer_grads(cfg, p, x, ct, act_specs=None):
+    """The MoE layer's output, aux, expert ids and the grads of
+    ``sum(out * ct) + aux`` with respect to ``x`` and every leaf of ``p``."""
+    from repro_torch.models import moe
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in p.items()}
+    xg = x.detach().clone().requires_grad_(True)
+    y, aux = moe.apply_moe(cfg, leaves, xg, act_specs=act_specs)
+    ((y * ct).sum() + aux).backward()
+    ids = moe._route(cfg, leaves["router"], x.reshape(-1, cfg.d_model))[1]
+    return {"y": _np(y), "aux": float(aux), "ids": _np(ids),
+            "g_x": _np(xg.grad),
+            **{f"g_{k}": _np(v.grad) for k, v in leaves.items()}}
+
+
+def case_ep_train(rank, inp, device):
+    """The expert-parallel MoE layer under autograd on a (data 2, model 2)
+    mesh against the single-rank layer on this rank's data shard, then one
+    expert-parallel train step of the whole model (``make_dp_train_step``
+    on that mesh, each rank holding only its experts) and the plain data
+    parallel step of the same ranks on a (data 2, rep 2) mesh."""
+    from repro_torch.dist.sharding import act_specs
+    from repro_torch.models import api, convert, moe
+    from repro_torch.train import (adamw_init, init_state, loop,
+                                   make_dp_train_step)
+    _setup()
+    cfg = ep_train_cfg()
+    mesh = make_mesh((2, 2), ("data", "model"), device=device)
+    dev = mesh.device
+    d = _comm.axis_index(mesh, "data")
+    p = {k: _t(v, dev) for k, v in inp["params"].items()}
+    xl = _t(inp["x"], dev)[2 * d:2 * d + 2]
+    ctl = _t(inp["ct"], dev)[2 * d:2 * d + 2]
+    out = {"data": d, "model": _comm.axis_index(mesh, "model"),
+           "slice": moe.expert_slice(cfg, mesh)}
+    _comm.reset_collectives()
+    out.update({f"ep_{k}": v for k, v in _layer_grads(
+        cfg, p, xl, ctl, act_specs(mesh)).items()})
+    out["ep_collectives"] = _comm.collectives
+    out.update({f"one_{k}": v for k, v in _layer_grads(
+        cfg, p, xl, ctl).items()})
+
+    tokens = _t(inp["tokens"], dev)
+
+    def run(tag, step, st):
+        """One step, recording the grads ``adamw_update`` got."""
+        update = loop.adamw_update
+
+        def capture(params, grads, opt, **kw):
+            out[f"{tag}_grads"] = {k: _np(g) for k, g in grads.items()}
+            return update(params, grads, opt, **kw)
+
+        loop.adamw_update = capture
+        try:
+            st, m = step(st, {"tokens": tokens})
+        finally:
+            loop.adamw_update = update
+        out.update({f"{tag}_params": {n: _np(t) for n, t in
+                                      st["model"].named_parameters()},
+                    f"{tag}_loss": float(m["loss"]),
+                    f"{tag}_gnorm": float(m["grad_norm"])})
+
+    def fresh(shard):
+        st = init_state(cfg, seed=0, device=dev)
+        convert.load_tree(cfg, dict(st["model"].named_parameters()),
+                          inp["model"])
+        if shard:
+            moe.shard_experts(cfg, st["model"], mesh)
+        st["opt"] = adamw_init(st["model"].named_parameters())
+        return st
+
+    run("step", make_dp_train_step(cfg, mesh), fresh(True))
+    # the same ranks as data parallelism alone: every rank all experts
+    rep = make_mesh((2, 2), ("data", "rep"), device=device)
+    run("dp", make_dp_train_step(cfg, rep), fresh(False))
+    return out
+
+
+# ---------------------------------------------------------------- bank mesh
+
+def case_bankmesh(rank, inp, device):
+    """The §IV bank mesh over ranks (``dist/bankmesh.py:sharded_tile_fn``):
+    each of ``inp["tiles"]`` on 4 banks, one a rank, over the one-axis
+    ``banks`` mesh or the (hosts 2, banks 2) tuple; the outputs and the
+    collectives each tile made."""
+    from repro_torch.dist.bankmesh import sharded_tile_fn
+    _setup()
+    meshes = {"banks": make_mesh((4,), ("banks",), device=device),
+              "hosts": make_mesh((2, 2), ("hosts", "banks"), device=device)}
+    out = []
+    for t in inp["tiles"]:
+        mesh = meshes[t["axes"]]
+        axes = "banks" if t["axes"] == "banks" else ("hosts", "banks")
+        x = t["x"]
+        fn = sharded_tile_fn(mesh, axes, t["w"], t["k"],
+                             t["stop"] or x.shape[1], t["packed"], t["fuse"])
+        _comm.reset_collectives()
+        got = fn(_t(x.view(np.int32), mesh.device))
+        out.append({"outs": [_np(g.view(torch.int32) if g.dtype ==
+                                 torch.uint32 else g) for g in got],
+                    "collectives": _comm.collectives,
+                    "collective_s": _comm.collective_s})
     return out
 
 

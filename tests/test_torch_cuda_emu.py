@@ -12,8 +12,9 @@ in registers or shared memory, and the rolled one-warp shared-memory
 instance), also built at those fusion depths; the chain probes; the radix
 threshold kernel (a cluster of 8 blocks a tile, both entries, the
 streamed instance); the bitonic kernel in one block and in clusters of 2 and 4 blocks; and the
-mesh kernel (a cluster of 2, 4 or 8 CTAs a row, each a bank, the gates
-an exchange through the cluster's shared memory) against the plain mesh
+mesh kernel (a cluster of 2, 3, 4 or 8 CTAs a row, each a bank, the gates
+an exchange through the cluster's shared memory, fuse 1 to 8) against the
+plain mesh
 and its chain probe.  Every output must equal the plain version's
 exactly.  Shapes are small: an
 emulated warp round costs microseconds of barriers.
@@ -297,48 +298,87 @@ def _mesh(lib, x: np.ndarray, banks: int, w: int, k: int, stop: int,
     return [vals.view(torch.uint32), order, crs, cyc], rounds
 
 
+def _mesh_case(packed, banks, fuse, k, stop, b, n, dupes, w=32):
+    """A mesh case; rows of ``w`` < 32 bits add ``-w<w>`` to its id."""
+    vals = (packed, banks, fuse, k, stop, b, n, dupes)
+    return pytest.param(*vals, w, id="-".join(map(str, vals))
+                        + ("" if w == 32 else f"-w{w}"))
+
+
 # the mesh kernels: clusters of 2, 4 and 8 CTAs (and 3, a cluster size
-# that is not a power of two), fuse in {1, 2, 4}, k in {0, 1, 2, 8},
-# stop_after in {1, 16, N}, duplicates; the packed carrier's register path
-# (shards up to 2048) and shared path (a shard of 2500), the dense
-# carrier's register instances (four warps a bank, C = 4, 8, 16; the
-# table in registers at k <= 2) and its rolled shared-memory instance
-# (one warp, shards past 2048); against the plain mesh, exactly
-@pytest.mark.parametrize("packed,banks,fuse,k,stop,b,n,dupes", [
-    (True, 2, 1, 2, None, 2, 64, False), (True, 4, 2, 0, None, 2, 128, True),
-    (True, 8, 4, 8, 16, 3, 256, False), (True, 2, 4, 1, 1, 2, 96, True),
-    (True, 4, 1, 8, None, 1, 200, True), (True, 8, 2, 2, None, 2, 128, False),
-    (True, 3, 2, 2, 16, 2, 96, False), (True, 8, 1, 0, 1, 1, 64, False),
-    (True, 4, 4, 2, None, 2, 160, True), (True, 2, 2, 8, 16, 1, 5000, False),
-    (True, 2, 1, 1, None, 1, 192, False), (True, 4, 2, 2, 16, 2, 4096, True),
-    (False, 2, 2, 2, None, 2, 128, False),         # C = 4
-    (False, 4, 1, 8, None, 2, 160, True),          # table in shared memory
-    (False, 8, 4, 0, 16, 3, 256, False), (False, 3, 2, 1, 1, 2, 96, True),
-    (False, 2, 2, 2, 16, 2, 2048, False),          # C = 8
-    (False, 2, 4, 8, 16, 1, 4096, True),           # C = 16
-    (False, 2, 1, 2, 16, 1, 4200, False),          # rolled, shards of 2100
-    (False, 4, 2, 1, None, 1, 8400, True),         # rolled, full sort
+# that is not a power of two), fuse 1 to 8 (3, 5, 6, 7: a ragged top
+# block; 6, 7, 8: a pattern set of 2, 4, 8 words), k in {0, 1, 2, 8},
+# stop_after in {1, 16, N}, duplicates, rows of fewer than 32 bits; the
+# packed carrier's register path (shards up to 2048) and shared path (a
+# shard of 2500), the dense carrier's register instances (four warps a
+# bank, C = 4, 8, 16; the table in registers at k <= 2) and its rolled
+# shared-memory instance (one warp, shards past 2048); against the plain
+# mesh, exactly
+@pytest.mark.parametrize("packed,banks,fuse,k,stop,b,n,dupes,w", [
+    _mesh_case(True, 2, 1, 2, None, 2, 64, False),
+    _mesh_case(True, 4, 2, 0, None, 2, 128, True),
+    _mesh_case(True, 8, 4, 8, 16, 3, 256, False),
+    _mesh_case(True, 2, 4, 1, 1, 2, 96, True),
+    _mesh_case(True, 4, 1, 8, None, 1, 200, True),
+    _mesh_case(True, 8, 2, 2, None, 2, 128, False),
+    _mesh_case(True, 3, 2, 2, 16, 2, 96, False),
+    _mesh_case(True, 8, 1, 0, 1, 1, 64, False),
+    _mesh_case(True, 4, 4, 2, None, 2, 160, True),
+    _mesh_case(True, 2, 2, 8, 16, 1, 5000, False),
+    _mesh_case(True, 2, 1, 1, None, 1, 192, False),
+    _mesh_case(True, 4, 2, 2, 16, 2, 4096, True),
+    _mesh_case(False, 2, 2, 2, None, 2, 128, False),    # C = 4
+    _mesh_case(False, 4, 1, 8, None, 2, 160, True),     # table in shared
+    _mesh_case(False, 8, 4, 0, 16, 3, 256, False),
+    _mesh_case(False, 3, 2, 1, 1, 2, 96, True),
+    _mesh_case(False, 2, 2, 2, 16, 2, 2048, False),     # C = 8
+    _mesh_case(False, 2, 4, 8, 16, 1, 4096, True),      # C = 16
+    _mesh_case(False, 2, 1, 2, 16, 1, 4200, False),     # rolled, 2100
+    _mesh_case(False, 4, 2, 1, None, 1, 8400, True),    # rolled, full sort
+    _mesh_case(True, 2, 3, 1, None, 2, 96, True),
+    _mesh_case(True, 8, 3, 8, 16, 1, 256, False, w=24),
+    _mesh_case(True, 3, 5, 0, None, 2, 96, False, w=17),
+    _mesh_case(True, 8, 5, 2, 16, 1, 512, True),
+    _mesh_case(True, 2, 5, 8, 16, 1, 5000, False),      # shared path
+    _mesh_case(True, 2, 6, 8, None, 1, 160, False),
+    _mesh_case(True, 3, 6, 1, 1, 2, 96, True),
+    _mesh_case(True, 8, 7, 0, 16, 2, 256, False, w=20),
+    _mesh_case(True, 2, 7, 2, None, 2, 128, True),
+    _mesh_case(True, 8, 8, 1, None, 1, 64, False),
+    _mesh_case(True, 2, 8, 2, 16, 1, 5000, True),       # shared path
+    _mesh_case(True, 3, 8, 8, 16, 1, 96, False, w=12),
+    _mesh_case(False, 2, 3, 2, None, 2, 128, False, w=24),
+    _mesh_case(False, 8, 3, 0, 16, 2, 256, True),
+    _mesh_case(False, 3, 5, 8, None, 1, 96, False),
+    _mesh_case(False, 2, 5, 1, 16, 1, 4200, True),      # rolled
+    _mesh_case(False, 8, 6, 2, None, 1, 256, True, w=16),
+    _mesh_case(False, 3, 7, 1, 1, 2, 96, False),
+    _mesh_case(False, 2, 7, 8, 16, 1, 2048, False),     # C = 8
+    _mesh_case(False, 8, 8, 0, None, 2, 64, False),
+    _mesh_case(False, 2, 8, 2, 16, 1, 4096, True),      # C = 16
+    _mesh_case(False, 4, 8, 1, 16, 1, 8400, False),     # rolled
 ])
 def test_emulated_mesh_kernel_equals_plain_mesh(libs, packed, banks, fuse, k,
-                                                stop, b, n, dupes):
-    x = _rows(b, n, 32, dupes, 11 * banks + fuse + k)
+                                                stop, b, n, dupes, w):
+    x = _rows(b, n, w, dupes, 11 * banks + fuse + k)
     s = n if stop is None else stop
-    got, rounds = _mesh(libs["mesh"], x, banks, 32, k, s, fuse, packed)
-    _same(got, colskip_ref.sort_mesh_ref(torch.from_numpy(x), banks, 32, k,
+    got, rounds = _mesh(libs["mesh"], x, banks, w, k, s, fuse, packed)
+    _same(got, colskip_ref.sort_mesh_ref(torch.from_numpy(x), banks, w, k,
                                          s, packed=packed, fuse=fuse))
     # the kernel's own exchanges stay within the reference's static account
-    assert 0 < int(rounds.max()) <= collective_rounds(32, s, fuse)["rounds"]
+    assert 0 < int(rounds.max()) <= collective_rounds(w, s, fuse)["rounds"]
 
 
 def test_emulated_mesh_kernel_fuses_rounds(libs):
-    # the same rows at fuse 1, 2, 4: the same outputs, fewer exchanges
+    # the same rows at fuse 1 to 8: the same outputs, fewer exchanges from
+    # 1 to 2 to 4 to 8
     x = _rows(2, 128, 32, False, 5)
     outs, rounds = zip(*(_mesh(libs["mesh"], x, 4, 32, 2, 128, f)
-                         for f in (1, 2, 4)))
+                         for f in range(1, 9)))
     for out in outs[1:]:
         _same(out, outs[0])
     r = [int(t.sum()) for t in rounds]
-    assert r[0] > r[1] > r[2] > 0
+    assert r[0] > r[1] > r[3] > r[7] > 0
 
 
 @pytest.mark.parametrize("banks", [1, 2, 8])

@@ -253,11 +253,22 @@ def test_mesh_kernel_equals_local_kernel_and_plain_mesh(cuda, packed, banks,
 
 
 def test_mesh_kernel_refuses_what_it_is_not_built_for(cuda):
-    from repro_torch.kernels.colskip import ops
+    from repro_torch.kernels.colskip import ops, ref
     x = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    rows = np.random.default_rng(3).integers(0, 1 << 32, (2, 96),
+                                             dtype=np.uint64).astype(np.uint32)
     for packed in (True, False):
-        with pytest.raises(NotImplementedError, match="fuse"):
-            ops.colskip_sort_mesh_batched(x, 4, fuse=3, packed=packed)
+        # the reference's range: fuse 0 and 9 refused, 3 and 8 run
+        for bad in (0, 9):
+            with pytest.raises(ValueError, match="fuse"):
+                ops.colskip_sort_mesh_batched(x, 4, fuse=bad, packed=packed)
+        for fuse in (3, 8):
+            got = ops.colskip_sort_mesh_batched(
+                torch.from_numpy(rows).to(cuda), 3, fuse=fuse, packed=packed)
+            want = ref.sort_mesh_ref(torch.from_numpy(rows), 3, fuse=fuse,
+                                     packed=packed)
+            for g, v in zip(got, want):
+                assert torch.equal(_words(g), _words(v))
         wide = ops.mesh_shard_max(packed, 2) * 2 + 64
         with pytest.raises(ValueError, match="shard"):
             ops.colskip_sort_mesh_batched(

@@ -4,6 +4,8 @@
     kernels' register instances (packed: WPL 1 and 2; dense: C = 4 .. 64
     elements a thread) from an ``-Xptxas -v`` report and ignores every
     other kernel and instance, so a spill there fails the run;
+    ``mesh_spills`` names the mesh kernel instances that spill (printed,
+    not a gate);
   * ``_searches`` counts the min searches a full sort of each row makes
     (its distinct values), the factor of the restated colskip bound;
   * the build keeps each library's ``-Xptxas -v`` report beside it, so a
@@ -66,6 +68,20 @@ def test_register_path_spills_reads_the_dense_register_instances(
         assert got == {name: (4, 4) if spilled else (0, 0)}
 
 
+def test_mesh_spills_name_each_spilling_mesh_instance(smoke):
+    packed = ("_ZN48_GLOBAL__N__98f01702_15_colskip_mesh_cu_2fc1fb6219"
+              "colskip_mesh_kernelILi32ELi8EEEvPKjPjPiS4_S4_S4_iiiii")
+    dense = ("_ZN48_GLOBAL__N__98f01702_15_colskip_mesh_cu_2fc1fb6225"
+             "colskip_mesh_dense_kernelILi16ELb1ELi4ELi3EEEvPKjPjPiS4_S4_"
+             "S4_iiiii")
+    quiet = packed.replace("ILi32ELi8E", "ILi1ELi8E")
+    got = smoke.mesh_spills(_entry(packed, 20, 24) + _entry(dense, 4, 4)
+                            + _entry(quiet, 0, 0))
+    assert sorted(got) == ["colskip_mesh_dense_kernel<Li16ELb1ELi4ELi3E>",
+                           "colskip_mesh_kernel<Li32ELi8E>"]
+    assert "20 bytes spill stores" in got["colskip_mesh_kernel<Li32ELi8E>"]
+
+
 def test_searches_count_distinct_values_per_row(smoke):
     x = torch.from_numpy(np.array([[5, 5, 1, 0xFFFFFFFF],
                                    [2, 2, 2, 2]], dtype=np.uint32))
@@ -95,6 +111,36 @@ def test_build_keeps_the_ptxas_report_beside_the_library(tmp_path,
     lib.with_suffix(".log").unlink()           # a library with no report
     assert _build.build_all() == first
     assert (tmp_path / "calls").read_text().count("call") == 2
+
+
+def test_build_compiles_a_parted_library_side_by_side(tmp_path,
+                                                      monkeypatch):
+    # a library of PARTS builds as one object a part (its -D<NAME>_PART),
+    # then one link of them; the report holds every part's
+    from repro_torch.kernels import _build
+    src = tmp_path / "csrc" / "toy.cu"
+    src.parent.mkdir()
+    src.write_text("// toy\n")
+    nvcc = tmp_path / "nvcc"                   # writes -o, logs its args
+    nvcc.write_text("#!/bin/sh\necho \"$@\" >> \"$(dirname \"$0\")/calls\"\n"
+                    "while [ $# -gt 0 ]; do\n"
+                    "  if [ \"$1\" = -o ]; then echo lib > \"$2\"; fi\n"
+                    "  shift\ndone\necho \"ptxas info: part\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "sources", lambda: {"toy": src})
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "PARTS", {"toy": 3})
+    log = _build.build_all()["toy"]
+    calls = (tmp_path / "calls").read_text().splitlines()
+    assert len(calls) == 4 and log.count("ptxas info: part") == 4
+    for p, call in enumerate(calls[:3]):
+        assert f"-DTOY_PARTS=3 -DTOY_PART={p}" in call and " -c " in call
+        assert "-shared" not in call
+    link = calls[3].split()
+    assert link[0] == "-shared" and len(link) == 6     # -o lib, 3 objects
+    assert _build._lib_path(src).exists()
+    assert not list((tmp_path / "build").glob("*.o"))
 
 
 def test_persistent_counts_read_the_launcher_line(smoke):

@@ -20,7 +20,10 @@
   * the reference's two dry-run cases (whisper-tiny ``decode_32k`` ok,
     qwen1.5-32b ``long_500k`` skipped) and granite-moe-3b-a800m
     ``train_4k``, which takes the MoE router's radix selection on
-    ``meta``, each in a subprocess.
+    ``meta``, each in a subprocess; the collective bytes of the first
+    against the reference's dry-run of the same cell (kinds, and the total
+    and the all-gathers within a factor of 2), and of the last's weights
+    exactly against the count from ``param_specs``.
 """
 
 import importlib
@@ -222,16 +225,45 @@ def _dryrun(tmp_path, arch, shape, timeout):
     return json.loads((tmp_path / f"{arch}_{shape}_single.json").read_text())
 
 
+COLL_FACTOR = 2.0    # the port's collective bytes against XLA's, either way
+
+
 def test_dryrun_cell_whisper_decode(tmp_path):
     rec = _dryrun(tmp_path, "whisper-tiny", "decode_32k", 300)
     assert rec["status"] == "ok"
     rl = rec["roofline"]
     assert rl["flops"] > 0 and rl["hbm_bytes"] > 0
-    assert rl["bottleneck"] in ("compute", "memory")
+    assert rl["bottleneck"] in ("compute", "memory", "collective")
     assert rec["mem"]["args_gb"] > 0
-    assert rec["mem"]["temp_gb"] is None and rec["collectives"] is None
-    assert set(rec["null_reasons"]) == {"temp_gb", "collectives"}
+    assert rec["mem"]["temp_gb"] is None
+    assert set(rec["null_reasons"]) == {"temp_gb"}
     assert "FlopCounterMode" in rec["flops_counted_by"]
+    # the collective bytes against the reference's, read from XLA's
+    # partitioned HLO of the same cell (one subprocess).  Both gather the
+    # weights and all-reduce the row-parallel outputs; XLA's partitioner
+    # adds an all-to-all and a collective-permute of its own reshardings,
+    # which a runtime that follows the specs does not make
+    coll = rec["collectives"]
+    ref_dir = tmp_path / "ref"
+    out = subprocess.run(
+        [sys.executable, "-m", "repro.launch.dryrun", "--arch",
+         "whisper-tiny", "--shape", "decode_32k", "--mesh", "single",
+         "--out", str(ref_dir)], capture_output=True, text=True,
+        timeout=300, cwd=tmp_path,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr[-3000:]
+    ref = json.loads((ref_dir / "whisper-tiny_decode_32k_single.json")
+                     .read_text())
+    kinds = set(dryrun.COLLECTIVE_KINDS)
+    assert set(coll) - {"count", "total"} == {"all-gather", "all-reduce"}
+    assert set(ref["collectives"]) - {"count", "total"} <= kinds
+    assert {"all-gather", "all-reduce"} <= set(ref["collectives"])
+    assert coll["total"] == sum(coll[k] for k in set(coll) & kinds)
+    for got, want in ((coll["total"], ref["roofline"]["coll_bytes"]),
+                      (coll["all-gather"], ref["collectives"]["all-gather"])):
+        assert want / COLL_FACTOR <= got <= want * COLL_FACTOR, (got, want)
+    assert rl["coll_bytes"] == coll["total"]
+    assert rl["t_collective"] == coll["total"] / 900e9
 
 
 def test_dryrun_skip_cell_records_reason(tmp_path):
@@ -249,3 +281,29 @@ def test_dryrun_moe_train_cell_on_meta(tmp_path):
     assert rl["model_flops"] == dryrun._model_flops(
         get_config("granite-moe-3b-a800m"), SHAPES["train_4k"])
     assert rec["microbatches"] >= 1 and rec["mem"]["args_gb"] > 0
+    # the weight collectives, exactly the count from param_specs: one
+    # all-gather of each leaf sharded on data (to its model shard) and one
+    # reduce-scatter of its grad; every other grad all-reduced over data
+    cfg = get_config("granite-moe-3b-a800m")
+    model = api.model_class(cfg)(cfg, device="meta")
+    sizes = {"data": 16, "model": 16}
+    specs = dryrun.shd.param_specs(model, axis_sizes=sizes)
+    gather = scatter = reduce = leaves = fsdp = 0
+    for path, (shape, dtype) in dryrun.shd.stacked_shapes(model).items():
+        axes = [a for e in specs[path] if e is not None
+                for a in (e if isinstance(e, tuple) else (e,))]
+        nbytes = math.prod(shape) * dtype.itemsize
+        on_model = nbytes // math.prod(sizes[a] for a in axes
+                                       if a == "model")
+        leaves += 1
+        if "data" in axes:
+            fsdp += 1
+            gather += on_model
+            scatter += on_model // sizes["data"]
+        else:
+            reduce += on_model
+    coll = rec["collectives"]
+    assert coll["all-gather"] == gather and coll["reduce-scatter"] == scatter
+    assert coll["all-reduce"] > reduce          # and the activations'
+    assert coll["count"] > fsdp + leaves
+    assert rl["coll_bytes"] == coll["total"] > 0
