@@ -28,7 +28,13 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
   4. hold the radix threshold kernel against its plain version (thresholds
      and ``visited``, exact) at (8, N) for N in {128, 4096, 16384}, k = N,
      a ragged B and constant rows, on the float32 and the sortable entry,
-     and on the streamed instance ((1, 65536), (3, 20000), sortable);
+     and on the streamed instance ((1, 65536), (3, 20000), sortable); its
+     narrow instance (rows of at most 1,024 words, a warp a row) on both
+     entries, the threshold and the fused top-k (values and indices),
+     each on float32 values and sortable words, at N in {1, 7, 32, 40,
+     64, 640, 1024}, k in {1, 8, N}, with ties, +-0.0 and -inf, and at
+     the train step's router rows (8192, 40), k = 8, every launch on the
+     narrow instance;
      and the bitonic kernel against its plain network and ``np.sort``
      (exact) at the reference's test shapes, at N in {1, 2, 8}, at every
      cluster size (N = 2^11 .. 2^15), past one cluster (2^16, 2^20: the
@@ -97,10 +103,12 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      top_k 16), rwkv6-1.6b (B = 8, 64, 32, 16), whisper-tiny (B = 4, 32,
      32, 16, on seeded normal frames) and qwen2-vl-7b (B = 2, 256, 16,
      64): with every launch count reset just before and read just after,
-     the radix launches equal the count the code implies; every
-     ``radix_topk`` call of the run (the MoE router's and the sampler's,
-     recorded by a wrapper this script installs) replayed through the
-     kernel's plain version on the card, values and indices exact; a
+     the radix launches equal the count the code implies, and every
+     router call and manager pass took the narrow instance's fused top-k
+     entry (one launch); every ``radix_topk`` call of the run (the MoE
+     router's and the sampler's, recorded by a wrapper this script
+     installs around both kernel entries) replayed through the kernel's
+     plain versions on the card, values and indices exact; a
      repeat run with the same generator gives the same tokens; every
      token is below ``vocab``; ``greedy`` equals ``torch.argmax`` on every
      step's logits.  Then the prompt's ms (prefill, or the whole warm-up),
@@ -112,7 +120,8 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      and unlike the 1-D positions' logits); and the radix kernel's rows at
      the path's shapes (the router's (512, 40) and (4, 40), the sampler's
      vocab rows of 2 to 16 banks), each beside its bound, launch floor,
-     plain version and ``torch.topk``;
+     plain version, ``torch.topk`` and the whole call, with the entry and
+     the instance of each launch;
   9. the training path (``repro_torch.train``, ``ckpt``, ``data``,
      ``launch.train``): the ten archs at smoke size in float32 with TF32
      off, one seeded CPU train state and its copy on the card, one
@@ -127,7 +136,8 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      granite-moe-3b-a800m (bf16, B = 2, S = 4,096, 4 steps, no
      checkpoint): with every launch count reset just before and read just
      after, the radix launches equal the count the code implies (2 x 32 a
-     step: each router and its recompute); the first step's router calls
+     step: each router and its recompute), all on the narrow instance;
+     the first step's router calls
      replayed through the kernel's plain version on the card (values and
      indices exact), the recompute's ids equal to the forward's; finite
      losses and grad norms; weights moved by step 1.  Then the step's ms
@@ -528,6 +538,60 @@ def hold_radix(torch, np) -> int:
                   f"errors (thresh, visited) {errs}")
         print(f"radix kernel == plain version: ({b}, {n}) k={k}, sortable "
               f"entry, streamed (rows past {ops.smem_n()} words)")
+    # the narrow instance: the threshold entry and the fused top-k entry,
+    # each on float32 values and on sortable words, at the CPU emulation's
+    # shapes and the train step's router rows, against their plain versions
+    # on the card (thresholds, visited, values bit for bit, indices)
+    if ops._lib().radix_narrow_n() != ops.NARROW_N:
+        _fail(f"radix_narrow_n() != ops.NARROW_N = {ops.NARROW_N}")
+    narrow = [(13, 1, 1, "normal"), (3, 7, 1, "dupes"), (13, 7, 7, "signed"),
+              (13, 32, 8, "dupes"), (3, 32, 32, "normal"),
+              (13, 40, 8, "dupes"), (9, 40, 1, "signed"),
+              (13, 40, 40, "normal"), (3, 64, 8, "signed"),
+              (13, 64, 64, "dupes"), (4, 64, 16, "normal"),
+              (3, 640, 8, "dupes"), (13, 640, 640, "signed"),
+              (2, 640, 64, "normal"), (3, 1024, 1, "signed"),
+              (1, 1024, 64, "normal"), (9, 1024, 1024, "dupes"),
+              (8192, 40, 8, "router")]
+    for b, n, k, data in narrow:
+        x = (rng.normal(size=(b, n)) * 100).astype(np.float32)
+        if data == "dupes":                    # many ties at the threshold
+            x = np.round(x / 60).astype(np.float32) * np.float32(60)
+        if data == "signed":
+            pick = rng.integers(0, 3, (b, n))
+            x = np.where(pick == 0, np.float32(0.0),
+                         np.where(pick == 1, np.float32(-0.0), x))
+            x[:, ::5] = -np.inf
+        if data == "router":                   # softmax rows, ties among them
+            x = torch.softmax(torch.from_numpy(x / 100), -1).numpy()
+            x[::7, :4] = x[::7, 4:8]
+        else:
+            if b > 2:
+                x[1] = np.float32(-2.5)        # a constant row
+            if b > 8:
+                x[8:] = np.float32(3.0)        # a constant ragged tile
+        xf = torch.from_numpy(x).to(dev)
+        u = to_uint32(to_sortable_uint(xf))
+        before = ops.instance_launches["narrow"]
+        got = [ops.threshold_f32(xf, k), ops.threshold_sortable(u, k),
+               ops.topk_narrow(xf, k), ops.topk_narrow(u, k)]
+        want_t = ref.threshold_ref(to_sortable_uint(xf), k)
+        want = [want_t, want_t, ops._plain_topk(xf, k),
+                ops._plain_topk(u, k)]
+        torch.cuda.synchronize()
+        if ops.instance_launches["narrow"] - before != 4:
+            _fail(f"radix at ({b}, {n}): not every launch took the narrow "
+                  f"instance: {ops.instance_launches}")
+        for what, g, w in zip(("threshold float32", "threshold sortable",
+                               "top-k float32", "top-k sortable"), got, want):
+            g, w = ([t.view(torch.int32) if t.dtype == torch.float32 else t
+                     for t in pair] for pair in (g, w))
+            worst = max(worst, _hold(f"radix narrow instance != plain at "
+                                     f"({b}, {n}) k={k} {data}, {what} "
+                                     "entry", g, w))
+    print(f"radix narrow instance == plain version, threshold and fused "
+          f"top-k entries, float32 and sortable: "
+          f"{[(b, n, k, d) for b, n, k, d in narrow]}")
     return worst
 
 
@@ -623,6 +687,7 @@ def serve(torch) -> dict:
     wall = time.perf_counter() - t0
     launches = {"colskip": colskip_ops.launches,
                 "radix_threshold": radix_ops.launches}
+    instances = dict(radix_ops.instance_launches)
     if rc != 0:
         _fail(f"sortserve smoke returned {rc}")
     telem = json.loads(telem_path.read_text())
@@ -634,7 +699,9 @@ def serve(torch) -> dict:
     print("tiles and wall seconds per backend: " + json.dumps(
         {k: {"tiles": v["tiles"], "wall_s": v["wall_s"]}
          for k, v in sorted(telem["per_backend"].items())}))
-    print(f"kernel launches in the smoke: {json.dumps(launches)}")
+    print(f"kernel launches in the smoke: {json.dumps(launches)}; radix "
+          f"by instance (tiles of at most {radix_ops.NARROW_N} words take "
+          f"the narrow one): {json.dumps(instances)}")
     for name, count in launches.items():
         if count <= 0:
             _fail(f"the smoke launched the {name} kernel {count} times")
@@ -1123,16 +1190,20 @@ def _patched(*triples):
 def _radix_recorder(calls: list):
     """Patches that record every ``radix_topk`` call of the router and the
     sampler as a dict: site, input, k, values, indices, the kernel's
-    launches and each launch's (input, k)."""
+    launches and each launch's (entry, input, k), the entry "threshold"
+    (``threshold_f32``) or "topk" (the fused ``topk_narrow``)."""
     from repro_torch.kernels.radix_topk import ops as radix_ops
     from repro_torch.models import moe
     from repro_torch.serve import sampler
-    threshold = radix_ops.threshold_f32
+    entries = {"threshold": radix_ops.threshold_f32,
+               "topk": radix_ops.topk_narrow}
     kernel_inputs = []
 
-    def threshold_rec(x, k):
-        kernel_inputs.append((x.detach().clone(), k))
-        return threshold(x, k)
+    def rec(entry):
+        def call(x, k):
+            kernel_inputs.append((entry, x.detach().clone(), k))
+            return entries[entry](x, k)
+        return call
 
     def recorder(site, fn):
         def call(x, k, **kw):
@@ -1146,20 +1217,32 @@ def _radix_recorder(calls: list):
             return vals, idx
         return call
 
-    return _patched((radix_ops, "threshold_f32", threshold_rec),
+    return _patched((radix_ops, "threshold_f32", rec("threshold")),
+                    (radix_ops, "topk_narrow", rec("topk")),
                     (moe, "radix_topk", recorder("router", moe.radix_topk)),
                     (sampler, "radix_topk",
                      recorder("sampler", sampler.radix_topk)))
 
 
-def _plain_threshold():
-    """Route ``radix_topk``'s threshold through the kernel's plain version
-    on the tensors' own device (the card)."""
+def _plain_kernel(entry: str):
+    """The plain version of a radix kernel entry ("threshold" or "topk"),
+    on the tensors' own device."""
     from repro_torch.core.topk import to_sortable_uint
     from repro_torch.kernels.radix_topk import ops as radix_ops
     from repro_torch.kernels.radix_topk import ref as radix_ref
-    return _patched((radix_ops, "threshold_f32", lambda x, k:
-                     radix_ref.threshold_ref(to_sortable_uint(x.float()), k)))
+    if entry == "topk":
+        return radix_ops._plain_topk
+    return lambda x, k: radix_ref.threshold_ref(to_sortable_uint(x.float()),
+                                                k)
+
+
+def _plain_threshold():
+    """Route ``radix_topk``'s kernel entries (the threshold and the fused
+    top-k) through their plain versions on the tensors' own device (the
+    card)."""
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    return _patched((radix_ops, "threshold_f32", _plain_kernel("threshold")),
+                    (radix_ops, "topk_narrow", _plain_kernel("topk")))
 
 
 def _reset_all_launches() -> None:
@@ -1275,6 +1358,23 @@ def _kernel_names(e) -> set:
     return names
 
 
+def _radix_kernels(prof, keep=lambda e: True) -> dict:
+    """Launches and device ms of the radix library's kernels in a
+    profile, by instance.  They are launched through ctypes, outside any
+    torch op, so the profiler links them to no annotated range: a label's
+    device time holds only its torch glue, and these sums hold the
+    kernels."""
+    out = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA") and "radix_" in e.name \
+                and keep(e):
+            key = "narrow" if "radix_narrow" in e.name else "block"
+            n, ms = out.get(key, (0, 0.0))
+            out[key] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return {k: {"launches": n, "device_ms": ms}
+            for k, (n, ms) in sorted(out.items())}
+
+
 def _attention_backends(names) -> list:
     """The SDPA backends a set of kernel names shows: flash, the
     memory-efficient (cutlass fmha) kernel, cuDNN, or the math path (a
@@ -1366,6 +1466,13 @@ def _profile_decode(torch, gen, steps: int, warm: bool) -> dict:
         for e in _cpu_events(prof, label):
             names |= _kernel_names(e)
         out[f"{label}_backends"] = _attention_backends(names)
+    # the radix kernels that ran on the device from the first decode step
+    # on: the steps' router calls and the samples between them
+    out["radix_kernels"] = {
+        k: {"launches_a_step": v["launches"] / steps,
+            "device_ms_a_step": v["device_ms"] / steps}
+        for k, v in _radix_kernels(
+            prof, lambda e: e.time_range.start >= spans[0][0]).items()}
     return out
 
 
@@ -1489,6 +1596,16 @@ def run_model(torch, np, card, arch, b, s, new, top_k, top_p) -> dict:
           f" + sampler {new} x {per_sample} (banks, then the manager pass)")
     if launches != expected or launches != sum(c["launches"] for c in calls):
         _fail(f"{arch}: {launches} radix launches, expected {expected}")
+    # every router call and every manager pass (vocab banks) or whole vocab
+    # row of at most NARROW_N words is one fused launch of the narrow instance
+    instances = dict(radix_ops.instance_launches)
+    narrow = routers + (new if per_sample == 2
+                        or cfg.padded_vocab <= radix_ops.NARROW_N else 0)
+    print(f"{arch}: radix launches by instance {json.dumps(instances)}; "
+          f"the code implies {narrow} narrow")
+    if instances["narrow"] != narrow:
+        _fail(f"{arch}: {instances['narrow']} narrow radix launches, "
+              f"expected {narrow}")
 
     t0 = time.perf_counter()
     again = gen()
@@ -1582,7 +1699,8 @@ def run_model(torch, np, card, arch, b, s, new, top_k, top_p) -> dict:
         "router_radix_host_ms_a_step": host["router"] / new * 1e3,
         "sampler_radix_host_ms_a_step": host["sampler"] / new * 1e3,
         "profile_a_step": {k: v for k, v in prof.items()
-                           if not k.endswith("_backends")},
+                           if k in STEP_LABELS},
+        "radix_kernels_a_step": prof["radix_kernels"],
         "step_device_busy_ms": busy,
         "step_idle_share": 1.0 - busy / step,
         "attention_backends": {"prefill": prof["attention_prefill_backends"],
@@ -1602,11 +1720,14 @@ def run_model(torch, np, card, arch, b, s, new, top_k, top_p) -> dict:
           f"{repeat_s:.3f} s, {out['generate_tok_s']:.1f} tok/s end to end; "
           f"max_memory_allocated {out['max_memory_allocated_gib']:.3f} GiB")
     for label, v in prof.items():
-        if not label.endswith("_backends") and v["calls_a_step"]:
+        if label in STEP_LABELS and v["calls_a_step"]:
             print(f"{card}: {arch} a decode step, {label}: "
                   f"{v['calls_a_step']:.1f} calls, {v['device_ms']:.4f} ms "
                   f"on the device, {v['host_ms']:.4f} ms on the host "
                   "(profiled)")
+    print(f"{card}: {arch} a decode step, the radix kernels by instance "
+          f"(profiled; no annotated range holds them): "
+          f"{json.dumps(prof['radix_kernels'])}")
     print(f"{card}: {arch} a decode step: radix host time (unprofiled) "
           f"router {out['router_radix_host_ms_a_step']:.4f} ms, sampler "
           f"{out['sampler_radix_host_ms_a_step']:.4f} ms; device busy "
@@ -1632,36 +1753,42 @@ def run_model(torch, np, card, arch, b, s, new, top_k, top_p) -> dict:
 
 def radix_path_rows(torch, np, runs: list) -> list:
     """The radix kernel at the model path's shapes: each row times the
-    kernel launches of one ``radix_topk`` call (the banks and the manager
-    pass of a wide row), bound by one read of their tiles, beside the
-    plain version on the card, ``torch.topk`` on the call's rows and the
-    whole call (the kernel and its torch glue)."""
-    from repro_torch.core.topk import to_sortable_uint
+    kernel launches of one ``radix_topk`` call (the fused top-k entry of
+    the narrow instance for rows of at most ``NARROW_N`` words; the banks'
+    threshold and the manager pass of a wide row), bound by one read of
+    their inputs and one write of their outputs, beside their plain
+    versions on the card, ``torch.topk`` on the call's rows and the whole
+    call (the kernel and its torch glue).  A row whose launches are all
+    fused is named ``radix_narrow_topk_*``, else ``radix_threshold_*``."""
     from repro_torch.kernels.colskip import ops as colskip_ops
     from repro_torch.kernels.radix_topk import ops as radix_ops
     from repro_torch.kernels.radix_topk import radix_topk
-    from repro_torch.kernels.radix_topk import ref as radix_ref
     busy = lambda: colskip_ops.vote_chain(VOTE_ROUNDS)      # noqa: E731
     floor_ms, _ = _queued_ms(torch, radix_ops.empty_launch, 50, busy)
+    entries = {"threshold": radix_ops.threshold_f32,
+               "topk": radix_ops.topk_narrow}
     rows = []
     for run in runs:
         for (site, shape, k), c in sorted(run["path"].items()):
             kin = c["kernel"]
             if "row_name" in c:
-                name = c["row_name"]
+                what = c["row_name"]
             elif site == "router":
-                name = ("radix_threshold_router_prefill" if shape[0] > run["batch"]
-                        else "radix_threshold_router_decode")
+                what = ("router_prefill" if shape[0] > run["batch"]
+                        else "router_decode")
             else:
-                name = f"radix_threshold_sampler_{shape[1]}"
+                what = f"sampler_{shape[1]}"
+            fused = all(e == "topk" for e, _, _ in kin)
+            name = ("radix_narrow_topk_" if fused else "radix_threshold_") \
+                + what
 
             def kernel():
-                for x, kk in kin:
-                    radix_ops.threshold_f32(x, kk)
+                for e, x, kk in kin:
+                    entries[e](x, kk)
 
             def plain():
-                for x, kk in kin:
-                    radix_ref.threshold_ref(to_sortable_uint(x), kk)
+                for e, x, kk in kin:
+                    _plain_kernel(e)(x, kk)
 
             x, dev = c["x"], c["x"].device
             ms = _time_ms(kernel, 50)
@@ -1675,7 +1802,31 @@ def radix_path_rows(torch, np, runs: list) -> list:
             call_ms = _time_ms(lambda: radix_topk(x, k, device=dev), 20)
             call_device_ms, call_host_ms = _queued_ms(
                 torch, lambda: radix_topk(x, k, device=dev), 4, busy)
-            nbytes = sum(t.numel() * 4 + t.shape[0] * 8 for t, _ in kin)
+            # each launch reads its rows once and writes (thresh, visited)
+            # or (values, indices) once; each launch also alone on the
+            # device, beside torch.topk on its rows where it is a top-k
+            per_launch = []
+            for e, t, kk in kin:
+                lb = t.numel() * 4 + t.shape[0] * (8 * kk if e == "topk"
+                                                   else 8)
+                per_launch.append({
+                    "entry": e, "instance": radix_ops.instance(t.shape[1]),
+                    "tile": list(t.shape), "k": kk, "bytes": lb,
+                    "bound_ms": lb / HBM_BYTES_PER_S * 1e3,
+                    "device_ms": _queued_ms(
+                        torch, lambda: entries[e](t, kk), 50, busy)[0],
+                    "library_device_ms": _queued_ms(
+                        torch, lambda: torch.topk(t, kk), 50, busy)[0]
+                    if e == "topk" else None})
+            nbytes = sum(p["bytes"] for p in per_launch)
+            for p in per_launch:
+                lib = ("" if p["library_device_ms"] is None else
+                       f"; torch.topk {p['library_device_ms']:.5f} ms")
+                print(f"{name} at {shape} k={k}: the {p['entry']} launch on "
+                      f"the {p['instance']} instance at {p['tile']} "
+                      f"k={p['k']}: {p['device_ms']:.5f} ms on the device, "
+                      f"bound {p['bound_ms']:.7f} ms by bytes, launch floor "
+                      f"{floor_ms:.5f} ms{lib}")
             rows.append(_row(
                 name, "src/repro_torch/kernels/radix_topk/csrc/radix_threshold.cu",
                 "src/repro/kernels/radix_topk/kernel.py:48",
@@ -1683,7 +1834,10 @@ def radix_path_rows(torch, np, runs: list) -> list:
                 nbytes, None, lib_ms,
                 shape=f"{shape} float32 k={k} ({run['arch']} {site})",
                 calls_on_path=c["calls"],
-                kernel_tiles=[list(t.shape) for t, _ in kin],
+                kernel_tiles=[list(t.shape) for _, t, _ in kin],
+                kernel_entries=[e for e, _, _ in kin],
+                kernel_instances=[p["instance"] for p in per_launch],
+                kernel_launches=per_launch,
                 launches_a_call=len(kin), device_ms=device_ms,
                 host_enqueue_ms=enqueue_ms,
                 launch_floor_device_ms=floor_ms * len(kin),
@@ -1973,6 +2127,7 @@ def _profile_train_step(torch, step, state, batch) -> dict:
     out["attention_backward_device_ms"] = sum(
         e.time_range.elapsed_us() for e in kernels
         if "flash" in e.name.lower() and "bwd" in e.name.lower()) / 1e3
+    out["radix_kernels"] = _radix_kernels(prof)
     by_name = {}
     for e in kernels:
         ms, n = by_name.get(e.name, (0.0, 0))
@@ -2084,6 +2239,12 @@ def run_training(torch, np, card, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
             r["launches"] != per_step for r in records):
         _fail(f"{arch}: radix launches {launches}, expected "
               f"{steps * per_step}")
+    # every router call is one fused launch of the narrow instance
+    instances = dict(radix_ops.instance_launches)
+    print(f"{arch}: radix launches by instance {json.dumps(instances)}")
+    if instances["narrow"] != launches:
+        _fail(f"{arch}: router launches off the narrow instance: "
+              f"{instances}")
     for r in records:
         if not all(np.isfinite(r[k]) for k in ("loss", "grad_norm", "lr")):
             _fail(f"{arch}: a step's loss or grad norm is not finite: {r}")
@@ -2163,6 +2324,9 @@ def run_training(torch, np, card, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
         print(f"{card}: {arch} a train step, {label}: {calls_txt}"
               f"{v['device_ms']:.3f} ms on the device, {v['host_ms']:.3f} ms "
               "on the host (profiled)")
+    print(f"{card}: {arch} a train step, the radix kernels by instance "
+          f"(profiled; no annotated range holds them): "
+          f"{json.dumps(prof['radix_kernels'])}")
     print(f"{card}: {arch} a train step: device busy {busy:.3f} ms in "
           f"{prof['kernels']} kernels; idle share {out['step_idle_share']:.3f}"
           f" of the {med:.3f} ms step, {out['profiled_step_idle_share']:.3f} "
@@ -2175,7 +2339,7 @@ def run_training(torch, np, card, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
               f"launches of {name}")
     out["path"] = {("router", tuple(calls[0]["x"].shape), calls[0]["k"]): dict(
         calls[0], total_launches=launches, calls=launches,
-        row_name="radix_threshold_router_train")}
+        row_name="router_train")}
     print(f"phase 9 {arch}: {run_s:.1f} s for the run")
     return out
 
@@ -2407,10 +2571,9 @@ def _ep_serving(torch, np, mesh) -> dict:
             path[key] = {
                 "x": c["x"].cpu(), "k": c["k"], "calls": 0,
                 "total_launches": 0,
-                "kernel": [(x.cpu(), kk) for x, kk in c["kernel"]],
-                "row_name": ("radix_threshold_ep_router_prefill"
-                             if key[1][0] > rows else
-                             "radix_threshold_ep_router_decode")}
+                "kernel": [(e, x.cpu(), kk) for e, x, kk in c["kernel"]],
+                "row_name": ("ep_router_prefill" if key[1][0] > rows
+                             else "ep_router_decode")}
         path[key]["calls"] += 1
         path[key]["total_launches"] += c["launches"]
     return {
@@ -2987,7 +3150,8 @@ def run_distribution(torch, np, card) -> dict:
           f"{r0['ep_train_s']:.1f}, (g) {r0['bank_mesh_s']:.1f}); (e) "
           f"{nccl_s:.1f} s")
     path = {k: dict(v, x=v["x"].to(DIST_DEVICE),
-                    kernel=[(x.to(DIST_DEVICE), kk) for x, kk in v["kernel"]])
+                    kernel=[(e, x.to(DIST_DEVICE), kk)
+                            for e, x, kk in v["kernel"]])
             for k, v in ep[0]["path"].items()}
     run = dict(ep[0], path=path)
     return {"ranks": [{k: v for k, v in r.items() if k != "ep"}
@@ -3319,7 +3483,9 @@ def main() -> int:
                                  for r in runs]}))
     for r in path_rows:
         print(f"{r['name']}: {r['ms']:.5f} ms the call's {r['launches_a_call']}"
-              f" launches at {r['shape']} (tiles {r['kernel_tiles']}), "
+              f" launches at {r['shape']} (tiles {r['kernel_tiles']}, "
+              f"entries {r['kernel_entries']}, instances "
+              f"{r['kernel_instances']}), "
               f"{r['device_ms']:.5f} ms on the device, launch floor "
               f"{r['launch_floor_device_ms']:.5f} ms; plain "
               f"{r['plain_ms']:.3f} ms; torch.topk {r['library_ms']:.5f} ms "
@@ -3343,7 +3509,8 @@ def main() -> int:
     train = run_training(torch, np, card)
     train_rows = radix_path_rows(torch, np, [train])
     for r in train_rows:
-        print(f"{r['name']}: {r['ms']:.5f} ms a launch at {r['shape']}, "
+        print(f"{r['name']}: {r['ms']:.5f} ms a launch at {r['shape']} "
+              f"({r['kernel_entries']} on {r['kernel_instances']}), "
               f"{r['device_ms']:.5f} ms on the device, launch floor "
               f"{r['launch_floor_device_ms']:.5f} ms; plain "
               f"{r['plain_ms']:.3f} ms; torch.topk {r['library_ms']:.5f} ms "
@@ -3364,7 +3531,8 @@ def main() -> int:
     distribution = run_distribution(torch, np, card)
     dist_rows = radix_path_rows(torch, np, [distribution["run"]])
     for r in dist_rows:
-        print(f"{r['name']}: {r['ms']:.5f} ms a launch at {r['shape']}, "
+        print(f"{r['name']}: {r['ms']:.5f} ms a launch at {r['shape']} "
+              f"({r['kernel_entries']} on {r['kernel_instances']}), "
               f"{r['device_ms']:.5f} ms on the device, launch floor "
               f"{r['launch_floor_device_ms']:.5f} ms; plain "
               f"{r['plain_ms']:.3f} ms; torch.topk {r['library_ms']:.5f} ms "

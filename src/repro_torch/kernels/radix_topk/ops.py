@@ -9,14 +9,23 @@ the two-level bank reduction for rows wider than ``bank_width`` (per-bank
 top-k candidates, then a manager pass over their union — exact, because
 the global top-k lies in the union of the bank top-ks).
 
-Two kernel entries: :func:`threshold_f32` takes float32 values and maps
+Threshold entries: :func:`threshold_f32` takes float32 values and maps
 them to the sortable domain inside the kernel (the reference's
 ``threshold_pallas``); :func:`threshold_sortable` takes sortable uint32
-words (the serving radix backend's tiles), of any width: rows wider than
-the kernel's shared memory (:func:`smem_n` words) take its streamed
-instance.  ``launches`` counts the CUDA launches of either since import
-or the last :func:`reset_launches`; :func:`empty_launch` (an empty kernel
-launched as one tile, the card's launch floor) is not counted.
+words (the serving radix backend's tiles), of any width.  The library
+picks the instance by the row's width N: rows of at most
+:data:`NARROW_N` words take the narrow instance (a warp a row, a block a
+tile of 8 rows), wider ones a block a row, streamed from device memory
+past :func:`smem_n` words.  The top-k entry :func:`topk_narrow` (rows of
+at most ``NARROW_N`` words) fuses the threshold, the exact-k mask and the
+compaction into one launch of the narrow instance; :func:`radix_topk`
+takes it for such rows on the card (the MoE router, the sampler's
+manager pass), and its plain version on the CPU.  ``launches`` counts
+the CUDA launches of every entry since import or the last
+:func:`reset_launches`, a fused launch once; ``instance_launches``
+splits them by instance (``narrow``, ``block``, ``streamed``);
+:func:`empty_launch` (an empty kernel launched as one tile, the card's
+launch floor) is not counted.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import ctypes
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core.bitmatrix import as_words
+from repro_torch.core.bitmatrix import as_words, to_uint32
 from repro_torch.core.topk import (
     exact_k_mask,
     from_sortable_uint,
@@ -38,6 +47,7 @@ from . import ref as _ref
 
 __all__ = [
     "MAX_N",
+    "NARROW_N",
     "compact_sortable",
     "compact_topk",
     "digit_bits",
@@ -49,16 +59,28 @@ __all__ = [
     "threshold_f32",
     "threshold_sortable",
     "topk_mask_from_threshold",
+    "topk_narrow",
 ]
 
 MAX_N = 16384  # widest row of one threshold pass; wider rows are banked
+NARROW_N = 1024  # widest row of the narrow instance (radix_narrow_n())
 
 launches = 0
+instance_launches = {"narrow": 0, "block": 0, "streamed": 0}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    for name in instance_launches:
+        instance_launches[name] = 0
+
+
+def instance(n: int) -> str:
+    """The kernel instance that takes rows of ``n`` words."""
+    if n <= NARROW_N:
+        return "narrow"
+    return "block" if n <= MAX_N else "streamed"
 
 
 def _lib() -> ctypes.CDLL:
@@ -67,9 +89,12 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.radix_threshold_launch.argtypes = [vp, vp, vp, i, i, i, i, vp]
         lib.radix_threshold_launch.restype = i
+        lib.radix_topk_launch.argtypes = [vp, vp, vp, i, i, i, i, vp]
+        lib.radix_topk_launch.restype = i
         lib.radix_empty_launch.argtypes = [vp]
         lib.radix_empty_launch.restype = i
-        for fn in (lib.radix_digit_bits, lib.radix_smem_n):
+        for fn in (lib.radix_digit_bits, lib.radix_smem_n,
+                   lib.radix_narrow_n):
             fn.argtypes = []
             fn.restype = i
     return lib
@@ -101,33 +126,43 @@ def empty_launch(device="cuda") -> None:
         raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
-def _launch(x: torch.Tensor, k: int, float_in: bool):
-    """Launch the CUDA kernel on ``x`` (B, N) 32-bit words on the card."""
-    global launches
+def _check(x: torch.Tensor, k: int, float_in: bool) -> None:
     want = (torch.float32,) if float_in else (torch.uint32, torch.int32)
     if x.dtype not in want:
         raise TypeError(f"radix threshold kernel takes {want}, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("radix threshold kernel takes a contiguous (B, N) "
                          "tensor")
+    if not 1 <= k <= x.shape[1]:
+        raise ValueError(f"k={k} out of range for N={x.shape[1]}")
+
+
+def _run(entry, x: torch.Tensor, outs, k: int, float_in: bool) -> None:
+    """Launch ``entry`` of the library on ``x`` and the outputs ``outs``
+    on the card; raise on an error, count the launch."""
+    global launches
     b, n = x.shape
-    if not 1 <= k <= n:
-        raise ValueError(f"k={k} out of range for N={n}")
     dev = x.device
-    thresh = torch.empty((b,), dtype=torch.uint32, device=dev)
-    visited = torch.empty((b,), dtype=torch.int32, device=dev)
-    if b == 0:
-        return thresh, visited
-    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.radix_threshold_launch(x.data_ptr(), thresh.data_ptr(),
-                                         visited.data_ptr(), b, n, k,
-                                         int(float_in), stream)
+        err = entry(x.data_ptr(), *(o.data_ptr() for o in outs), b, n, k,
+                    int(float_in), stream)
     if err != 0:
-        raise RuntimeError(f"radix threshold kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"radix kernel launch failed: CUDA error {err}")
     launches += 1
+    instance_launches[instance(n)] += 1
+
+
+def _launch(x: torch.Tensor, k: int, float_in: bool):
+    """Launch the threshold entry on ``x`` (B, N) 32-bit words on the
+    card."""
+    _check(x, k, float_in)
+    b = x.shape[0]
+    thresh = torch.empty((b,), dtype=torch.uint32, device=x.device)
+    visited = torch.empty((b,), dtype=torch.int32, device=x.device)
+    if b:
+        _run(_lib().radix_threshold_launch, x, (thresh, visited), k,
+             float_in)
     return thresh, visited
 
 
@@ -193,10 +228,51 @@ def compact_sortable(u: torch.Tensor, mask: torch.Tensor, k: int):
     return vals_u, torch.gather(idxs, 1, order).to(torch.int32)
 
 
+def topk_narrow(x: torch.Tensor, k: int):
+    """``(B, N<=NARROW_N)`` float32 values, or sortable 32-bit words
+    (uint32, or int32 bit patterns) -> ``(values (B, k) of x's type,
+    indices (B, k) int32)``, ordered (value desc, index asc) with the
+    lowest indices taken among ties: what the reference's ``radix_topk``
+    computes for such rows, in one launch of the narrow instance on the
+    card; the plain version for CPU tensors."""
+    float_in = x.dtype == torch.float32
+    if x.shape[-1] > NARROW_N:
+        raise ValueError(f"N={x.shape[-1]} > NARROW_N={NARROW_N}")
+    _check(x, k, float_in)
+    if x.device.type == "cpu":
+        return _plain_topk(x, k)
+    b = x.shape[0]
+    vals = torch.empty((b, k), dtype=x.dtype, device=x.device)
+    idxs = torch.empty((b, k), dtype=torch.int32, device=x.device)
+    if b:
+        _run(_lib().radix_topk_launch, x, (vals, idxs), k, float_in)
+    return vals, idxs
+
+
+def _plain_topk(x: torch.Tensor, k: int):
+    """:func:`topk_narrow`'s plain version: the threshold of :mod:`.ref`,
+    the exact-k mask and the compaction, on ``x``'s device."""
+    float_in = x.dtype == torch.float32
+    u = to_sortable_uint(x) if float_in else as_words(x)
+    thresh = _ref.threshold_ref(u, k)[0]
+    vals_u, idxs = compact_sortable(
+        u, exact_k_mask(u, as_words(thresh)[..., None], k), k)
+    if float_in:
+        return from_sortable_uint(vals_u, torch.float32), idxs
+    return to_uint32(vals_u).view(x.dtype), idxs
+
+
 def _topk_rows(xf: torch.Tensor, k: int):
-    thresh = threshold_f32(xf.to(torch.float32), k)[0]
+    x32 = xf.to(torch.float32)
+    if xf.shape[-1] <= NARROW_N:
+        vals, idxs = topk_narrow(x32.contiguous(), k)
+        if xf.dtype.is_floating_point:
+            return vals.to(xf.dtype), idxs
+        # as the reference's compaction returns them: through float32
+        return from_sortable_uint(to_sortable_uint(vals), xf.dtype), idxs
+    thresh = threshold_f32(x32, k)[0]
     mask = topk_mask_from_threshold(xf, thresh, k)
-    return compact_topk(xf, to_sortable_uint(xf.to(torch.float32)), mask, k)
+    return compact_topk(xf, to_sortable_uint(x32), mask, k)
 
 
 def _meta_topk(x: torch.Tensor, k: int):

@@ -11,7 +11,8 @@ every instance (registers at C = 4, 8, 16 elements a thread, the table
 in registers or shared memory, and the rolled one-warp shared-memory
 instance), also built at those fusion depths; the chain probes; the radix
 threshold kernel (a cluster of 8 blocks a tile, both entries, the
-streamed instance); the bitonic kernel in one block and in clusters of 2 and 4 blocks; and the
+streamed instance; and rows of at most 1,024 words, a warp a row, its
+threshold and fused top-k entries); the bitonic kernel in one block and in clusters of 2 and 4 blocks; and the
 mesh kernel (a cluster of 2, 3, 4 or 8 CTAs a row, each a bank, the gates
 an exchange through the cluster's shared memory, fuse 1 to 8) against the
 plain mesh
@@ -32,6 +33,7 @@ from repro_torch.core.topk import to_sortable_uint
 from repro_torch.dist.bankmesh import collective_rounds
 from repro_torch.kernels import _build
 from repro_torch.kernels.colskip import ref as colskip_ref
+from repro_torch.kernels.radix_topk import ops as radix_ops
 from repro_torch.kernels.radix_topk import ref as radix_ref
 
 VP, I = ctypes.c_void_p, ctypes.c_int
@@ -63,9 +65,11 @@ def libs(tmp_path_factory):
     dense = {"": colskip, "fuse1": fused[1], "fuse4": fused[4]}
     radix = built["radix"]
     radix.radix_threshold_launch.argtypes = [VP, VP, VP, I, I, I, I, VP]
+    radix.radix_topk_launch.argtypes = [VP, VP, VP, I, I, I, I, VP]
     radix.emu_rounds.argtypes = [I]
     radix.emu_rounds.restype = ctypes.c_long
     assert radix.radix_digit_bits() == 8
+    assert radix.radix_narrow_n() == radix_ops.NARROW_N
     mesh = built["mesh"]
     mesh.colskip_mesh_launch.argtypes = [VP] * 6 + [I] * 8 + [VP]
     mesh.colskip_mesh_chain_launch.argtypes = [VP, ctypes.c_uint, I, I, VP]
@@ -223,11 +227,13 @@ def _radix(lib, x: np.ndarray, k: int, float_in: bool):
     return thresh, visited
 
 
-# the radix kernel: a block a row, a cluster of 8 blocks a tile.  B not a
+# the radix kernel: a block a row, a cluster of 8 blocks a tile, for rows
+# past 1,024 words (the narrow instance, a warp a row, below).  B not a
 # multiple of the tile, a constant row and a constant ragged tile (its
 # visited is 0), k = 1 and k = N, N not a multiple of the 512-thread
 # block, positive data (the leading planes skipped: visited < 32), the
-# streamed instance (N past the shared-memory row)
+# streamed instance (N past the shared-memory row); the cases of 1,024
+# words or fewer take the narrow instance
 @pytest.mark.parametrize("b,n,k,data", [
     (3, 1000, 5, "normal"), (8, 128, 1, "normal"),
     (13, 700, 700, "normal"), (8, 4096, 32, "normal"),
@@ -235,6 +241,7 @@ def _radix(lib, x: np.ndarray, k: int, float_in: bool):
     (2, 16500, 100, "normal"),
     (13, 1000, 7, "normal"), (8, 513, 513, "positive"),
     (1, 16400, 1, "positive"),
+    (13, 1500, 7, "normal"), (9, 1025, 1025, "positive"),
 ])
 def test_emulated_radix_kernel_equals_plain(libs, b, n, k, data):
     rng = np.random.default_rng(b * n + k)
@@ -265,10 +272,11 @@ def test_emulated_radix_kernel_descends_by_digits(libs):
     # one barrier-separated pass a digit of 8 planes: tiles whose mixed
     # planes span 8, 16 and 32 planes take 1, 2 and 4 digit passes, each
     # as many warp rounds as the next (the emulation counts the
-    # collectives issued), with the plain version's thresholds
+    # collectives issued), with the plain version's thresholds; rows past
+    # 1,024 words, so the block instance
     lib, rng, rounds = libs["radix"], np.random.default_rng(2), {}
     for planes in (8, 16, 32):
-        u = rng.integers(0, 1 << planes, (8, 600),
+        u = rng.integers(0, 1 << planes, (8, 1100),
                          dtype=np.uint64).astype(np.uint32)
         for kind in range(4):
             lib.emu_rounds(kind)
@@ -281,6 +289,92 @@ def test_emulated_radix_kernel_descends_by_digits(libs):
         assert visited.max() == planes
     one = rounds[16] - rounds[8]
     assert one > 0 and rounds[32] - rounds[8] == 3 * one
+
+
+def _radix_topk(lib, x: np.ndarray, k: int, float_in: bool):
+    b, n = x.shape
+    x = np.ascontiguousarray(x)
+    vals = np.zeros((b, k), x.dtype)
+    idxs = np.zeros((b, k), np.int32)
+    assert lib.radix_topk_launch(x.ctypes.data, vals.ctypes.data,
+                                 idxs.ctypes.data, b, n, k, int(float_in),
+                                 None) == 0
+    return vals, idxs
+
+
+# the narrow instance (rows of at most 1,024 words, a warp a row, 8 rows a
+# block), both entries: the threshold entry against the plain threshold,
+# the top-k entry against the plain radix_topk (values bit for bit,
+# indices), each on float32 values and on sortable words.  B not a
+# multiple of 8, a constant row, a constant ragged tile (B > 8), ties at
+# the threshold ("dupes": values from a small set), +0.0, -0.0 and -inf
+# ("signed"), k = 1, 8 and N
+@pytest.mark.parametrize("b,n,k,data", [
+    (13, 1, 1, "normal"), (3, 7, 1, "dupes"), (13, 7, 7, "signed"),
+    (13, 32, 8, "dupes"), (3, 32, 32, "normal"), (13, 40, 8, "dupes"),
+    (9, 40, 1, "signed"), (13, 40, 40, "normal"), (3, 64, 8, "signed"),
+    (13, 64, 64, "dupes"), (13, 64, 1, "normal"), (3, 640, 8, "dupes"),
+    (13, 640, 640, "signed"), (9, 640, 1, "normal"), (3, 1024, 1, "signed"),
+    (13, 1024, 8, "normal"), (9, 1024, 1024, "dupes"),
+])
+def test_emulated_narrow_radix_equals_plain(libs, b, n, k, data):
+    rng = np.random.default_rng(b * n + k)
+    x = (rng.normal(size=(b, n)) * 100).astype(np.float32)
+    if data == "dupes":                        # many ties at the threshold
+        x = np.round(x / 60).astype(np.float32) * np.float32(60)
+    if data == "signed":
+        pick = rng.integers(0, 3, (b, n))
+        x = np.where(pick == 0, np.float32(0.0),
+                     np.where(pick == 1, np.float32(-0.0), x))
+        x[:, ::5] = -np.inf
+    x[min(1, b - 1)] = np.float32(-2.5)        # a constant row
+    if b > 8:
+        x[8:] = np.float32(3.0)                # a constant ragged tile
+    xt = torch.from_numpy(x)
+    u = to_sortable_uint(xt)
+    want_t, want_v = radix_ref.threshold_ref(u, k)
+    want_vals, want_idx = radix_ops.radix_topk(xt, k, device="cpu")
+    want_u = to_sortable_uint(want_vals).numpy().astype(np.uint32)
+    lib = libs["radix"]
+    words = u.numpy().astype(np.uint32)
+    for arr, float_in in ((x, True), (words, False)):
+        thresh, visited = _radix(lib, arr, k, float_in)
+        assert np.array_equal(thresh.view(np.int32),
+                              want_t.view(torch.int32).numpy())
+        assert np.array_equal(visited, want_v.numpy())
+        vals, idxs = _radix_topk(lib, arr, k, float_in)
+        assert np.array_equal(idxs, want_idx.numpy())
+        got_u = (to_sortable_uint(torch.from_numpy(vals)).numpy()
+                 .astype(np.uint32) if float_in else vals)
+        assert np.array_equal(got_u, want_u)
+    if b > 8:
+        assert not visited[8:].any()
+
+
+def test_emulated_narrow_radix_descends_a_plane_a_reduction(libs):
+    # the narrow instance counts each plane from s_top down with one add
+    # reduction a warp, and needs no shuffle: a tile of 8 rows whose mixed
+    # planes span 8, 16 and 32 planes issues 8 x 8, 8 x 16 and 8 x 32 of
+    # them, with the plain version's thresholds and the fused entry's
+    # top-k equal to the plain radix_topk's
+    lib, rng = libs["radix"], np.random.default_rng(3)
+    for planes in (8, 16, 32):
+        u = rng.integers(0, 1 << planes, (8, 40),
+                         dtype=np.uint64).astype(np.uint32)
+        for kind in range(4):
+            lib.emu_rounds(kind)
+        thresh, visited = _radix(lib, u, 8, False)
+        adds, shuffles = lib.emu_rounds(2), lib.emu_rounds(3)
+        want_t, want_v = radix_ref.threshold_ref(torch.from_numpy(u), 8)
+        assert np.array_equal(thresh.view(np.int32),
+                              want_t.view(torch.int32).numpy())
+        assert np.array_equal(visited, want_v.numpy())
+        assert visited.max() == planes
+        assert adds == 8 * planes and shuffles == 0
+        vals, idxs = _radix_topk(lib, u, 8, False)
+        want_vals, want_idx = radix_ops.topk_narrow(torch.from_numpy(u), 8)
+        assert np.array_equal(vals, want_vals.numpy())
+        assert np.array_equal(idxs, want_idx.numpy())
 
 
 def _mesh(lib, x: np.ndarray, banks: int, w: int, k: int, stop: int,

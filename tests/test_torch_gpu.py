@@ -89,6 +89,27 @@ def test_radix_kernel_equals_plain(cuda, b, n, k):
     assert torch.equal(v1.cpu(), v2) and torch.equal(i1.cpu(), i2)
 
 
+def test_radix_fused_topk_equals_plain_at_the_router_rows(cuda):
+    # the narrow instance's fused top-k entry at the train step's router
+    # rows: one launch, values bit for bit and indices equal to the plain
+    # threshold + exact-k mask + compaction on the card and on the host
+    from repro_torch.kernels.radix_topk import ops
+    rng = np.random.default_rng(40)
+    p = torch.softmax(torch.from_numpy(
+        rng.normal(size=(8192, 40)).astype(np.float32)), -1)
+    p[::7, :4] = p[::7, 4:8]                   # ties at the threshold
+    x = p.to(cuda)
+    before = dict(ops.instance_launches)
+    vals, idxs = ops.topk_narrow(x, 8)
+    assert ops.instance_launches["narrow"] == before["narrow"] + 1
+    for want_v, want_i in (ops._plain_topk(x, 8), ops.radix_topk(p, 8,
+                                                                 device="cpu")):
+        assert torch.equal(vals.view(torch.int32).cpu(),
+                           want_v.view(torch.int32).cpu())
+        assert torch.equal(idxs.cpu(), want_i.cpu())
+    assert torch.equal(ops.radix_topk(x, 8)[1], idxs)
+
+
 @pytest.mark.parametrize("b,n,k", [(1, 65536, 50), (3, 20000, 20000),
                                    (9, 16385, 1)])
 def test_radix_kernel_streams_wide_sortable_rows(cuda, b, n, k):

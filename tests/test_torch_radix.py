@@ -57,12 +57,16 @@ def test_threshold_rejects_rows_past_max_n():
     ((3, 256), 4, 16384, "constant"),
     ((2, 3, 200), 5, 16384, "float32"),
     ((2, 50000), 17, 8192, "float32"),           # two-level bank path
+    ((64, 40), 8, 16384, "ties"),                # the MoE router's rows
+    ((4, 64), 16, 16384, "float32"),             # the manager pass's rows
 ])
 def test_radix_topk_matches_reference(shape, k, bank_width, dtype):
     rng = np.random.default_rng(k)
     x = rng.normal(size=shape).astype(np.float32)
     if dtype == "constant":
         x[:] = np.float32(-2.5)
+    if dtype == "ties":                          # ties at the k-th value
+        x = np.round(x * 2).astype(np.float32) / np.float32(2)
     jx = jnp.asarray(x)
     if dtype == "bfloat16":
         jx = jx.astype(jnp.bfloat16)
@@ -81,6 +85,6 @@ def test_radix_topk_matches_reference(shape, k, bank_width, dtype):
     assert np.array_equal(got_v.to(torch.float32).numpy(),
                           np.asarray(want_v.astype(jnp.float32)))
     assert np.array_equal(got_i.numpy(), np.asarray(want_i))
-    if dtype == "float32":
+    if dtype in ("float32", "ties"):
         lv, li = jax.lax.top_k(jnp.asarray(x), k)
         assert np.array_equal(got_i.numpy(), np.asarray(li))

@@ -9,7 +9,11 @@
   * ``_searches`` counts the min searches a full sort of each row makes
     (its distinct values), the factor of the restated colskip bound;
   * the build keeps each library's ``-Xptxas -v`` report beside it, so a
-    run that finds the library built still reads the spills.
+    run that finds the library built still reads the spills;
+  * ``_radix_recorder`` records each router and sampler ``radix_topk``
+    call with its kernel launches by entry (the threshold, the fused
+    top-k), and ``_plain_threshold`` routes both entries through their
+    plain versions, so phases 8 to 10 replay the kernel against them.
 """
 
 import importlib.util
@@ -149,3 +153,32 @@ def test_persistent_counts_read_the_launcher_line(smoke):
     assert smoke._persistent_counts(out) == (2, 0)
     with pytest.raises(SystemExit):
         smoke._persistent_counts("SMOKE OK\n")
+
+
+def test_radix_recorder_sees_both_kernel_entries(smoke):
+    # a router row (40 wide) takes the fused top-k entry alone; a vocab row
+    # past MAX_N takes the banks' threshold entry, then the fused entry for
+    # the manager pass; under _plain_threshold the same calls give the same
+    # values and indices through the plain versions
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    from repro_torch.models import moe
+    from repro_torch.serve import sampler
+    rng = np.random.default_rng(0)
+    probs = torch.softmax(torch.from_numpy(
+        rng.normal(size=(6, 40)).astype(np.float32)), -1)
+    logits = torch.from_numpy(rng.normal(size=(2, 40000)).astype(np.float32))
+    calls = []
+    with smoke._radix_recorder(calls):
+        moe.radix_topk(probs, 8, device="cpu")
+        sampler.radix_topk(logits, 16, device="cpu")
+    assert [c["site"] for c in calls] == ["router", "sampler"]
+    assert [[(e, tuple(x.shape), k) for e, x, k in c["kernel"]]
+            for c in calls] == [[("topk", (6, 40), 8)],
+                                [("threshold", (6, 16384), 16),
+                                 ("topk", (2, 48), 16)]]
+    with smoke._plain_threshold():
+        assert radix_ops.topk_narrow is radix_ops._plain_topk
+        for c in calls:
+            vals, idx = radix_ops.radix_topk(c["x"], c["k"], device="cpu")
+            assert torch.equal(vals, c["vals"]) and torch.equal(idx, c["idx"])
+    assert radix_ops.topk_narrow is not radix_ops._plain_topk
