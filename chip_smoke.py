@@ -34,7 +34,11 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      each on float32 values and sortable words, at N in {1, 7, 32, 40,
      64, 640, 1024}, k in {1, 8, N}, with ties, +-0.0 and -inf, and at
      the train step's router rows (8192, 40), k = 8, every launch on the
-     narrow instance;
+     narrow instance; the block instance's fused top-k entry
+     (``SELECT_CASES``: float32 and sortable, kmin, plane reads, the
+     packed buffer; streamed to (1, 65536) k = 40,000) and the banked
+     entry with the payload manager pass at the six vocab rows
+     (``VOCAB_ROWS``), each launch on the instance the code implies;
      and the bitonic kernel against its plain network and ``np.sort``
      (exact) at the reference's test shapes, at N in {1, 2, 8}, at every
      cluster size (N = 2^11 .. 2^15), past one cluster (2^16, 2^20: the
@@ -51,7 +55,8 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      lengths 64-4096, seed 0, sim_width_cap 2048) through
      ``repro_torch.launch.sortserve`` on ``cuda``, every response checked
      against the numpy oracle, with both serving kernels' launch counts
-     reset just before and read just after: each must be above 0.  Then
+     reset just before and read just after: each must be above 0, and
+     every radix tile exactly one launch of the fused top-k entry.  Then
      the same workload with ``--mesh --fuse 2`` and with ``--mesh --dense
      --fuse 2`` (the carrier's mesh kernel's launch count must be above 0;
      the local fallback's, the ``collectives`` section and the kernel's
@@ -574,7 +579,7 @@ def hold_radix(torch, np) -> int:
         u = to_uint32(to_sortable_uint(xf))
         before = ops.instance_launches["narrow"]
         got = [ops.threshold_f32(xf, k), ops.threshold_sortable(u, k),
-               ops.topk_narrow(xf, k), ops.topk_narrow(u, k)]
+               ops.fused_topk(xf, k), ops.fused_topk(u, k)]
         want_t = ref.threshold_ref(to_sortable_uint(xf), k)
         want = [want_t, want_t, ops._plain_topk(xf, k),
                 ops._plain_topk(u, k)]
@@ -592,6 +597,104 @@ def hold_radix(torch, np) -> int:
     print(f"radix narrow instance == plain version, threshold and fused "
           f"top-k entries, float32 and sortable: "
           f"{[(b, n, k, d) for b, n, k, d in narrow]}")
+    return max(worst, hold_radix_select(torch, np, rng))
+
+
+# the fused top-k entry with the sort-serving options (kmin, plane reads,
+# the packed buffer), held against its plain version: (B, N, k, data).
+# Rows of at most 1,024 words take the narrow instance (the smoke's narrow
+# tiles: 64 to 1,024 words), wider ones the block instance; rows past
+# radix_smem_n() stream (sortable words only), and at k = 40,000 their
+# slots outgrow shared memory and live in the output row
+SELECT_CASES = ((13, 64, 64, "dupes"), (8, 300, 17, "dupes"),
+                (8, 1024, 32, "normal"),
+                (8, 4096, 64, "normal"), (8, 16384, 100, "normal"),
+                (3, 4096, 4096, "normal"), (13, 1500, 37, "dupes"),
+                (8, 4096, 32, "dupes"), (1, 65536, 50, "normal"),
+                (3, 20000, 20000, "dupes"), (1, 65536, 40000, "normal"))
+# the sampler's vocab rows (rows 2c to 2h): (B, V, k), banked at MAX_N
+VOCAB_ROWS = ((4, 49408, 16), (1, 262144, 64), (4, 32256, 16),
+              (8, 65536, 16), (4, 51968, 16), (2, 152064, 64))
+
+
+def hold_radix_select(torch, np, rng) -> int:
+    """The top-k entry on the narrow instance and the block instance, in
+    shared memory and streamed: float32 values and sortable words, the
+    complement (kmin) and each row's plane reads, the packed buffer of a
+    sort-serving tile; the
+    banked entry and the payload manager pass at the sampler's vocab rows,
+    each launch on the instance the code implies.  Exact (values' bits,
+    indices, reads)."""
+    from repro_torch.core.bitmatrix import to_uint32
+    from repro_torch.core.topk import to_sortable_uint
+    from repro_torch.kernels.radix_topk import ops
+    dev = torch.device("cuda")
+    worst = 0
+
+    def held(what, got, want):
+        got, want = ([t.view(torch.int32) if t.dtype == torch.float32 else t
+                      for t in (pair if isinstance(pair, tuple) else (pair,))]
+                     for pair in (got, want))
+        torch.cuda.synchronize()
+        return _hold(f"radix fused top-k != plain at {what}", got, want)
+
+    for b, n, k, data in SELECT_CASES:
+        x = (rng.normal(size=(b, n)) * 100).astype(np.float32)
+        if data == "dupes":                    # many ties at the threshold
+            x = np.round(x / 60).astype(np.float32) * np.float32(60)
+        x[min(1, b - 1)] = np.float32(-2.5)    # a constant row
+        if b > 8:
+            x[8:] = np.float32(3.0)            # a constant ragged tile
+        xf = torch.from_numpy(x).to(dev)
+        u = to_uint32(to_sortable_uint(xf))
+        inst = ops.instance(n)
+        runs = [(u, False), (u, True)] + ([(xf, False)] if n <= ops.MAX_N
+                                          else [])
+        for arr, kmin in runs:
+            before = ops.instance_launches[inst]
+            got = ops.fused_topk(arr, k, complement=kmin, reads=True)
+            if ops.instance_launches[inst] != before + 1:
+                _fail(f"radix fused top-k at ({b}, {n}) did not take one "
+                      f"{inst} launch: {ops.instance_launches}")
+            worst = max(worst, held(
+                f"({b}, {n}) k={k} {data} {arr.dtype} kmin={kmin}", got,
+                ops._plain_topk(arr, k, complement=kmin, reads=True)))
+        # the sort-serving tile's packed buffer: values, indices, reads
+        worst = max(worst, held(
+            f"({b}, {n}) k={k} packed kmin", ops.fused_topk(
+                u, k, complement=True, reads=True, packed=True),
+            ops._plain_topk(u, k, complement=True, reads=True,
+                            packed=True)))
+    print(f"radix fused top-k entry (narrow and block instances, in shared "
+          f"memory and streamed) == plain version: float32 and sortable, "
+          f"kmin, plane reads, packed: {list(SELECT_CASES)}")
+    for b, v, k in VOCAB_ROWS:
+        x = torch.from_numpy(rng.normal(size=(b, v)).astype(np.float32)
+                             ).to(dev)
+        x[0, :64] = x[0, 20000:20064]          # ties across banks
+        c, kb = -(-v // ops.MAX_N), min(k, ops.MAX_N)
+        before = dict(ops.instance_launches)
+        vb, ib = ops.fused_topk(x, kb, bank=ops.MAX_N)
+        cand = (vb.view(b, c * kb), ib.view(b, c * kb))
+        vals, idxs = ops.fused_topk(cand[0], k, payload=cand[1])
+        want_b = ops._plain_topk(x, kb, bank=ops.MAX_N)
+        worst = max(worst, held(f"({b}, {v}) k={kb} banked", (vb, ib),
+                                want_b))
+        worst = max(worst, held(
+            f"({b}, {v}) k={k} manager pass with payload", (vals, idxs),
+            ops._plain_topk(want_b[0].view(b, c * kb), k,
+                            payload=want_b[1].view(b, c * kb))))
+        manager = ops.instance(c * kb)
+        moved = {i: ops.instance_launches[i] - before[i]
+                 for i in before}
+        if moved != {i: (i == "block") + (i == manager) for i in before}:
+            _fail(f"radix banked call at ({b}, {v}) launched {moved}")
+        want = torch.sort(to_sortable_uint(x), dim=-1, descending=True,
+                          stable=True).indices[:, :k]
+        if not torch.equal(idxs.long(), want):
+            _fail(f"radix banked call at ({b}, {v}) k={k} != a stable sort")
+    print(f"radix banked entry + payload manager pass == plain version and "
+          f"a stable sort's first k at the vocab rows {list(VOCAB_ROWS)}")
     return worst
 
 
@@ -685,14 +788,24 @@ def serve(torch) -> dict:
                          "--json", str(telem_path)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # the radix library's launches: every tile one launch of the fused
+    # top-k entry, on the narrow instance (tiles of at most NARROW_N
+    # words) or the block instance
     launches = {"colskip": colskip_ops.launches,
-                "radix_threshold": radix_ops.launches}
+                "radix_narrow_topk": radix_ops.instance_launches["narrow"],
+                "radix_block_topk": radix_ops.instance_launches["block"]}
     instances = dict(radix_ops.instance_launches)
+    entries = dict(radix_ops.entry_launches)
     if rc != 0:
         _fail(f"sortserve smoke returned {rc}")
     telem = json.loads(telem_path.read_text())
     if telem["verify_failures"]:
         _fail(f"{telem['verify_failures']} verify failures")
+    tiles = telem["per_backend"]["radix_topk"]["tiles"]
+    if radix_ops.launches != tiles or entries["topk"] != tiles:
+        _fail(f"{tiles} radix tiles took {radix_ops.launches} launches "
+              f"({entries} by entry): each tile must be one launch of the "
+              "fused top-k entry")
     print(f"sortserve.main took {wall:.3f} s wall for {telem['requests']} "
           f"requests on cuda (its serving time, printed above, plus the "
           f"oracle check, the telemetry dump and printing)")
@@ -701,7 +814,9 @@ def serve(torch) -> dict:
          for k, v in sorted(telem["per_backend"].items())}))
     print(f"kernel launches in the smoke: {json.dumps(launches)}; radix "
           f"by instance (tiles of at most {radix_ops.NARROW_N} words take "
-          f"the narrow one): {json.dumps(instances)}")
+          f"the narrow one): {json.dumps(instances)}; by entry: "
+          f"{json.dumps(entries)}; one fused launch a radix tile ({tiles} "
+          "tiles)")
     for name, count in launches.items():
         if count <= 0:
             _fail(f"the smoke launched the {name} kernel {count} times")
@@ -737,7 +852,7 @@ def serve_mesh(torch, dense: bool = False, fuse: int = 2) -> dict:
                          else colskip_ops.launches_mesh),
                 "one-bank fallback": (colskip_ops.launches_dense if dense
                                       else colskip_ops.launches),
-                "radix_threshold": radix_ops.launches}
+                "radix_fused_topk": radix_ops.entry_launches["topk"]}
     rounds = {"kernel": ShardedColskipBackend.kernel_rounds,
               "static": ShardedColskipBackend.static_rounds}
     if rc != 0:
@@ -754,7 +869,7 @@ def serve_mesh(torch, dense: bool = False, fuse: int = 2) -> dict:
     print(f"{label} kernel's own exchange rounds (slowest row of each tile, "
           f"summed): {rounds['kernel']} of a static account of "
           f"{rounds['static']}")
-    if launches[kernel] <= 0 or launches["radix_threshold"] <= 0:
+    if launches[kernel] <= 0 or launches["radix_fused_topk"] <= 0:
         _fail(f"the {label} smoke launched {launches}")
     if telem["verify_failures"]:
         _fail(f"the {label} smoke: {telem['verify_failures']} mismatches")
@@ -824,7 +939,7 @@ def serve_fleet(torch) -> None:
         torch.cuda.synchronize()
         fleet = json.loads(telem_path.read_text())
         launches = {"colskip": colskip_ops.launches,
-                    "radix_threshold": radix_ops.launches}
+                    "radix_fused_topk": radix_ops.entry_launches["topk"]}
         print(f"fleet smoke ({run} run, {requests} requests): "
               f"{time.perf_counter() - t0:.3f} s wall, shed={fleet['shed']} "
               f"restarts={fleet['restarts']} failed={fleet['failed']}, "
@@ -867,7 +982,8 @@ def bench(torch) -> dict:
     launches = {"colskip": colskip_ops.launches,
                 "colskip_dense": colskip_ops.launches_dense,
                 "colskip_mesh": colskip_ops.launches_mesh,
-                "radix_threshold": radix_ops.launches,
+                "radix_threshold": radix_ops.entry_launches["threshold"],
+                "radix_fused_topk": radix_ops.entry_launches["topk"],
                 "bitonic": bitonic_ops.launches}
     doc = json.loads(out.read_text())
     print(f"benchmark suites took {wall:.3f} s wall on cuda: "
@@ -1001,12 +1117,14 @@ def measure_mesh(torch, np, mesh_launches: int, err: int,
 def measure(torch, np, launches: dict, bench_launches: dict,
             errs: dict) -> list:
     """The ``kernels`` rows.  ``launches`` are the serving path's (colskip,
-    radix), ``bench_launches`` the benchmark path's (dense colskip,
-    bitonic): each kernel's count from the path that carries it."""
+    the radix fused top-k entry by instance), ``bench_launches`` the
+    benchmark path's (dense colskip, bitonic, the radix threshold entry):
+    each kernel's count from the path that carries it."""
     from repro_torch.core.bitmatrix import as_words
     from repro_torch.kernels.bitonic import ops as bitonic_ops, ref as bitonic_ref
     from repro_torch.kernels.colskip import ops as colskip_ops, ref as colskip_ref
     from repro_torch.kernels.radix_topk import ops as radix_ops, ref as radix_ref
+    from repro_torch.sortserve import backends
     dev = torch.device("cuda")
     rows = []
 
@@ -1048,8 +1166,9 @@ def measure(torch, np, launches: dict, bench_launches: dict,
                      vote_round_ns=vote_ms * 1e6 / VOTE_ROUNDS,
                      redux_round_ns=redux_ms * 1e6 / VOTE_ROUNDS))
 
-    # radix at a serving shape: (8, 4096) sortable words, k=32 (the sortable
-    # entry the serving radix backend launches)
+    # the radix threshold entry at a serving shape: (8, 4096) sortable
+    # words, k=32 (the harness's kernel_bench launches this entry; every
+    # serving tile takes the fused top-k entry timed below)
     b, n, k = 8, 4096, 32
     rng = np.random.default_rng(11)
     u = torch.from_numpy(rng.integers(0, 1 << 32, (b, n), dtype=np.uint64)
@@ -1080,15 +1199,89 @@ def measure(torch, np, launches: dict, bench_launches: dict,
     rows.append(_row("radix_threshold",
                      "src/repro_torch/kernels/radix_topk/csrc/radix_threshold.cu",
                      "src/repro/kernels/radix_topk/kernel.py:48",
-                     launches["radix_threshold"], errs["radix_threshold"], ms,
-                     plain_ms, r_bytes, None, lib_ms,
-                     shape=f"({b}, {n}) sortable uint32 k={k}",
+                     bench_launches["radix_threshold"],
+                     errs["radix_threshold"], ms, plain_ms, r_bytes, None,
+                     lib_ms, shape=f"({b}, {n}) sortable uint32 k={k}",
+                     launches_of="the threshold entry on the benchmark "
+                                 "path (kernel_bench's radix rows)",
                      visited=int(visited.max()), digit_bits=digit,
                      kernel_passes=passes, launch_floor_ms=floor_ms,
                      device_ms=device_ms, host_enqueue_ms=enqueue_ms,
                      launch_floor_device_ms=floor_device_ms,
                      library_device_ms=lib_device_ms,
                      descent_operations=b * n * 5 * passes))
+
+    # the block instance's fused top-k entry as a sort-serving tile runs it
+    # at (8, 4096), k=32: the sortable words in, the packed (B, 2k + 1)
+    # int32 buffer out (values, indices, plane reads).  Bound: one read of
+    # the tile and one write of the buffer; beside it torch.topk on the
+    # same words and the backend's whole tile body (host numpy in, numpy
+    # out: the copies, the launch and the synchronising copy back)
+    def fused():
+        return radix_ops.fused_topk(u, k, reads=True, packed=True)
+
+    got = fused()
+    want = radix_ops._plain_topk(u, k, reads=True, packed=True)
+    err = _max_err(got, want)
+    ms = _time_ms(fused, 50)
+    device_ms, enqueue_ms = _queued_ms(torch, fused, 50, busy)
+    plain_ms = _time_ms(lambda: radix_ops._plain_topk(
+        u, k, reads=True, packed=True), 3)
+    tile = u.cpu().numpy()
+    body = sorted(_host_ms(lambda: backends._radix_select(tile, k, False, dev))
+                  for _ in range(21))
+    rows.append(_row("radix_block_topk",
+                     "src/repro_torch/kernels/radix_topk/csrc/radix_threshold.cu",
+                     "src/repro/kernels/radix_topk/kernel.py:48",
+                     launches["radix_block_topk"], err, ms, plain_ms,
+                     b * n * 4 + b * (2 * k + 1) * 4, None, lib_ms,
+                     shape=f"({b}, {n}) sortable uint32 k={k}, packed with "
+                           "plane reads",
+                     launch_floor_ms=floor_ms, device_ms=device_ms,
+                     host_enqueue_ms=enqueue_ms,
+                     launch_floor_device_ms=floor_device_ms,
+                     library_device_ms=lib_device_ms,
+                     tile_body_ms_min=body[0], tile_body_ms_median=body[10]))
+
+    # the narrow instance's fused top-k entry as a sort-serving kmin tile
+    # runs it at (8, 1024), k=32: the complement, the plane reads and the
+    # packed buffer; bound, torch.topk (the k smallest) and the tile body
+    # as above
+    b, n, k = 8, 1024, 32
+    un = torch.from_numpy(rng.integers(0, 1 << 32, (b, n), dtype=np.uint64)
+                          .astype(np.uint32)).to(dev)
+
+    def narrow():
+        return radix_ops.fused_topk(un, k, complement=True, reads=True,
+                                    packed=True)
+
+    def plain_narrow():
+        return radix_ops._plain_topk(un, k, complement=True, reads=True,
+                                     packed=True)
+
+    err = _max_err(narrow(), plain_narrow())
+    ms = _time_ms(narrow, 50)
+    device_ms, enqueue_ms = _queued_ms(torch, narrow, 50, busy)
+    plain_ms = _time_ms(plain_narrow, 3)
+    keys = as_words(un)
+    lib_ms = _time_ms(lambda: torch.topk(keys, k, dim=-1, largest=False), 50)
+    lib_device_ms, _ = _queued_ms(
+        torch, lambda: torch.topk(keys, k, dim=-1, largest=False), 50, busy)
+    tile = un.cpu().numpy()
+    body = sorted(_host_ms(lambda: backends._radix_select(tile, k, True, dev))
+                  for _ in range(21))
+    rows.append(_row("radix_narrow_topk",
+                     "src/repro_torch/kernels/radix_topk/csrc/radix_threshold.cu",
+                     "src/repro/kernels/radix_topk/kernel.py:48",
+                     launches["radix_narrow_topk"], err, ms, plain_ms,
+                     b * n * 4 + b * (2 * k + 1) * 4, None, lib_ms,
+                     shape=f"({b}, {n}) sortable uint32 k={k} kmin, packed "
+                           "with plane reads",
+                     launch_floor_ms=floor_ms, device_ms=device_ms,
+                     host_enqueue_ms=enqueue_ms,
+                     launch_floor_device_ms=floor_device_ms,
+                     library_device_ms=lib_device_ms,
+                     tile_body_ms_min=body[0], tile_body_ms_median=body[10]))
 
     # dense colskip at the packed_bench shape: (8, 1024) mapreduce, beside
     # the packed kernel on the same tile.  Same function, same bound
@@ -1190,19 +1383,22 @@ def _patched(*triples):
 def _radix_recorder(calls: list):
     """Patches that record every ``radix_topk`` call of the router and the
     sampler as a dict: site, input, k, values, indices, the kernel's
-    launches and each launch's (entry, input, k), the entry "threshold"
-    (``threshold_f32``) or "topk" (the fused ``topk_narrow``)."""
+    launches and each launch's (entry, input, k, options), the entry
+    "threshold" (``threshold_f32``) or "topk" (the fused ``fused_topk``,
+    its options ``bank`` and ``payload`` as the call gave them)."""
     from repro_torch.kernels.radix_topk import ops as radix_ops
     from repro_torch.models import moe
     from repro_torch.serve import sampler
     entries = {"threshold": radix_ops.threshold_f32,
-               "topk": radix_ops.topk_narrow}
+               "topk": radix_ops.fused_topk}
     kernel_inputs = []
 
     def rec(entry):
-        def call(x, k):
-            kernel_inputs.append((entry, x.detach().clone(), k))
-            return entries[entry](x, k)
+        def call(x, k, **opts):
+            kept = {o: v.detach().clone() if _is_tensor(v) else v
+                    for o, v in opts.items()}
+            kernel_inputs.append((entry, x.detach().clone(), k, kept))
+            return entries[entry](x, k, **opts)
         return call
 
     def recorder(site, fn):
@@ -1218,10 +1414,20 @@ def _radix_recorder(calls: list):
         return call
 
     return _patched((radix_ops, "threshold_f32", rec("threshold")),
-                    (radix_ops, "topk_narrow", rec("topk")),
+                    (radix_ops, "fused_topk", rec("topk")),
                     (moe, "radix_topk", recorder("router", moe.radix_topk)),
                     (sampler, "radix_topk",
                      recorder("sampler", sampler.radix_topk)))
+
+
+def _is_tensor(v) -> bool:
+    import torch
+    return isinstance(v, torch.Tensor)
+
+
+def _moved(opts: dict, to) -> dict:
+    """A recorded launch's options with its tensors moved ``to`` a device."""
+    return {o: v.to(to) if _is_tensor(v) else v for o, v in opts.items()}
 
 
 def _plain_kernel(entry: str):
@@ -1242,7 +1448,7 @@ def _plain_threshold():
     card)."""
     from repro_torch.kernels.radix_topk import ops as radix_ops
     return _patched((radix_ops, "threshold_f32", _plain_kernel("threshold")),
-                    (radix_ops, "topk_narrow", _plain_kernel("topk")))
+                    (radix_ops, "fused_topk", _plain_kernel("topk")))
 
 
 def _reset_all_launches() -> None:
@@ -1751,22 +1957,37 @@ def run_model(torch, np, card, arch, b, s, new, top_k, top_p) -> dict:
     return out
 
 
+def _launch_bytes(entry: str, x, k: int, opts: dict) -> int:
+    """Bytes one radix launch must move: its rows read once (and a
+    payload), its outputs written once: (thresh, visited), or each output
+    row's k values and indices (a banked launch: a row a bank)."""
+    if entry != "topk":
+        return x.numel() * 4 + x.shape[0] * 8
+    bank = opts.get("bank", 0)
+    rows = x.shape[0] * (-(-x.shape[1] // bank) if bank else 1)
+    payload = opts.get("payload")
+    return (x.numel() * 4 + (payload.numel() * 4 if payload is not None
+                             else 0) + rows * 8 * k)
+
+
 def radix_path_rows(torch, np, runs: list) -> list:
     """The radix kernel at the model path's shapes: each row times the
-    kernel launches of one ``radix_topk`` call (the fused top-k entry of
-    the narrow instance for rows of at most ``NARROW_N`` words; the banks'
-    threshold and the manager pass of a wide row), bound by one read of
+    kernel launches of one ``radix_topk`` call (the fused top-k entry: one
+    launch, or for a banked vocab row the banks read in place, then the
+    manager pass with their indices as its payload), bound by one read of
     their inputs and one write of their outputs, beside their plain
     versions on the card, ``torch.topk`` on the call's rows and the whole
-    call (the kernel and its torch glue).  A row whose launches are all
-    fused is named ``radix_narrow_topk_*``, else ``radix_threshold_*``."""
+    call (the launches and the views between them).  A row whose launches
+    are all fused is named ``radix_narrow_topk_*`` when they all take the
+    narrow instance and ``radix_fused_topk_*`` otherwise, else
+    ``radix_threshold_*``."""
     from repro_torch.kernels.colskip import ops as colskip_ops
     from repro_torch.kernels.radix_topk import ops as radix_ops
     from repro_torch.kernels.radix_topk import radix_topk
     busy = lambda: colskip_ops.vote_chain(VOTE_ROUNDS)      # noqa: E731
     floor_ms, _ = _queued_ms(torch, radix_ops.empty_launch, 50, busy)
     entries = {"threshold": radix_ops.threshold_f32,
-               "topk": radix_ops.topk_narrow}
+               "topk": radix_ops.fused_topk}
     rows = []
     for run in runs:
         for (site, shape, k), c in sorted(run["path"].items()):
@@ -1778,17 +1999,22 @@ def radix_path_rows(torch, np, runs: list) -> list:
                         else "router_decode")
             else:
                 what = f"sampler_{shape[1]}"
-            fused = all(e == "topk" for e, _, _ in kin)
-            name = ("radix_narrow_topk_" if fused else "radix_threshold_") \
-                + what
+            instances = [radix_ops.instance(t.shape[1], o.get("bank", 0))
+                         for _, t, _, o in kin]
+            if not all(e == "topk" for e, _, _, _ in kin):
+                name = "radix_threshold_" + what
+            elif all(i == "narrow" for i in instances):
+                name = "radix_narrow_topk_" + what
+            else:
+                name = "radix_fused_topk_" + what
 
             def kernel():
-                for e, x, kk in kin:
-                    entries[e](x, kk)
+                for e, x, kk, o in kin:
+                    entries[e](x, kk, **o)
 
             def plain():
-                for e, x, kk in kin:
-                    _plain_kernel(e)(x, kk)
+                for e, x, kk, o in kin:
+                    _plain_kernel(e)(x, kk, **o)
 
             x, dev = c["x"], c["x"].device
             ms = _time_ms(kernel, 50)
@@ -1797,36 +2023,37 @@ def radix_path_rows(torch, np, runs: list) -> list:
             lib_ms = _time_ms(lambda: torch.topk(x, k), 50)
             lib_device_ms, _ = _queued_ms(torch, lambda: torch.topk(x, k),
                                           50, busy)
-            # a whole call enqueues for some milliseconds: few calls, so the
+            # a whole call enqueues for some tens of us: few calls, so the
             # busy kernel still covers their enqueue
             call_ms = _time_ms(lambda: radix_topk(x, k, device=dev), 20)
             call_device_ms, call_host_ms = _queued_ms(
                 torch, lambda: radix_topk(x, k, device=dev), 4, busy)
-            # each launch reads its rows once and writes (thresh, visited)
-            # or (values, indices) once; each launch also alone on the
-            # device, beside torch.topk on its rows where it is a top-k
+            # each launch alone on the device, beside torch.topk on its
+            # rows where it is an unbanked top-k
             per_launch = []
-            for e, t, kk in kin:
-                lb = t.numel() * 4 + t.shape[0] * (8 * kk if e == "topk"
-                                                   else 8)
+            for (e, t, kk, o), inst in zip(kin, instances):
+                lb = _launch_bytes(e, t, kk, o)
                 per_launch.append({
-                    "entry": e, "instance": radix_ops.instance(t.shape[1]),
-                    "tile": list(t.shape), "k": kk, "bytes": lb,
+                    "entry": e, "instance": inst, "tile": list(t.shape),
+                    "k": kk, "bank": o.get("bank", 0),
+                    "payload": o.get("payload") is not None, "bytes": lb,
                     "bound_ms": lb / HBM_BYTES_PER_S * 1e3,
                     "device_ms": _queued_ms(
-                        torch, lambda: entries[e](t, kk), 50, busy)[0],
+                        torch, lambda: entries[e](t, kk, **o), 50, busy)[0],
                     "library_device_ms": _queued_ms(
                         torch, lambda: torch.topk(t, kk), 50, busy)[0]
-                    if e == "topk" else None})
+                    if e == "topk" and not o.get("bank") else None})
             nbytes = sum(p["bytes"] for p in per_launch)
             for p in per_launch:
                 lib = ("" if p["library_device_ms"] is None else
                        f"; torch.topk {p['library_device_ms']:.5f} ms")
+                opts = (f" bank={p['bank']}" if p["bank"] else "") + \
+                    (" payload" if p["payload"] else "")
                 print(f"{name} at {shape} k={k}: the {p['entry']} launch on "
                       f"the {p['instance']} instance at {p['tile']} "
-                      f"k={p['k']}: {p['device_ms']:.5f} ms on the device, "
-                      f"bound {p['bound_ms']:.7f} ms by bytes, launch floor "
-                      f"{floor_ms:.5f} ms{lib}")
+                      f"k={p['k']}{opts}: {p['device_ms']:.5f} ms on the "
+                      f"device, bound {p['bound_ms']:.7f} ms by bytes, "
+                      f"launch floor {floor_ms:.5f} ms{lib}")
             rows.append(_row(
                 name, "src/repro_torch/kernels/radix_topk/csrc/radix_threshold.cu",
                 "src/repro/kernels/radix_topk/kernel.py:48",
@@ -1834,9 +2061,9 @@ def radix_path_rows(torch, np, runs: list) -> list:
                 nbytes, None, lib_ms,
                 shape=f"{shape} float32 k={k} ({run['arch']} {site})",
                 calls_on_path=c["calls"],
-                kernel_tiles=[list(t.shape) for _, t, _ in kin],
-                kernel_entries=[e for e, _, _ in kin],
-                kernel_instances=[p["instance"] for p in per_launch],
+                kernel_tiles=[list(t.shape) for _, t, _, _ in kin],
+                kernel_entries=[e for e, _, _, _ in kin],
+                kernel_instances=instances,
                 kernel_launches=per_launch,
                 launches_a_call=len(kin), device_ms=device_ms,
                 host_enqueue_ms=enqueue_ms,
@@ -2571,7 +2798,8 @@ def _ep_serving(torch, np, mesh) -> dict:
             path[key] = {
                 "x": c["x"].cpu(), "k": c["k"], "calls": 0,
                 "total_launches": 0,
-                "kernel": [(e, x.cpu(), kk) for e, x, kk in c["kernel"]],
+                "kernel": [(e, x.cpu(), kk, _moved(o, "cpu"))
+                           for e, x, kk, o in c["kernel"]],
                 "row_name": ("ep_router_prefill" if key[1][0] > rows
                              else "ep_router_decode")}
         path[key]["calls"] += 1
@@ -3150,8 +3378,8 @@ def run_distribution(torch, np, card) -> dict:
           f"{r0['ep_train_s']:.1f}, (g) {r0['bank_mesh_s']:.1f}); (e) "
           f"{nccl_s:.1f} s")
     path = {k: dict(v, x=v["x"].to(DIST_DEVICE),
-                    kernel=[(e, x.to(DIST_DEVICE), kk)
-                            for e, x, kk in v["kernel"]])
+                    kernel=[(e, x.to(DIST_DEVICE), kk, _moved(o, DIST_DEVICE))
+                            for e, x, kk, o in v["kernel"]])
             for k, v in ep[0]["path"].items()}
     run = dict(ep[0], path=path)
     return {"ranks": [{k: v for k, v in r.items() if k != "ep"}
@@ -3468,6 +3696,14 @@ def main() -> int:
                   f"{r['kernel_passes']} passes of the kernel "
                   f"({r['digit_bits']}-plane digits) for {r['visited']} "
                   "visited planes")
+        if r["name"] in ("radix_block_topk", "radix_narrow_topk"):
+            print(f"{r['name']}: on the device {r['device_ms']:.5f} ms "
+                  f"(host enqueue {r['host_enqueue_ms']:.5f} ms a call; "
+                  f"torch.topk {r['library_device_ms']:.5f} ms; launch "
+                  f"floor {r['launch_floor_device_ms']:.5f} ms); the "
+                  f"backend's whole tile body {r['tile_body_ms_median']:.5f}"
+                  f" ms (host clock, median of 21; least "
+                  f"{r['tile_body_ms_min']:.5f})")
     # 8. the model-serving path: the ten archs at smoke size, then
     # granite-moe-3b-a800m, gemma3-4b, hymba-1.5b, rwkv6-1.6b, whisper-tiny
     # and qwen2-vl-7b at full width

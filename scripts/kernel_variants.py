@@ -26,7 +26,18 @@ milliseconds, so that they run back to back on the card).  Shapes:
     k=64, banks = ceil(vocab / 16384)), and the serving smoke's own radix
     tiles: the threshold kernel's input of every radix_topk tile the
     default smoke serves (recorded as ``scripts/radix_profile.py`` records
-    them), one call launching all of them, so its time is their sum.
+    them; the descent each fused top-k launch runs), one call launching
+    all of them, so its time is their sum.
+
+  * radix fused top-k (the package's ``radix_select_launch`` with no
+    options; a parent that predates it, its ``radix_topk_launch``): the
+    narrow instance at the
+    sampler's manager passes ((1, 1024) and (2, 640) float32 k=64,
+    (4, 64) k=16), the router's rows ((4, 40) and (8192, 40) k=8) and
+    narrow sort-serving tiles ((8, 1024) k=32, (8, 300) k=17 sortable),
+    and the block instance's fused entry at (8, 4096) k=32 beside the
+    threshold entry of both builds (a parent before the block instance's
+    top-k entry refuses that row, so only its threshold is timed).
 
 The card's launch floor (an empty kernel launched as one radix tile) is
 printed beside them.  It prints one line per shape and the card's name
@@ -52,7 +63,6 @@ from repro_torch.core.datasets import make_dataset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.colskip import ops as colskip_ops  # noqa: E402
 from repro_torch.kernels.radix_topk import ops as radix_ops  # noqa: E402
-from repro_torch.sortserve import backends  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_variants"
 BUSY_ROUNDS = 1 << 20          # dependent warp rounds: some 20 ms of busy card
@@ -84,6 +94,23 @@ def build_parent(parent: Path) -> dict:
     return libs
 
 
+def topk_entry(lib):
+    """``lib``'s fused top-k entry as ``f(x, vals, idxs, b, n, k, float_in,
+    stream)``: ``radix_select_launch`` with no options, or in a library
+    that predates it ``radix_topk_launch``, which takes those arguments."""
+    try:
+        fn = lib.radix_select_launch
+    except AttributeError:
+        fn = lib.radix_topk_launch
+        fn.argtypes = [VP, VP, VP] + [I] * 4 + [VP]
+        fn.restype = I
+        return fn
+    fn.argtypes = [VP] * 5 + [I] * 6 + [VP]
+    fn.restype = I
+    return lambda x, v, i, b, n, k, f, st: fn(x, v, i, None, None, b, n, k,
+                                              0, 0, f, st)
+
+
 def run_colskip(lib, x, w, k, packed):
     b, n = x.shape
     outs = (torch.empty((b, n), dtype=torch.uint32, device=x.device),
@@ -108,6 +135,19 @@ def run_radix(lib, x, k, float_in):
     if err:
         raise RuntimeError(f"radix launch failed: CUDA error {err}")
     return thresh, visited
+
+
+def run_topk(entry, x, k):
+    """The fused top-k entry (of :func:`topk_entry`): (values, indices)."""
+    b, n = x.shape
+    vals = torch.empty((b, k), dtype=x.dtype, device=x.device)
+    idxs = torch.empty((b, k), dtype=torch.int32, device=x.device)
+    err = entry(
+        x.data_ptr(), vals.data_ptr(), idxs.data_ptr(), b, n, k,
+        int(x.dtype == torch.float32), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"radix top-k launch failed: CUDA error {err}")
+    return vals, idxs
 
 
 def time_ms(fn, iters: int) -> float:
@@ -166,22 +206,13 @@ def compare(label: str, builds: dict, fn, iters: int) -> None:
 
 
 def smoke_radix_inputs() -> list:
-    """(x, k) of the threshold kernel for every radix_topk tile of the
-    default serving smoke, as the backend's tile body launches it."""
-    tiles, inputs = record_tiles(), []
-    launch = radix_ops.threshold_sortable
-
-    def recording(x, k, **kw):
-        inputs.append((x.clone(), k))
-        return launch(x, k, **kw)
-
-    radix_ops.threshold_sortable = recording
-    try:
-        for data, k, kmin in tiles:
-            backends._radix_select(data, k, kmin, torch.device("cuda"))
-    finally:
-        radix_ops.threshold_sortable = launch
-    return inputs
+    """(x, k) of the threshold descent for every radix_topk tile of the
+    default serving smoke: the tile's sortable words (kmin: their
+    complement), the descent that the tile's fused top-k launch runs
+    first."""
+    return [(torch.from_numpy(np.ascontiguousarray(
+        ~data if kmin else data, np.uint32)).cuda(), k)
+            for data, k, kmin in record_tiles()]
 
 
 def main(argv=None) -> int:
@@ -199,8 +230,8 @@ def main(argv=None) -> int:
     print(card)
     parent = build_parent(args.parent)
     colskip = {"package": colskip_ops._lib(), "parent": parent["colskip"]}
-    radix = {"package": radix_ops._lib(),
-             "parent": parent["radix_threshold"]}
+    radix = {"package": radix_ops._lib(), "parent": parent["radix_threshold"]}
+    topk = {name: topk_entry(lib) for name, lib in radix.items()}
     print("ms per call, each build timed twice (in order, then reversed)")
 
     # colskip on both carriers, full sorts at w=32, k=2
@@ -245,6 +276,31 @@ def main(argv=None) -> int:
             raise RuntimeError(f"the parent's radix kernel differs at {label}")
         compare(f"radix {label}", radix,
                 lambda lib: run_radix(lib, x, k, float_in), args.iters)
+
+    # radix fused top-k: the narrow instance in both builds, then the
+    # block instance's entry beside both builds' threshold entry
+    rng = np.random.default_rng(1)
+    cases = [(f"({b}, {n}) f32 k={k}", torch.from_numpy(
+        rng.normal(size=(b, n)).astype(np.float32)).cuda(), k)
+        for b, n, k in ((1, 1024, 64), (2, 640, 64), (4, 64, 16),
+                        (4, 40, 8))]
+    cases.append(("(8192, 40) f32 router k=8", torch.softmax(
+        torch.from_numpy(rng.normal(size=(8192, 40)).astype(np.float32)),
+        -1).cuda(), 8))
+    cases += [(f"({b}, {n}) sortable k={k}", torch.from_numpy(rng.integers(
+        0, 1 << 32, (b, n), dtype=np.uint64).astype(np.uint32)).cuda(), k)
+        for b, n, k in ((8, 1024, 32), (8, 300, 17))]
+    for label, x, k in cases:
+        if not same(run_topk(topk["parent"], x, k),
+                    run_topk(topk["package"], x, k)):
+            raise RuntimeError(f"the parent's radix top-k differs at {label}")
+        compare(f"radix narrow top-k {label}", topk,
+                lambda entry: run_topk(entry, x, k), args.iters)
+    compare("radix (8, 4096) sortable k=32: the package's fused top-k, "
+            "then each build's threshold",
+            {"fused": None, **radix},
+            lambda lib: (run_topk(topk["package"], u, 32) if lib is None
+                         else run_radix(lib, u, 32, False)), args.iters)
 
     smoke = smoke_radix_inputs()
     for x, k in smoke:

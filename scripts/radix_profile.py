@@ -1,4 +1,4 @@
-"""Split the serving smoke's radix_topk tiles into kernel, glue and copies.
+"""Split the serving smoke's radix_topk tiles into copies and the launch.
 
     python3 scripts/radix_profile.py [--repeats 3]
 
@@ -14,10 +14,10 @@ code the engine runs, unchanged) ``--repeats`` times, three times:
   1. stage by stage on the host clock: each stage the tile body calls is
      wrapped so that it ends in ``torch.cuda.synchronize()``, and its wall
      time is summed: the host-to-device copy of the tile (``_tensor``),
-     the threshold kernel (``threshold_sortable``), ``exact_k_mask``,
-     ``compact_sortable``, ``discriminating_planes`` (the CR telemetry),
-     and the rest (the device-to-host copies of the results, the kmin
-     complement);
+     the launch of the radix kernel's fused top-k entry (``fused_topk``:
+     the threshold, the selection, kmin's complement and the plane reads
+     in one launch), the device-to-host copy of its packed result
+     (``_host``), and the rest (slicing the result on the host);
   2. under ``torch.profiler`` (CPU and CUDA activities) with the same
      stages as ``record_function`` ranges and no added synchronisation:
      the device time of every kernel and copy by name, each range's host
@@ -49,10 +49,8 @@ from repro_torch.sortserve import backends  # noqa: E402
 OUT = ROOT / "build" / "radix_profile"
 # the stages of backends._radix_select: (module, attribute)
 STAGES = {"h2d_tensor": (backends, "_tensor"),
-          "threshold_kernel": (radix_ops, "threshold_sortable"),
-          "exact_k_mask": (backends, "exact_k_mask"),
-          "compact_sortable": (radix_ops, "compact_sortable"),
-          "discriminating_planes": (backends, "discriminating_planes")}
+          "fused_topk_launch": (radix_ops, "fused_topk"),
+          "d2h_host": (backends, "_host")}
 
 
 def record_tiles() -> list:
@@ -122,7 +120,7 @@ def synced_split(tiles, repeats: int, dev) -> None:
           f"{len(tiles)} tiles; wall {total * per:.4f} ms a tile):")
     for name, s in spent.items():
         print(f"   {name:24s} {s * per:.4f}")
-    print(f"   {'rest (d2h copies, glue)':24s} "
+    print(f"   {'rest (slicing on the host)':24s} "
           f"{(total - sum(spent.values())) * per:.4f}")
 
 
@@ -192,7 +190,10 @@ def main(argv=None) -> int:
     shapes = sorted({(d.shape, k, kmin) for d, k, kmin in tiles})
     print(f"{len(tiles)} radix_topk tiles in the smoke; (shape, k, kmin): "
           f"{shapes}")
+    radix_ops.reset_launches()
     replay(tiles, 1, dev)                      # warm: builds, allocator
+    print(f"radix launches a tile: {radix_ops.launches / len(tiles):.3f} "
+          f"(by instance {radix_ops.instance_launches})")
     plain_wall = replay(tiles, args.repeats, dev)
     print(f"0. replay with no profiler and no added synchronisation: wall "
           f"{plain_wall * 1e3 / (args.repeats * len(tiles)):.4f} ms a tile")

@@ -2,8 +2,9 @@
 the assigned archs, plus MoE router dispatch.
 
 The twin of the reference's ``benchmarks/serving_bench.py`` on the port's
-``radix_topk`` (the threshold kernel on ``cuda``; rows wider than its
-16,384 words go through the two-level bank path).  The reference checks
+``radix_topk`` (the radix kernel's fused top-k entry on ``cuda``; rows
+wider than its 16,384 words go through the two-level bank path: the banks
+read in place by one launch, then the manager pass).  The reference checks
 its indices against ``lax.top_k``, which breaks ties by the lowest index;
 ``torch.topk`` promises no tie order, so here the PASS check is a stable
 descending sort of the sortable words, and ``torch.topk`` is only timed

@@ -38,6 +38,28 @@
 //     the same descent streamed: each pass re-reads the row from device
 //     memory.
 //
+// Its top-k instance (kTopk) runs the same descent and then, in the same
+// launch, what the reference's radix_topk does around the Pallas call
+// (repro/kernels/radix_topk/ops.py:74-120, one XLA program there; some 20
+// to 40 eager torch ops here before): every word above the threshold T
+// and the first `need` words equal to T by index are selected.  Each of
+// the 16 warps takes a contiguous segment of the row and counts its words
+// above and equal to T; after one barrier a warp sums the counts of the
+// warps before it, which gives its first slot and its first tie rank, and
+// a ballot and a popcount over the lower lanes place each selected word,
+// 32 words a step, in compact_sortable's slot (index order, exact_k_mask's
+// lowest-index tie rule).  The k slots hold 64-bit keys (~v << 32 | j),
+// which order (value desc, index asc); k <= kRankK slots rank themselves
+// by counting, more are sorted by a bitonic network over k keys (pairs
+// past k skipped: those would hold +inf).  The slots live in shared
+// memory after the row; a streamed row whose k slots do not fit there
+// keeps them in its own output row in device memory.  Options: the
+// complement (select on ~u, write ~value back: kmin), the row's mixed
+// planes popc(OR ^ AND) (the serving backend's plane reads), banked rows
+// (a (B, V) row read in place as ceil(V / W) banks of W words, a block
+// each, the columns past V as sortable(-inf), indices bank * W + j) and a
+// payload (an int32 (B, N) row written in place of each index).
+//
 // Narrow rows (N <= kNarrowN words: the MoE router's 40 experts, the
 // sampler's manager pass over its banks' candidates) take another
 // instance.  A block a row leaves most of its 512 threads idle there and
@@ -53,15 +75,12 @@
 //   * the descent from s_top one plane at a time: per-lane candidate
 //     counts, one __reduce_add_sync a plane, no histogram and no block
 //     barrier;
-//   * its top-k entry also does what the reference's radix_topk does
-//     around the Pallas call (repro/kernels/radix_topk/ops.py:74, one XLA
-//     program there): every word above the threshold T and the first
-//     `need` words equal to T by index are selected (a ballot a register
-//     word and a popcount over the lower lanes rank the ties), placed in
-//     shared memory in index order (compact_topk's slots), ranked under
-//     (value desc, index asc) by counting against the k slots, and written
-//     with their int32 indices, mapped back from the sortable domain.
-//     One launch instead of a threshold launch and some 20 eager ops.
+//   * its top-k entry selects as the block instance does (a ballot a
+//     register word ranks the ties), places the slots in shared memory in
+//     index order, ranks them under (value desc, index asc) by counting
+//     against the k slots, and writes them with their int32 indices (or
+//     the payload's words), mapped back from the sortable domain; with the
+//     same complement and plane-read options.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -86,6 +105,10 @@ constexpr int kBins = 1 << kDigit;
 // the pass's verdict (digit, need) and the row's (mixed, AND)
 constexpr int kHead = 2 * kBins + 2 * kWarps + 4;
 constexpr int kMaxDevices = 64;
+// the dynamic shared memory a block may opt in to on an H100
+constexpr int kSmemOptin = 232448;
+// the top-k instance: slots ranked by counting up to kRankK, sorted above
+constexpr int kRankK = 64;
 // the narrow instance: rows of at most kNarrowN words, a warp a row, a
 // tile of kTileRows rows a block
 constexpr int kNarrowN = 1024;
@@ -103,10 +126,52 @@ __device__ __forceinline__ uint32_t unsortable(uint32_t u) {
     return u;
 }
 
-template <bool kFloatIn, bool kStream>
+// What a top-k launch writes, and how it reads its rows.  Output row r
+// (a block row of the block instance, a row of the narrow one) holds its
+// k values at vals + r * ld_out, its k indices at idxs + r * ld_out and
+// its mixed planes at reads[r * ld_reads] (where reads is not null).
+struct Select {
+    uint32_t* vals;              // null: the threshold entry
+    int32_t* idxs;
+    int32_t* reads;              // popc(OR ^ AND) of the row, or null
+    const int32_t* payload;      // (B, ld_in): written in place of j
+    int ld_out, ld_reads;
+    int ld_in;                   // words between input rows (banked: V)
+    int banks;                   // block rows an input row (1: unbanked)
+    int complement;              // select on ~u, write ~value back
+    int smem_slots;              // the slots in shared memory, else in
+                                 // the output row (streamed rows only)
+};
+
+// The k slots of a row: 64-bit keys (~v << 32 | j), ascending in (value
+// desc, index asc); in shared memory, or split over the output row's
+// values (high words) and indices (low words).
+struct Slots {
+    uint64_t* sm;
+    uint32_t* hi;
+    int32_t* lo;
+    __device__ uint64_t get(int s) const {
+        return sm ? sm[s] : ((uint64_t)hi[s] << 32) | (uint32_t)lo[s];
+    }
+    __device__ void put(int s, uint64_t key) const {
+        if (sm) {
+            sm[s] = key;
+        } else {
+            hi[s] = (uint32_t)(key >> 32);
+            lo[s] = (int32_t)(uint32_t)key;
+        }
+    }
+};
+
+__device__ __forceinline__ uint64_t slot_key(uint32_t v, int j) {
+    return ((uint64_t)~v << 32) | (uint32_t)j;
+}
+
+template <bool kFloatIn, bool kStream, bool kTopk>
 __global__ void __launch_bounds__(kThreads)
 radix_threshold_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ thresh,
-                       int32_t* __restrict__ visited, int b, int n, int k) {
+                       int32_t* __restrict__ visited, const Select s, int b,
+                       int n, int k) {
     extern __shared__ uint32_t smem[];
     uint32_t* hist = smem;                     // [2][kBins]
     uint32_t* red = hist + 2 * kBins;          // [2][kWarps] OR, AND
@@ -114,16 +179,35 @@ radix_threshold_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ th
     uint32_t* srow = smem + kHead;             // [n] (!kStream)
     cg::cluster_group cluster = cg::this_cluster();
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-    const int row = blockIdx.x;
-    const bool real = row < b;                 // block-uniform
-    const uint32_t* xr = x + (size_t)(real ? row : 0) * n;
+    const int row = blockIdx.x;                // the block's row (banked:
+    const bool real = row < b;                 // a bank of a row)
     const int iters = (n + kThreads - 1) / kThreads;
+    // the row's words: banked rows read words past V as sortable(-inf)
+    const uint32_t* xr;
+    int bank = 0, valid = n;
+    if constexpr (kTopk) {
+        const int src = real ? row / s.banks : 0;
+        bank = real ? row % s.banks : 0;
+        xr = x + (size_t)src * s.ld_in + (size_t)bank * n;
+        valid = min(n, s.ld_in - bank * n);
+    } else {
+        xr = x + (size_t)(real ? row : 0) * n;
+    }
+    auto word = [&](int j) -> uint32_t {
+        if constexpr (kTopk) {
+            const uint32_t v = j < valid ? sortable<kFloatIn>(xr[j])
+                                         : (kFloatIn ? 0x007FFFFFu : 0u);
+            return s.complement ? ~v : v;
+        } else {
+            return sortable<kFloatIn>(xr[j]);
+        }
+    };
 
     // pass 1: the row into shared memory, OR / AND -> its mixed planes
     uint32_t v_or = 0u, v_and = kFull;
     if (real) {
         for (int j = t; j < n; j += kThreads) {
-            const uint32_t v = sortable<kFloatIn>(xr[j]);
+            const uint32_t v = word(j);
             if (!kStream) srow[j] = v;
             v_or |= v;
             v_and &= v;
@@ -152,12 +236,12 @@ radix_threshold_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ th
     const uint32_t tile_mixed = __reduce_or_sync(kFull, m);
     const int s_top = tile_mixed ? 31 - __clz(tile_mixed) : -1;
 
+    uint32_t prefix = 0u, need = (uint32_t)k;
     if (real) {
         // prefix pre-load: the bits above s_top are uniform in every row
         const uint32_t hi0 = s_top >= 31 ? 0u
                            : (s_top < 0 ? kFull : ~((2u << s_top) - 1u));
-        uint32_t prefix = sel[3] & hi0;
-        uint32_t need = (uint32_t)k;
+        prefix = sel[3] & hi0;
         int pass = 0;
         for (int hi = s_top; hi >= 0; ++pass) {
             const int d = hi + 1 < kDigit ? hi + 1 : kDigit;
@@ -170,7 +254,7 @@ radix_threshold_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ th
                 const int j = t + i * kThreads;
                 uint32_t key = kFull;          // not a candidate
                 if (j < n) {
-                    const uint32_t v = kStream ? sortable<kFloatIn>(xr[j]) : srow[j];
+                    const uint32_t v = kStream ? word(j) : srow[j];
                     if (((v ^ prefix) & above) == 0u) key = (v >> lo) & dmask;
                 }
                 const uint32_t key0 = __shfl_sync(kFull, key, 0);
@@ -221,25 +305,123 @@ radix_threshold_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ th
             need = sel[1];
             hi = lo - 1;
         }
-        if (t == 0) {
+        if (!kTopk && t == 0) {
             thresh[row] = prefix;
             visited[row] = s_top + 1;
         }
     }
     // no block leaves while a partner may still read its mixed word
     cluster.sync();
+    if constexpr (kTopk) {
+        if (!real) return;
+        const int ties_need = (int)need;       // ties at T to take
+        if (s.reads && t == 0) s.reads[(size_t)row * s.ld_reads] = __popc(sel[2]);
+        uint32_t* vr = s.vals + (size_t)row * s.ld_out;
+        int32_t* ir = s.idxs + (size_t)row * s.ld_out;
+        const Slots slots{
+            s.smem_slots ? reinterpret_cast<uint64_t*>(
+                               smem + kHead + (kStream ? 0 : ((n + 1) & ~1)))
+                         : nullptr,
+            vr, ir};
+        // each warp a contiguous segment of whole 32-word steps: its words
+        // above T and equal to T (the histograms are free now)
+        const int seg = (n + kThreads - 1) / kThreads * 32;
+        const int j0 = warp * seg, j1 = min(n, j0 + seg);
+        int gt = 0, eq = 0;
+        for (int j = j0 + lane; j < j1; j += 32) {
+            const uint32_t v = kStream ? word(j) : srow[j];
+            gt += v > prefix ? 1 : 0;
+            eq += v == prefix ? 1 : 0;
+        }
+        gt = __reduce_add_sync(kFull, gt);
+        eq = __reduce_add_sync(kFull, eq);
+        if (lane == 0) {
+            hist[warp] = (uint32_t)gt;
+            hist[kWarps + warp] = (uint32_t)eq;
+        }
+        __syncthreads();
+        // the warps before this one: its first slot and first tie rank
+        int taken = 0, ties = 0;
+        for (int w = 0; w < warp; ++w) {
+            taken += (int)hist[w];
+            ties += (int)hist[kWarps + w];
+        }
+        taken += min(ties, ties_need);
+        const unsigned lower = (1u << lane) - 1u;
+        for (int base = j0; base < j1; base += 32) {
+            const int j = base + lane;
+            const bool live = j < j1;
+            const uint32_t v = live ? (kStream ? word(j) : srow[j]) : 0u;
+            const bool at_t = live && v == prefix;
+            const unsigned eqs = __ballot_sync(kFull, at_t);
+            const bool pick = live && (v > prefix ||
+                                       (at_t && ties + __popc(eqs & lower) < ties_need));
+            const unsigned picks = __ballot_sync(kFull, pick);
+            if (pick) slots.put(taken + __popc(picks & lower), slot_key(v, j));
+            ties += __popc(eqs);
+            taken += __popc(picks);
+        }
+        __syncthreads();
+        // a slot's final place: its rank among the k keys
+        auto emit = [&](int place, uint64_t key) {
+            uint32_t v = ~(uint32_t)(key >> 32);
+            if (s.complement) v = ~v;
+            const int gj = bank * n + (int)(uint32_t)key;
+            vr[place] = unsortable<kFloatIn>(v);
+            ir[place] = s.payload ? s.payload[(size_t)(row / s.banks) * s.ld_in + gj]
+                                  : gj;
+        };
+        if (k <= kRankK && slots.sm) {
+            for (int q = t; q < k; q += kThreads) {
+                const uint64_t key = slots.get(q);
+                int rank = 0;
+                for (int o = 0; o < k; ++o) rank += slots.get(o) < key ? 1 : 0;
+                emit(rank, key);
+            }
+            return;
+        }
+        // a bitonic network over the next power of two, each merge opened
+        // by a flip (so every exchange puts the smaller key first); pairs
+        // reaching past k are skipped, as they would meet +inf
+        int width = 1;
+        while (width < k) width <<= 1;
+        for (int size = 2; size <= width; size <<= 1) {
+            for (int stride = size >> 1; stride > 0; stride >>= 1) {
+                for (int q = t; q < width / 2; q += kThreads) {
+                    const int off = q % stride;
+                    int a, c;
+                    if (stride == size >> 1) {
+                        a = (q / stride) * size + off;
+                        c = a - off + size - 1 - off;
+                    } else {
+                        a = (q / stride) * 2 * stride + off;
+                        c = a + stride;
+                    }
+                    if (c < k) {
+                        const uint64_t ka = slots.get(a), kc = slots.get(c);
+                        if (kc < ka) {
+                            slots.put(a, kc);
+                            slots.put(c, ka);
+                        }
+                    }
+                }
+                __syncthreads();
+            }
+        }
+        for (int q = t; q < k; q += kThreads) emit(q, slots.get(q));
+    }
 }
 
 // The narrow instance.  Warp w of block t holds row 8 t + w in registers
 // (kWpl words a lane).  Writes thresh and visited where they are not null;
-// where vals is not null (the top-k entry) also the row's k largest words
-// in (value desc, index asc) order into vals, their indices into idxs,
-// with 2 k words of shared memory a warp for the slots.
+// where s.vals is not null (the top-k entry) also the row's k largest
+// words in (value desc, index asc) order, with 2 k words of shared memory
+// a warp for the slots.
 template <bool kFloatIn, int kWpl>
 __global__ void __launch_bounds__(kNarrowThreads)
 radix_narrow_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ thresh,
-                    int32_t* __restrict__ visited, uint32_t* __restrict__ vals,
-                    int32_t* __restrict__ idxs, int b, int n, int k) {
+                    int32_t* __restrict__ visited, const Select s, int b, int n,
+                    int k) {
     extern __shared__ uint32_t smem[];
     uint32_t* tile = smem;                     // [kTileRows] mixed planes
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -255,6 +437,7 @@ radix_narrow_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ thres
         w[i] = 0u;
         if (real && lane + 32 * i < n) {
             w[i] = sortable<kFloatIn>(xr[lane + 32 * i]);
+            if (s.complement) w[i] = ~w[i];
             v_or |= w[i];
             v_and &= w[i];
         }
@@ -291,8 +474,9 @@ radix_narrow_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ thres
     if (lane == 0) {
         if (thresh) thresh[row] = prefix;
         if (visited) visited[row] = s_top + 1;
+        if (s.reads) s.reads[(size_t)row * s.ld_reads] = __popc(v_or ^ v_and);
     }
-    if (!vals) return;
+    if (!s.vals) return;
 
     // the selection: every word above T = prefix (k - need of them) and the
     // first `need` words equal to T by index, into slots in index order
@@ -320,17 +504,17 @@ radix_narrow_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ thres
     __syncwarp();
     // a slot's rank: the slots above it in value, and the equal ones
     // before it (lower index); the k ranks are a permutation of 0..k-1
-    uint32_t* vr = vals + (size_t)row * k;
-    int32_t* ir = idxs + (size_t)row * k;
-    for (int s = lane; s < k; s += 32) {
-        const uint32_t v = sv[s];
+    uint32_t* vr = s.vals + (size_t)row * s.ld_out;
+    int32_t* ir = s.idxs + (size_t)row * s.ld_out;
+    for (int q = lane; q < k; q += 32) {
+        const uint32_t v = sv[q];
         int rank = 0;
-        for (int t = 0; t < k; ++t) {
-            const uint32_t o = sv[t];
-            rank += (o > v || (o == v && t < s)) ? 1 : 0;
+        for (int o = 0; o < k; ++o) {
+            const uint32_t u = sv[o];
+            rank += (u > v || (u == v && o < q)) ? 1 : 0;
         }
-        vr[rank] = unsortable<kFloatIn>(v);
-        ir[rank] = (int32_t)si[s];
+        vr[rank] = unsortable<kFloatIn>(s.complement ? ~v : v);
+        ir[rank] = s.payload ? s.payload[(size_t)row * n + si[q]] : (int32_t)si[q];
     }
 }
 
@@ -381,30 +565,36 @@ int opt_in(K kernel, int bytes, std::atomic<bool>* done) {
     return 0;
 }
 
-template <bool kFloatIn, bool kStream>
-int launch(const uint32_t* x, uint32_t* thresh, int32_t* visited, int b,
-           int n, int k, cudaStream_t stream) {
-    auto kernel = radix_threshold_kernel<kFloatIn, kStream>;
-    const size_t smem = (size_t)(kHead + (kStream ? 0 : n)) * sizeof(uint32_t);
-    if (!kStream) {
+// b block rows of n words
+template <bool kFloatIn, bool kStream, bool kTopk>
+int launch(const uint32_t* x, uint32_t* thresh, int32_t* visited,
+           const Select& s, int b, int n, int k, cudaStream_t stream) {
+    auto kernel = radix_threshold_kernel<kFloatIn, kStream, kTopk>;
+    size_t words = (size_t)kHead + (kStream ? 0 : n);
+    if (kTopk) {
+        words = (size_t)kHead + (kStream ? 0 : ((n + 1) & ~1)) +
+                (s.smem_slots ? 2 * (size_t)k : 0);
+    }
+    if (kTopk || !kStream) {
         static std::atomic<bool> done[kMaxDevices];
-        const int err = opt_in(kernel, (int)((kHead + kSmemN) * sizeof(uint32_t)),
+        const int err = opt_in(kernel, kTopk ? kSmemOptin
+                                             : (int)((kHead + kSmemN) * sizeof(uint32_t)),
                                done);
         if (err) return err;
     }
     const int tiles = (b + kTileRows - 1) / kTileRows;
-    return launch_tiles(kernel, tiles, smem, stream, x, thresh, visited, b, n,
-                        k);
+    return launch_tiles(kernel, tiles, words * sizeof(uint32_t), stream, x,
+                        thresh, visited, s, b, n, k);
 }
 
 template <bool kFloatIn, int kWpl>
 int launch_narrow_wpl(const uint32_t* x, uint32_t* thresh, int32_t* visited,
-                      uint32_t* vals, int32_t* idxs, int b, int n, int k,
+                      const Select& s, int b, int n, int k,
                       cudaStream_t stream) {
     auto kernel = radix_narrow_kernel<kFloatIn, kWpl>;
     // the tile's words, and 2 k slot words a warp for the top-k entry (past
     // 48 KB only at k > 767)
-    const size_t smem = (size_t)(kTileRows + (vals ? 2 * kTileRows * k : 0)) *
+    const size_t smem = (size_t)(kTileRows + (s.vals ? 2 * kTileRows * k : 0)) *
                         sizeof(uint32_t);
     static std::atomic<bool> done[kMaxDevices];
     const int err = opt_in(
@@ -413,26 +603,35 @@ int launch_narrow_wpl(const uint32_t* x, uint32_t* thresh, int32_t* visited,
     if (err) return err;
     const int tiles = (b + kTileRows - 1) / kTileRows;
     return launch_grid(kernel, tiles, kNarrowThreads, 1, smem, stream, x,
-                       thresh, visited, vals, idxs, b, n, k);
+                       thresh, visited, s, b, n, k);
 }
 
 // kWpl: the least of 2, 4, 8, 32 that holds the row
 template <bool kFloatIn>
 int launch_narrow(const uint32_t* x, uint32_t* thresh, int32_t* visited,
-                  uint32_t* vals, int32_t* idxs, int b, int n, int k,
-                  cudaStream_t stream) {
+                  const Select& s, int b, int n, int k, cudaStream_t stream) {
     const int wpl = (n + 31) / 32;
     if (wpl <= 2)
-        return launch_narrow_wpl<kFloatIn, 2>(x, thresh, visited, vals, idxs,
-                                              b, n, k, stream);
+        return launch_narrow_wpl<kFloatIn, 2>(x, thresh, visited, s, b, n, k,
+                                              stream);
     if (wpl <= 4)
-        return launch_narrow_wpl<kFloatIn, 4>(x, thresh, visited, vals, idxs,
-                                              b, n, k, stream);
+        return launch_narrow_wpl<kFloatIn, 4>(x, thresh, visited, s, b, n, k,
+                                              stream);
     if (wpl <= 8)
-        return launch_narrow_wpl<kFloatIn, 8>(x, thresh, visited, vals, idxs,
-                                              b, n, k, stream);
-    return launch_narrow_wpl<kFloatIn, 32>(x, thresh, visited, vals, idxs, b,
-                                           n, k, stream);
+        return launch_narrow_wpl<kFloatIn, 8>(x, thresh, visited, s, b, n, k,
+                                              stream);
+    return launch_narrow_wpl<kFloatIn, 32>(x, thresh, visited, s, b, n, k,
+                                           stream);
+}
+
+// the top-k entry's instance by the block row's width
+template <bool kFloatIn>
+int launch_select(const uint32_t* x, const Select& s, int b, int n, int k,
+                  bool narrow, cudaStream_t stream) {
+    if (narrow) return launch_narrow<kFloatIn>(x, nullptr, nullptr, s, b, n, k, stream);
+    if (n <= kSmemN)
+        return launch<kFloatIn, false, true>(x, nullptr, nullptr, s, b, n, k, stream);
+    return launch<kFloatIn, true, true>(x, nullptr, nullptr, s, b, n, k, stream);
 }
 
 }  // namespace
@@ -459,33 +658,68 @@ int radix_threshold_launch(const void* x, void* thresh, void* visited, int b,
     auto ts = static_cast<uint32_t*>(thresh);
     auto vs = static_cast<int32_t*>(visited);
     auto st = static_cast<cudaStream_t>(stream);
+    const Select none{nullptr, nullptr, nullptr, nullptr, 0, 0, n, 1, 0, 0};
     if (n <= kNarrowN) {
-        if (float_in)
-            return launch_narrow<true>(xs, ts, vs, nullptr, nullptr, b, n, k, st);
-        return launch_narrow<false>(xs, ts, vs, nullptr, nullptr, b, n, k, st);
+        if (float_in) return launch_narrow<true>(xs, ts, vs, none, b, n, k, st);
+        return launch_narrow<false>(xs, ts, vs, none, b, n, k, st);
     }
-    if (float_in) return launch<true, false>(xs, ts, vs, b, n, k, st);
-    if (n > kSmemN) return launch<false, true>(xs, ts, vs, b, n, k, st);
-    return launch<false, false>(xs, ts, vs, b, n, k, st);
+    if (float_in) return launch<true, false, false>(xs, ts, vs, none, b, n, k, st);
+    if (n > kSmemN) return launch<false, true, false>(xs, ts, vs, none, b, n, k, st);
+    return launch<false, false, false>(xs, ts, vs, none, b, n, k, st);
 }
 
-// x (b, n <= radix_narrow_n()) float32 (float_in=1) or sortable uint32
-// (float_in=0) -> vals (b, k) of x's type and idxs (b, k) int32: each
-// row's k largest, ordered (value desc, index asc), the lowest indices
-// taken among ties at the k-th value (lax.top_k's rule).  One launch of
-// the narrow instance; returns cudaGetLastError() as above.
-int radix_topk_launch(const void* x, void* vals, void* idxs, int b, int n,
-                      int k, int float_in, void* stream) {
-    if (b <= 0 || n <= 0 || n > kNarrowN || k < 1 || k > n ||
-        b > 0x7FFFFFFF - kTileRows)
+// The top-k entry.  x (b, n) float32 (flags & 1) or sortable uint32 ->
+// vals (of x's type) and idxs int32: each row's k largest, ordered (value
+// desc, index asc), the lowest indices taken among ties at the k-th value
+// (lax.top_k's rule).  One launch: rows of at most radix_narrow_n() words
+// take the narrow instance, wider ones a block a row, streamed past
+// radix_smem_n() (sortable words only).  Options:
+//   flags & 2    the complement: the k smallest (select on ~u, write the
+//                values back), sortable words only;
+//   reads        not null: int32, each row's popc(OR ^ AND);
+//   payload      not null: int32 (b, n), payload[row, j] written in place
+//                of each index j;
+//   bank > 0     float32 only, no payload: each row is read in place as
+//                ceil(n / bank) banks of `bank` words (at most
+//                radix_smem_n()), a block each, the columns past n as
+//                -inf; block row r = row * banks + bank writes its k <=
+//                bank largest with indices bank * `bank` + j;
+//   ld_out       elements between output rows of vals, idxs and reads (0:
+//                k for vals and idxs, 1 for reads), so that one buffer can
+//                hold all three.
+// Returns cudaGetLastError() after the launch, as above.
+int radix_select_launch(const void* x, void* vals, void* idxs, void* reads,
+                        const void* payload, int b, int n, int k, int bank,
+                        int ld_out, int flags, void* stream) {
+    const bool float_in = flags & 1, complement = flags & 2;
+    if (b <= 0 || n <= 0 || k < 1 || ld_out < 0 || (ld_out && ld_out < k) ||
+        (float_in && complement) || b > 0x7FFFFFFF - kTileRows)
         return (int)cudaErrorInvalidValue;
+    int banks = 1, width = n;
+    if (bank > 0) {
+        if (!float_in || payload || bank > kSmemN || k > bank)
+            return (int)cudaErrorInvalidValue;
+        banks = (n + bank - 1) / bank;
+        width = bank;
+        if ((long long)b * banks > 0x7FFFFFFF - kTileRows)
+            return (int)cudaErrorInvalidValue;
+    } else if (k > n || (float_in && n > kSmemN)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const int rows = b * banks;
+    const bool narrow = bank == 0 && n <= kNarrowN;
+    Select s{static_cast<uint32_t*>(vals), static_cast<int32_t*>(idxs),
+             static_cast<int32_t*>(reads), static_cast<const int32_t*>(payload),
+             ld_out ? ld_out : k, ld_out ? ld_out : 1, n, banks, complement ? 1 : 0,
+             1};
+    // a streamed row keeps its slots in shared memory where they fit
+    if (!narrow && width > kSmemN)
+        s.smem_slots = (size_t)(kHead + 2 * (size_t)k) * sizeof(uint32_t) <=
+                       (size_t)kSmemOptin;
     auto xs = static_cast<const uint32_t*>(x);
-    auto vs = static_cast<uint32_t*>(vals);
-    auto is = static_cast<int32_t*>(idxs);
     auto st = static_cast<cudaStream_t>(stream);
-    if (float_in)
-        return launch_narrow<true>(xs, nullptr, nullptr, vs, is, b, n, k, st);
-    return launch_narrow<false>(xs, nullptr, nullptr, vs, is, b, n, k, st);
+    if (float_in) return launch_select<true>(xs, s, rows, width, k, narrow, st);
+    return launch_select<false>(xs, s, rows, width, k, narrow, st);
 }
 
 // An empty kernel launched as one tile is (a cluster of kTileRows blocks

@@ -1,29 +1,34 @@
-"""Public ops over the radix top-k threshold kernel.
+"""Public ops over the radix top-k kernel.
 
 The CUDA kernel computes per-row thresholds (the sortable value of the
-k-th largest element) on the card; for CPU tensors the plain version of
-:mod:`.ref` runs instead.  Around it, in plain torch as in the reference's
-``repro/kernels/radix_topk/ops.py``: the exact-k mask with the
-lowest-index tie rule, the compaction into (value desc, index asc), and
-the two-level bank reduction for rows wider than ``bank_width`` (per-bank
-top-k candidates, then a manager pass over their union — exact, because
-the global top-k lies in the union of the bank top-ks).
+k-th largest element) on the card, and in its top-k entry also what the
+reference's ``repro/kernels/radix_topk/ops.py`` does around its Pallas
+call (one XLA program there): the exact-k mask with the lowest-index tie
+rule, the compaction into (value desc, index asc), and the first level
+of the two-level bank reduction for rows wider than ``bank_width``
+(per-bank top-k candidates, then a manager pass over their union, exact
+because the global top-k lies in the union of the bank top-ks).  For
+CPU tensors the plain versions of :mod:`.ref` and this module run
+instead.
 
 Threshold entries: :func:`threshold_f32` takes float32 values and maps
 them to the sortable domain inside the kernel (the reference's
 ``threshold_pallas``); :func:`threshold_sortable` takes sortable uint32
-words (the serving radix backend's tiles), of any width.  The library
-picks the instance by the row's width N: rows of at most
-:data:`NARROW_N` words take the narrow instance (a warp a row, a block a
-tile of 8 rows), wider ones a block a row, streamed from device memory
-past :func:`smem_n` words.  The top-k entry :func:`topk_narrow` (rows of
-at most ``NARROW_N`` words) fuses the threshold, the exact-k mask and the
-compaction into one launch of the narrow instance; :func:`radix_topk`
-takes it for such rows on the card (the MoE router, the sampler's
-manager pass), and its plain version on the CPU.  ``launches`` counts
-the CUDA launches of every entry since import or the last
-:func:`reset_launches`, a fused launch once; ``instance_launches``
-splits them by instance (``narrow``, ``block``, ``streamed``);
+words (any width).  The library picks the instance by the row's width
+N: rows of at most :data:`NARROW_N` words take the narrow instance (a
+warp a row, a block a tile of 8 rows), wider ones a block a row,
+streamed from device memory past :func:`smem_n` words.  The top-k entry
+:func:`fused_topk` fuses the threshold, the mask and the compaction into
+one launch of either instance, with the options the call sites need:
+the complement (kmin), each row's plane reads, banked rows read in
+place, a payload written in place of the indices, and one packed output
+buffer.  :func:`radix_topk` takes it at every width: one launch, or two
+for a banked row (the banks, then the manager pass with the banks'
+indices as its payload).  ``launches`` counts the CUDA launches of every
+entry since import or the last :func:`reset_launches`, a fused launch
+once; ``instance_launches`` splits them by instance (``narrow``,
+``block``, ``streamed``, as :func:`instance` decides; a banked launch is
+``block``) and ``entry_launches`` by entry (``threshold``, ``topk``);
 :func:`empty_launch` (an empty kernel launched as one tile, the card's
 launch floor) is not counted.
 """
@@ -49,9 +54,9 @@ __all__ = [
     "MAX_N",
     "NARROW_N",
     "compact_sortable",
-    "compact_topk",
     "digit_bits",
     "empty_launch",
+    "fused_topk",
     "radix_topk",
     "radix_topk_threshold",
     "reset_launches",
@@ -59,25 +64,32 @@ __all__ = [
     "threshold_f32",
     "threshold_sortable",
     "topk_mask_from_threshold",
-    "topk_narrow",
 ]
 
 MAX_N = 16384  # widest row of one threshold pass; wider rows are banked
 NARROW_N = 1024  # widest row of the narrow instance (radix_narrow_n())
+# sortable(-inf): the reference pads banked rows with -inf
+_NEG_INF_WORD = 0x007FFFFF
+_MASK32 = 0xFFFFFFFF
 
 launches = 0
 instance_launches = {"narrow": 0, "block": 0, "streamed": 0}
+entry_launches = {"threshold": 0, "topk": 0}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
-    for name in instance_launches:
-        instance_launches[name] = 0
+    for counts in (instance_launches, entry_launches):
+        for name in counts:
+            counts[name] = 0
 
 
-def instance(n: int) -> str:
-    """The kernel instance that takes rows of ``n`` words."""
+def instance(n: int, bank: int = 0) -> str:
+    """The kernel instance that takes rows of ``n`` words (read as banks
+    of ``bank`` words, a block each, when ``bank`` is set)."""
+    if bank:
+        return "block"
     if n <= NARROW_N:
         return "narrow"
     return "block" if n <= MAX_N else "streamed"
@@ -89,8 +101,8 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.radix_threshold_launch.argtypes = [vp, vp, vp, i, i, i, i, vp]
         lib.radix_threshold_launch.restype = i
-        lib.radix_topk_launch.argtypes = [vp, vp, vp, i, i, i, i, vp]
-        lib.radix_topk_launch.restype = i
+        lib.radix_select_launch.argtypes = [vp] * 5 + [i] * 6 + [vp]
+        lib.radix_select_launch.restype = i
         lib.radix_empty_launch.argtypes = [vp]
         lib.radix_empty_launch.restype = i
         for fn in (lib.radix_digit_bits, lib.radix_smem_n,
@@ -137,32 +149,31 @@ def _check(x: torch.Tensor, k: int, float_in: bool) -> None:
         raise ValueError(f"k={k} out of range for N={x.shape[1]}")
 
 
-def _run(entry, x: torch.Tensor, outs, k: int, float_in: bool) -> None:
-    """Launch ``entry`` of the library on ``x`` and the outputs ``outs``
-    on the card; raise on an error, count the launch."""
+def _launched(err: int, entry: str, inst: str) -> None:
+    """Raise on a launch error; else count one launch of ``entry`` on the
+    instance ``inst``."""
     global launches
-    b, n = x.shape
-    dev = x.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = entry(x.data_ptr(), *(o.data_ptr() for o in outs), b, n, k,
-                    int(float_in), stream)
     if err != 0:
         raise RuntimeError(f"radix kernel launch failed: CUDA error {err}")
     launches += 1
-    instance_launches[instance(n)] += 1
+    entry_launches[entry] += 1
+    instance_launches[inst] += 1
 
 
 def _launch(x: torch.Tensor, k: int, float_in: bool):
     """Launch the threshold entry on ``x`` (B, N) 32-bit words on the
     card."""
     _check(x, k, float_in)
-    b = x.shape[0]
+    b, n = x.shape
     thresh = torch.empty((b,), dtype=torch.uint32, device=x.device)
     visited = torch.empty((b,), dtype=torch.int32, device=x.device)
     if b:
-        _run(_lib().radix_threshold_launch, x, (thresh, visited), k,
-             float_in)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _lib().radix_threshold_launch(
+                x.data_ptr(), thresh.data_ptr(), visited.data_ptr(), b, n, k,
+                int(float_in), stream)
+        _launched(err, "threshold", instance(n))
     return thresh, visited
 
 
@@ -201,17 +212,9 @@ def topk_mask_from_threshold(x: torch.Tensor, thresh: torch.Tensor,
     return exact_k_mask(u, as_words(thresh)[..., None], k)
 
 
-def compact_topk(x: torch.Tensor, u: torch.Tensor, mask: torch.Tensor,
-                 k: int):
-    """Gather the k selected entries per row, ordered (value desc, index
-    asc); values come back in ``x``'s dtype, indices as int32."""
-    vals_u, idxs = compact_sortable(u, mask, k)
-    return from_sortable_uint(vals_u, x.dtype), idxs
-
-
 def compact_sortable(u: torch.Tensor, mask: torch.Tensor, k: int):
-    """:func:`compact_topk` in the sortable domain: ``(values as int64
-    carriers, indices int32)``."""
+    """Gather the k selected words per row, ordered (value desc, index
+    asc): ``(values as int64 carriers, indices int32)``."""
     b, n = u.shape
     dev = u.device
     slot = torch.cumsum(mask.to(torch.int64), -1) - 1
@@ -223,56 +226,144 @@ def compact_sortable(u: torch.Tensor, mask: torch.Tensor, k: int):
         1, slot, cols)[:, :k]
     # slots are index-ascending, so a stable sort on the inverted value
     # alone keeps the tie order
-    order = torch.argsort(vals_u ^ 0xFFFFFFFF, dim=-1, stable=True)
+    order = torch.argsort(vals_u ^ _MASK32, dim=-1, stable=True)
     vals_u = torch.gather(vals_u, 1, order)
     return vals_u, torch.gather(idxs, 1, order).to(torch.int32)
 
 
-def topk_narrow(x: torch.Tensor, k: int):
-    """``(B, N<=NARROW_N)`` float32 values, or sortable 32-bit words
-    (uint32, or int32 bit patterns) -> ``(values (B, k) of x's type,
-    indices (B, k) int32)``, ordered (value desc, index asc) with the
-    lowest indices taken among ties: what the reference's ``radix_topk``
-    computes for such rows, in one launch of the narrow instance on the
-    card; the plain version for CPU tensors."""
+def _check_select(x, k, complement, bank, payload) -> None:
     float_in = x.dtype == torch.float32
-    if x.shape[-1] > NARROW_N:
-        raise ValueError(f"N={x.shape[-1]} > NARROW_N={NARROW_N}")
+    if bank:
+        if not float_in or complement or payload is not None:
+            raise ValueError("banked rows take float32 values, with no "
+                             "complement and no payload")
+        if not 1 <= k <= bank <= MAX_N:
+            raise ValueError(f"k={k} and bank={bank} out of range (k <= "
+                             f"bank <= {MAX_N})")
+        _check(x, 1, float_in)
+        return
     _check(x, k, float_in)
+    if float_in and x.shape[1] > MAX_N:
+        raise ValueError(f"N={x.shape[1]} > MAX_N={MAX_N}: float32 rows "
+                         "that wide are banked")
+    if complement and float_in:
+        raise ValueError("the complement takes sortable words")
+    if payload is not None and (payload.dtype != torch.int32
+                                or payload.shape != x.shape
+                                or not payload.is_contiguous()
+                                or payload.device != x.device):
+        raise ValueError("payload: a contiguous int32 tensor of x's shape "
+                         "on x's device")
+
+
+def _outputs(x, rows: int, k: int, reads: bool, packed: bool):
+    """The entry's outputs: ``(returned, vals, idxs, reads, ld_out)``."""
+    dev = x.device
+    if packed:
+        buf = torch.empty((rows, 2 * k + int(reads)), dtype=torch.int32,
+                          device=dev)
+        return (buf, buf[:, :k], buf[:, k:2 * k],
+                buf[:, 2 * k] if reads else None, 2 * k + int(reads))
+    vals = torch.empty((rows, k), dtype=x.dtype, device=dev)
+    idxs = torch.empty((rows, k), dtype=torch.int32, device=dev)
+    rd = torch.empty((rows,), dtype=torch.int32, device=dev) if reads else None
+    return ((vals, idxs) + ((rd,) if reads else ()), vals, idxs, rd, 0)
+
+
+def fused_topk(x: torch.Tensor, k: int, *, complement: bool = False,
+               reads: bool = False, bank: int = 0, payload=None,
+               packed: bool = False):
+    """The top-k entry, one launch on the card.
+
+    ``x`` (B, N): float32 values (N at most ``MAX_N``) or sortable 32-bit
+    words (uint32, or int32 bit patterns; any N) -> each row's k largest
+    ``(values of x's type, indices int32)``, ordered (value desc, index
+    asc), the lowest indices taken among ties at the k-th value: what the
+    reference's ``radix_topk`` computes for such rows.  Options:
+
+    * ``complement`` (sortable words): the k smallest, in ascending order
+      (the serving backend's kmin: top-k of the complement);
+    * ``reads``: also each row's mixed planes, ``popc(OR ^ AND)`` (int32),
+      appended to the outputs;
+    * ``bank`` (float32): each row read in place as ``ceil(N / bank)``
+      banks of ``bank`` words, the columns past N as -inf: ``(B *
+      banks, k)`` outputs, bank after bank, with global indices;
+    * ``payload`` (int32, x's shape): ``payload[row, j]`` in place of
+      each index j;
+    * ``packed``: one int32 ``(rows, 2k [+ 1])`` buffer, the values' bits,
+      the indices and the reads.
+
+    The plain version for CPU tensors; on the card a launch error
+    raises."""
+    _check_select(x, k, complement, bank, payload)
     if x.device.type == "cpu":
-        return _plain_topk(x, k)
-    b = x.shape[0]
-    vals = torch.empty((b, k), dtype=x.dtype, device=x.device)
-    idxs = torch.empty((b, k), dtype=torch.int32, device=x.device)
+        return _plain_topk(x, k, complement=complement, reads=reads,
+                           bank=bank, payload=payload, packed=packed)
+    b, n = x.shape
+    rows = b * (-(-n // bank) if bank else 1)
+    out, vals, idxs, rd, ld = _outputs(x, rows, k, reads, packed)
     if b:
-        _run(_lib().radix_topk_launch, x, (vals, idxs), k, float_in)
-    return vals, idxs
+        flags = int(x.dtype == torch.float32) | (2 if complement else 0)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _lib().radix_select_launch(
+                x.data_ptr(), vals.data_ptr(), idxs.data_ptr(),
+                rd.data_ptr() if rd is not None else None,
+                payload.data_ptr() if payload is not None else None,
+                b, n, k, bank, ld, flags, stream)
+        _launched(err, "topk", instance(n, bank))
+    return out
 
 
-def _plain_topk(x: torch.Tensor, k: int):
-    """:func:`topk_narrow`'s plain version: the threshold of :mod:`.ref`,
-    the exact-k mask and the compaction, on ``x``'s device."""
+def _plain_topk(x: torch.Tensor, k: int, *, complement: bool = False,
+                reads: bool = False, bank: int = 0, payload=None,
+                packed: bool = False):
+    """:func:`fused_topk`'s plain version, on ``x``'s device: the
+    threshold of :mod:`.ref`, the exact-k mask and the compaction."""
+    _check_select(x, k, complement, bank, payload)
     float_in = x.dtype == torch.float32
     u = to_sortable_uint(x) if float_in else as_words(x)
+    b, n = u.shape
+    if bank:
+        c = -(-n // bank)
+        u = torch.nn.functional.pad(u, (0, c * bank - n),
+                                    value=_NEG_INF_WORD).reshape(b * c, bank)
+    rd = _mixed_planes(u) if reads else None
+    if complement:
+        u = u ^ _MASK32
     thresh = _ref.threshold_ref(u, k)[0]
     vals_u, idxs = compact_sortable(
         u, exact_k_mask(u, as_words(thresh)[..., None], k), k)
-    if float_in:
-        return from_sortable_uint(vals_u, torch.float32), idxs
-    return to_uint32(vals_u).view(x.dtype), idxs
+    if complement:
+        vals_u = vals_u ^ _MASK32
+    if bank:
+        first = torch.arange(b * c, device=u.device) % c * bank
+        idxs = idxs + first[:, None].to(torch.int32)
+    if payload is not None:
+        idxs = torch.gather(payload, 1, idxs.to(torch.int64))
+    vals = (from_sortable_uint(vals_u, torch.float32) if float_in
+            else to_uint32(vals_u).view(x.dtype))
+    if packed:
+        return torch.cat([vals.view(torch.int32), idxs]
+                         + ([rd[:, None]] if reads else []), 1)
+    return (vals, idxs) + ((rd,) if reads else ())
 
 
-def _topk_rows(xf: torch.Tensor, k: int):
-    x32 = xf.to(torch.float32)
-    if xf.shape[-1] <= NARROW_N:
-        vals, idxs = topk_narrow(x32.contiguous(), k)
-        if xf.dtype.is_floating_point:
-            return vals.to(xf.dtype), idxs
-        # as the reference's compaction returns them: through float32
-        return from_sortable_uint(to_sortable_uint(vals), xf.dtype), idxs
-    thresh = threshold_f32(x32, k)[0]
-    mask = topk_mask_from_threshold(xf, thresh, k)
-    return compact_topk(xf, to_sortable_uint(x32), mask, k)
+def _mixed_planes(u: torch.Tensor) -> torch.Tensor:
+    """``popc(OR ^ AND)`` of each row of sortable words, int32."""
+    mixed = _ref._or_rows(u) ^ (_MASK32 ^ _ref._or_rows(u ^ _MASK32))
+    planes = torch.arange(32, dtype=torch.int64, device=u.device)
+    return ((mixed[:, None] >> planes) & 1).sum(-1).to(torch.int32)
+
+
+def _as_dtype(vals: torch.Tensor, dtype) -> torch.Tensor:
+    """float32 top-k values in the input's dtype, as the reference's
+    compaction returns them (an integer input through float32)."""
+    if dtype == torch.float32:
+        return vals
+    if dtype.is_floating_point:
+        return vals.to(dtype)
+    return from_sortable_uint(to_sortable_uint(vals), dtype)
 
 
 def _meta_topk(x: torch.Tensor, k: int):
@@ -288,7 +379,9 @@ def _meta_topk(x: torch.Tensor, k: int):
 def radix_topk(x, k: int, *, bank_width: int = MAX_N, device="cuda"):
     """Top-k ``(values, indices)`` over the trailing axis, ``lax.top_k``
     semantics; rows wider than ``bank_width`` take the two-level bank
-    reduction."""
+    reduction: the banks read in place by one launch, then the manager
+    pass over their candidates, which writes the banks' global indices
+    itself (its payload)."""
     x = torch.as_tensor(x, device=resolve_device(device))
     orig_shape = x.shape
     if x.device.type == "meta":
@@ -296,23 +389,16 @@ def radix_topk(x, k: int, *, bank_width: int = MAX_N, device="cuda"):
     n = orig_shape[-1]
     xf = x.reshape(-1, n)
     b = xf.shape[0]
+    x32 = xf.to(torch.float32).contiguous()
     if n <= bank_width:
-        vals, idxs = _topk_rows(xf, k)
+        vals, idxs = fused_topk(x32, k)
     else:
         c = -(-n // bank_width)
-        fill = (float("-inf") if xf.dtype.is_floating_point
-                else torch.iinfo(xf.dtype).min)
-        xp = torch.nn.functional.pad(xf, (0, c * bank_width - n), value=fill)
-        xb = xp.reshape(b * c, bank_width)
         kb = min(k, bank_width)
-        vb, ib = _topk_rows(xb, kb)
-        bank_of = (torch.arange(b * c, device=x.device) % c)[:, None]
-        gidx = ib.to(torch.int64) + bank_of * bank_width
-        cand_v = vb.reshape(b, c * kb)
-        cand_i = gidx.reshape(b, c * kb)
         # bank candidates are (value desc, index asc) within banks and the
         # banks are in order, so the lowest global index wins a tie
-        vals, slots = _topk_rows(cand_v, k)
-        idxs = torch.gather(cand_i, 1, slots.to(torch.int64)).to(torch.int32)
-    return (vals.reshape(orig_shape[:-1] + (k,)),
+        vb, ib = fused_topk(x32, kb, bank=bank_width)
+        vals, idxs = fused_topk(vb.view(b, c * kb), k,
+                                payload=ib.view(b, c * kb))
+    return (_as_dtype(vals, xf.dtype).reshape(orig_shape[:-1] + (k,)),
             idxs.reshape(orig_shape[:-1] + (k,)))

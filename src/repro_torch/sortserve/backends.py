@@ -50,9 +50,8 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import costmodel
-from repro_torch.core.bitmatrix import WORD_MASK, as_words
+from repro_torch.core.bitmatrix import as_words
 from repro_torch.core.costmodel import estimate_colskip_cycles
-from repro_torch.core.topk import discriminating_planes, exact_k_mask
 from repro_torch.kernels.colskip import ops as colskip_ops
 from repro_torch.kernels.radix_topk import ops as radix_ops
 
@@ -513,13 +512,14 @@ class ShardedColskipBackend(Backend):
 class RadixTopkBackend(Backend):
     """Bit-plane radix selection in the sortable-uint32 domain.
 
-    The per-row threshold comes from the radix kernel's sortable entry
-    (:func:`~repro_torch.kernels.radix_topk.ops.threshold_sortable`) — the
-    function the reference computes here in jnp
-    (``kth_largest_sortable``), so values, indices and telemetry are the
-    reference's.  ``kmin`` is served as top-k on the bitwise complement
-    (an order reversal in uint32), which keeps the ascending-index
-    tie-break exactly.
+    A tile is one launch of the radix kernel's top-k entry
+    (:func:`~repro_torch.kernels.radix_topk.ops.fused_topk`): the
+    threshold the reference computes here in jnp
+    (``kth_largest_sortable``), its exact-k mask, compaction and plane
+    reads, so values, indices and telemetry are the reference's.
+    ``kmin`` is served as top-k on the bitwise complement (an order
+    reversal in uint32), which keeps the ascending-index tie-break
+    exactly.
     """
 
     name = "radix_topk"
@@ -597,19 +597,22 @@ def _radix_select(data: np.ndarray, k: int, kmin: bool, device: torch.device):
     """Tile body: (B, N) sortable uint32 -> (values, indices, plane reads).
 
     ``kmin`` selects the k smallest by descending on the bitwise complement
-    (an order reversal in uint32), then complements the values back."""
-    u = as_words(_tensor(data, device))
-    d = u ^ WORD_MASK if kmin else u
-    thresh, _ = radix_ops.threshold_sortable(d.to(torch.int32), k,
-                                             device=device)
-    mask = exact_k_mask(d, as_words(thresh)[:, None], k)
-    vals, idxs = radix_ops.compact_sortable(d, mask, k)
-    if kmin:
-        vals = vals ^ WORD_MASK
-    # one CR per discriminating plane per row; uniform planes are skipped
-    reads = discriminating_planes(u).sum(-1)
-    return (vals.cpu().numpy().astype(np.uint32), idxs.cpu().numpy(),
-            reads.cpu().numpy().astype(np.int64))
+    (an order reversal in uint32), then complements the values back.  One
+    copy of the tile to the device, one launch of the radix kernel's top-k
+    entry (the complement and each row's plane reads inside it: one CR per
+    discriminating plane per row, uniform planes skipped), one copy of its
+    packed (B, 2k + 1) int32 result back."""
+    out = _host(radix_ops.fused_topk(_tensor(data, device), k,
+                                     complement=kmin, reads=True,
+                                     packed=True))
+    return (np.ascontiguousarray(out[:, :k]).view(np.uint32),
+            np.ascontiguousarray(out[:, k:2 * k]),
+            out[:, 2 * k].astype(np.int64))
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A device result on the host."""
+    return t.cpu().numpy()
 
 
 class CostPolicy:

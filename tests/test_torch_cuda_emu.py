@@ -12,7 +12,9 @@ in registers or shared memory, and the rolled one-warp shared-memory
 instance), also built at those fusion depths; the chain probes; the radix
 threshold kernel (a cluster of 8 blocks a tile, both entries, the
 streamed instance; and rows of at most 1,024 words, a warp a row, its
-threshold and fused top-k entries); the bitonic kernel in one block and in clusters of 2 and 4 blocks; and the
+threshold and fused top-k entries; the block instance's top-k entry with
+its options: the complement, plane reads, banked rows and a payload);
+the bitonic kernel in one block and in clusters of 2 and 4 blocks; and the
 mesh kernel (a cluster of 2, 3, 4 or 8 CTAs a row, each a bank, the gates
 an exchange through the cluster's shared memory, fuse 1 to 8) against the
 plain mesh
@@ -65,7 +67,7 @@ def libs(tmp_path_factory):
     dense = {"": colskip, "fuse1": fused[1], "fuse4": fused[4]}
     radix = built["radix"]
     radix.radix_threshold_launch.argtypes = [VP, VP, VP, I, I, I, I, VP]
-    radix.radix_topk_launch.argtypes = [VP, VP, VP, I, I, I, I, VP]
+    radix.radix_select_launch.argtypes = [VP] * 5 + [I] * 6 + [VP]
     radix.emu_rounds.argtypes = [I]
     radix.emu_rounds.restype = ctypes.c_long
     assert radix.radix_digit_bits() == 8
@@ -291,15 +293,9 @@ def test_emulated_radix_kernel_descends_by_digits(libs):
     assert one > 0 and rounds[32] - rounds[8] == 3 * one
 
 
-def _radix_topk(lib, x: np.ndarray, k: int, float_in: bool):
-    b, n = x.shape
-    x = np.ascontiguousarray(x)
-    vals = np.zeros((b, k), x.dtype)
-    idxs = np.zeros((b, k), np.int32)
-    assert lib.radix_topk_launch(x.ctypes.data, vals.ctypes.data,
-                                 idxs.ctypes.data, b, n, k, int(float_in),
-                                 None) == 0
-    return vals, idxs
+def _radix_topk(lib, x: np.ndarray, k: int):
+    """The top-k entry with no options: (values, indices)."""
+    return _select(lib, x, k)[:2]
 
 
 # the narrow instance (rows of at most 1,024 words, a warp a row, 8 rows a
@@ -342,7 +338,7 @@ def test_emulated_narrow_radix_equals_plain(libs, b, n, k, data):
         assert np.array_equal(thresh.view(np.int32),
                               want_t.view(torch.int32).numpy())
         assert np.array_equal(visited, want_v.numpy())
-        vals, idxs = _radix_topk(lib, arr, k, float_in)
+        vals, idxs = _radix_topk(lib, arr, k)
         assert np.array_equal(idxs, want_idx.numpy())
         got_u = (to_sortable_uint(torch.from_numpy(vals)).numpy()
                  .astype(np.uint32) if float_in else vals)
@@ -371,10 +367,139 @@ def test_emulated_narrow_radix_descends_a_plane_a_reduction(libs):
         assert np.array_equal(visited, want_v.numpy())
         assert visited.max() == planes
         assert adds == 8 * planes and shuffles == 0
-        vals, idxs = _radix_topk(lib, u, 8, False)
-        want_vals, want_idx = radix_ops.topk_narrow(torch.from_numpy(u), 8)
+        vals, idxs = _radix_topk(lib, u, 8)
+        want_vals, want_idx = radix_ops.fused_topk(torch.from_numpy(u), 8)
         assert np.array_equal(vals, want_vals.numpy())
         assert np.array_equal(idxs, want_idx.numpy())
+
+
+def _select(lib, x: np.ndarray, k: int, *, complement=False, bank=0,
+            payload=None, packed=False):
+    """The top-k entry with plane reads: (values, indices, reads), or with
+    ``packed`` the one int32 (rows, 2k + 1) buffer that holds all three
+    (ld_out = 2k + 1)."""
+    b, n = x.shape
+    x = np.ascontiguousarray(x)
+    rows = b * (-(-n // bank) if bank else 1)
+    if packed:
+        buf = np.zeros((rows, 2 * k + 1), np.int32)
+        ptrs = [buf.ctypes.data + 4 * j for j in (0, k, 2 * k)]
+    else:
+        vals = np.zeros((rows, k), x.dtype)
+        idxs = np.zeros((rows, k), np.int32)
+        reads = np.zeros(rows, np.int32)
+        ptrs = [a.ctypes.data for a in (vals, idxs, reads)]
+    flags = int(x.dtype == np.float32) | (2 if complement else 0)
+    assert lib.radix_select_launch(
+        x.ctypes.data, *ptrs,
+        None if payload is None else payload.ctypes.data, b, n, k, bank,
+        2 * k + 1 if packed else 0, flags, None) == 0
+    return buf if packed else (vals, idxs, reads)
+
+
+def _select_rows(b: int, n: int, k: int, data: str) -> np.ndarray:
+    """(B, N) float32 rows seeded by the case: ties at the threshold
+    ("dupes": values from a small set), +0.0, -0.0 and -inf ("signed"), a
+    constant row, and a constant ragged tile when B > 8."""
+    rng = np.random.default_rng(b * n + k)
+    x = (rng.normal(size=(b, n)) * 100).astype(np.float32)
+    if data == "dupes":                        # many ties at the threshold
+        x = np.round(x / 60).astype(np.float32) * np.float32(60)
+    if data == "signed":
+        pick = rng.integers(0, 3, (b, n))
+        x = np.where(pick == 0, np.float32(0.0),
+                     np.where(pick == 1, np.float32(-0.0), x))
+        x[:, ::5] = -np.inf
+    x[min(1, b - 1)] = np.float32(-2.5)        # a constant row
+    if b > 8:
+        x[8:] = np.float32(3.0)                # a constant ragged tile
+    return x
+
+
+def _same_select(got, want) -> None:
+    for g, w in zip(got, want):
+        w = w.numpy()
+        assert g.dtype == w.dtype and np.array_equal(g.view(np.int32),
+                                                     w.view(np.int32))
+
+
+# the block instance's top-k entry (rows past 1,024 words, a block a row):
+# the threshold descent, then the selection (each warp a segment, its
+# first slot and tie rank from the warps before it), the slots ordered by
+# counting (k <= 64) or by a bitonic network (larger k), against the plain
+# version: values bit for bit, indices and plane reads exact.  Float32
+# values and sortable words, the complement (kmin) on the words; B not a
+# multiple of 8, a constant row, a constant ragged tile (B > 8), ties at
+# the threshold, +0.0, -0.0 and -inf; the streamed instance past
+# radix_smem_n() words, its slots in shared memory and (k = 29,000, past
+# what shared memory holds) in the output row
+@pytest.mark.parametrize("b,n,k,data", [
+    (9, 1025, 1, "signed"), (3, 1025, 1025, "dupes"), (9, 1500, 8, "dupes"),
+    (3, 1500, 64, "signed"), (9, 2048, 64, "normal"),
+    (3, 2048, 2048, "signed"), (2, 16500, 64, "dupes"),
+    (1, 29000, 29000, "dupes"),
+])
+def test_emulated_block_topk_entry_equals_plain(libs, b, n, k, data):
+    x = _select_rows(b, n, k, data)
+    lib = libs["radix"]
+    words = to_sortable_uint(torch.from_numpy(x)).numpy().astype(np.uint32)
+    cases = [(words, False), (words, True)]
+    if n <= lib.radix_smem_n():                # float32 rows stay in smem
+        cases.append((x, False))
+    for arr, complement in cases:
+        got = _select(lib, arr, k, complement=complement)
+        want = radix_ops._plain_topk(torch.from_numpy(arr), k,
+                                     complement=complement, reads=True)
+        _same_select(got, want)
+    if b > 8:
+        assert not got[2][8:].any()            # constant rows: no reads
+
+
+# a sort-serving tile's launch on either instance: sortable words, topk
+# and kmin (the complement), each row's plane reads, the one packed int32
+# (B, 2k + 1) buffer (ld_out), against the plain version's packed buffer;
+# the narrow instance at the smoke's tile widths and the block instance
+@pytest.mark.parametrize("b,n,k,data", [
+    (13, 64, 64, "dupes"), (8, 300, 17, "dupes"), (8, 1024, 32, "normal"),
+    (9, 640, 1, "signed"), (9, 1500, 37, "dupes"),
+])
+def test_emulated_packed_tile_launch_equals_plain(libs, b, n, k, data):
+    words = to_sortable_uint(torch.from_numpy(
+        _select_rows(b, n, k, data))).numpy().astype(np.uint32)
+    for complement in (False, True):
+        got = _select(libs["radix"], words, k, complement=complement,
+                      packed=True)
+        want = radix_ops._plain_topk(torch.from_numpy(words), k,
+                                     complement=complement, reads=True,
+                                     packed=True)
+        assert np.array_equal(got, want.numpy())
+    if b > 8:
+        assert not got[8:, 2 * k].any()        # constant rows: no reads
+
+
+# banked rows read in place: V = 2 banks and a ragged tail of 37 words at a
+# bank width of 1,100 (k = 64 takes fill from the tail, whose -inf words
+# carry the indices the reference's padding gives them), a block each;
+# then the manager pass over the banks' candidates with their global
+# indices as its payload (on the narrow instance at 3 x 64 words, on the
+# block instance at 3 x 400), equal to the plain radix_topk at that bank
+# width
+@pytest.mark.parametrize("b,k", [(3, 64), (2, 400)])
+def test_emulated_banked_topk_and_payload_manager_pass(libs, b, k):
+    lib, width = libs["radix"], 1100
+    rng = np.random.default_rng(k)
+    x = rng.normal(size=(b, 2 * width + 37)).astype(np.float32)
+    x[0, :20] = x[0, 1200:1220]                # ties across banks
+    vb, ib, _ = _select(lib, x, k, bank=width)
+    want_vb, want_ib = radix_ops._plain_topk(torch.from_numpy(x), k,
+                                             bank=width)
+    _same_select((vb, ib), (want_vb, want_ib))
+    assert (ib[2::3] >= x.shape[1]).any()      # the tail's fill was taken
+    cand_v, cand_i = vb.reshape(b, -1), ib.reshape(b, -1)
+    vals, idxs, _ = _select(lib, cand_v, k, payload=cand_i)
+    want = radix_ops.radix_topk(torch.from_numpy(x), k, bank_width=width,
+                                device="cpu")
+    _same_select((vals, idxs), want)
 
 
 def _mesh(lib, x: np.ndarray, banks: int, w: int, k: int, stop: int,

@@ -100,7 +100,7 @@ def test_radix_fused_topk_equals_plain_at_the_router_rows(cuda):
     p[::7, :4] = p[::7, 4:8]                   # ties at the threshold
     x = p.to(cuda)
     before = dict(ops.instance_launches)
-    vals, idxs = ops.topk_narrow(x, 8)
+    vals, idxs = ops.fused_topk(x, 8)
     assert ops.instance_launches["narrow"] == before["narrow"] + 1
     for want_v, want_i in (ops._plain_topk(x, 8), ops.radix_topk(p, 8,
                                                                  device="cpu")):
@@ -123,6 +123,48 @@ def test_radix_kernel_streams_wide_sortable_rows(cuda, b, n, k):
     want = ref.threshold_ref(torch.from_numpy(u), k)
     for g, v in zip(got, want):
         assert torch.equal(_words(g), _words(v))
+
+
+@pytest.mark.parametrize("b,n,k,kmin", [(8, 4096, 32, False),
+                                        (8, 300, 17, True),
+                                        (13, 1024, 64, True),
+                                        (3, 20000, 64, True),
+                                        (1, 40000, 30000, False)])
+def test_radix_sort_serving_tile_is_one_launch(cuda, b, n, k, kmin):
+    # the radix backend's tile body on the card: one launch of the fused
+    # top-k entry (kmin on the complement, plane reads, one packed
+    # buffer), equal to its plain version on the host; at k = 30,000 the
+    # streamed row's slots live in its output row
+    from repro_torch.kernels.radix_topk import ops
+    from repro_torch.sortserve.backends import _radix_select
+    rng = np.random.default_rng(n + k)
+    x = rng.integers(0, 1 << 32, (b, n), dtype=np.uint64).astype(np.uint32)
+    x[0] %= 9                                  # ties at the threshold
+    before = ops.launches
+    got = _radix_select(x, k, kmin, cuda)
+    assert ops.launches == before + 1
+    want = _radix_select(x, k, kmin, torch.device("cpu"))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("b,v,k", [(4, 49408, 16), (2, 152064, 64),
+                                   (1, 262144, 64), (3, 20000, 600)])
+def test_radix_sampler_call_is_two_launches(cuda, b, v, k):
+    # a vocab row past MAX_N: the banks read in place by one launch, then
+    # the manager pass with their indices as its payload (k = 600: on the
+    # block instance), equal to the plain radix_topk on the host
+    from repro_torch.kernels.radix_topk import ops
+    rng = np.random.default_rng(v + k)
+    x = rng.normal(size=(b, v)).astype(np.float32)
+    x[:, -40:] = x[:, :40]                     # ties across banks
+    before = ops.launches
+    vals, idxs = ops.radix_topk(torch.from_numpy(x).to(cuda), k)
+    assert ops.launches == before + 2
+    want_v, want_i = ops.radix_topk(torch.from_numpy(x), k, device="cpu")
+    assert torch.equal(vals.view(torch.int32).cpu(),
+                       want_v.view(torch.int32))
+    assert torch.equal(idxs.cpu(), want_i)
 
 
 def test_engine_on_cuda_reproduces_golden(cuda):

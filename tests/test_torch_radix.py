@@ -57,6 +57,8 @@ def test_threshold_rejects_rows_past_max_n():
     ((3, 256), 4, 16384, "constant"),
     ((2, 3, 200), 5, 16384, "float32"),
     ((2, 50000), 17, 8192, "float32"),           # two-level bank path
+    # the last bank mostly fill: 16 real columns, k = 40 takes its fill
+    ((3, 16400), 40, 8192, "float32"),
     ((64, 40), 8, 16384, "ties"),                # the MoE router's rows
     ((4, 64), 16, 16384, "float32"),             # the manager pass's rows
 ])

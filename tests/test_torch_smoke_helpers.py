@@ -138,7 +138,9 @@ def test_build_compiles_a_parted_library_side_by_side(tmp_path,
     log = _build.build_all()["toy"]
     calls = (tmp_path / "calls").read_text().splitlines()
     assert len(calls) == 4 and log.count("ptxas info: part") == 4
-    for p, call in enumerate(calls[:3]):
+    # the parts run side by side, so their lines come in any order
+    for p in range(3):
+        call, = [c for c in calls[:3] if f"-DTOY_PART={p} " in c]
         assert f"-DTOY_PARTS=3 -DTOY_PART={p}" in call and " -c " in call
         assert "-shared" not in call
     link = calls[3].split()
@@ -157,9 +159,10 @@ def test_persistent_counts_read_the_launcher_line(smoke):
 
 def test_radix_recorder_sees_both_kernel_entries(smoke):
     # a router row (40 wide) takes the fused top-k entry alone; a vocab row
-    # past MAX_N takes the banks' threshold entry, then the fused entry for
-    # the manager pass; under _plain_threshold the same calls give the same
-    # values and indices through the plain versions
+    # past MAX_N takes the fused entry twice: its banks read in place, then
+    # the manager pass with the banks' indices as its payload; under
+    # _plain_threshold the same calls give the same values and indices
+    # through the plain versions
     from repro_torch.kernels.radix_topk import ops as radix_ops
     from repro_torch.models import moe
     from repro_torch.serve import sampler
@@ -172,13 +175,22 @@ def test_radix_recorder_sees_both_kernel_entries(smoke):
         moe.radix_topk(probs, 8, device="cpu")
         sampler.radix_topk(logits, 16, device="cpu")
     assert [c["site"] for c in calls] == ["router", "sampler"]
-    assert [[(e, tuple(x.shape), k) for e, x, k in c["kernel"]]
-            for c in calls] == [[("topk", (6, 40), 8)],
-                                [("threshold", (6, 16384), 16),
-                                 ("topk", (2, 48), 16)]]
+    assert [[(e, tuple(x.shape), k, sorted(o)) for e, x, k, o in c["kernel"]]
+            for c in calls] == [[("topk", (6, 40), 8, [])],
+                                [("topk", (2, 40000), 16, ["bank"]),
+                                 ("topk", (2, 48), 16, ["payload"])]]
+    bank, manager = calls[1]["kernel"]
+    assert bank[3]["bank"] == radix_ops.MAX_N
+    assert manager[3]["payload"].dtype == torch.int32
+    # a banked launch takes the block instance at any bank width
+    assert radix_ops.instance(bank[1].shape[1], bank[3]["bank"]) == "block"
+    assert radix_ops.instance(40000, radix_ops.NARROW_N) == "block"
+    assert [smoke._launch_bytes(e, x, k, o) for e, x, k, o in
+            calls[1]["kernel"]] == [2 * 40000 * 4 + 2 * 3 * 8 * 16,
+                                    2 * 48 * 8 + 2 * 8 * 16]
     with smoke._plain_threshold():
-        assert radix_ops.topk_narrow is radix_ops._plain_topk
+        assert radix_ops.fused_topk is radix_ops._plain_topk
         for c in calls:
             vals, idx = radix_ops.radix_topk(c["x"], c["k"], device="cpu")
             assert torch.equal(vals, c["vals"]) and torch.equal(idx, c["idx"])
-    assert radix_ops.topk_narrow is not radix_ops._plain_topk
+    assert radix_ops.fused_topk is not radix_ops._plain_topk

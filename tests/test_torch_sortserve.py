@@ -6,6 +6,9 @@
     equal the reference engine's on the same workload;
   * cost-policy priors and the engine config cross between the packages
     in both directions and give identical routing;
+  * the radix backend's tile body (one launch of the radix kernel's top-k
+    entry on the card, its plain version here) equals the reference's
+    jitted tile body: values, indices and plane reads;
   * ``python -m repro_torch.launch.sortserve --smoke --device cpu`` passes.
 """
 
@@ -16,19 +19,23 @@ import re
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.launch.sortserve import make_workload
 from repro.sortserve import CostPolicy as RefCostPolicy
 from repro.sortserve import EngineConfig as RefEngineConfig
 from repro.sortserve import SortServeEngine as RefEngine
 from repro.sortserve import resolve_backends as ref_resolve
+from repro.sortserve.backends import _radix_select as ref_radix_select
 from repro.sortserve.batcher import Tile as RefTile
 from repro_torch.launch.sortserve import check_against_oracle
 from repro_torch.launch.sortserve import make_workload as port_workload
 from repro_torch.sortserve import CostPolicy, EngineConfig, SortServeEngine
 from repro_torch.sortserve import resolve_backends
+from repro_torch.sortserve.backends import _radix_select
 from repro_torch.sortserve.batcher import Tile
 from repro_torch.sortserve.engine import config_from_reference
 
@@ -53,6 +60,33 @@ def _keys(d, prefix=""):
         elif isinstance(v, list) and v and isinstance(v[0], dict):
             out |= _keys(v[0], path + "[].")
     return out
+
+
+# seeded tiles of sortable words: distinct words, duplicates (ties at the
+# threshold), a constant row and a constant tile; widths on the narrow
+# instance (N <= 1,024) and the block instance; topk and kmin, k in
+# {1, 17, N}
+@pytest.mark.parametrize("b,n,data", [(8, 300, "uniform"), (3, 64, "dupes"),
+                                      (8, 1500, "dupes"),
+                                      (5, 1100, "constant")])
+@pytest.mark.parametrize("kmin", [False, True])
+def test_radix_tile_body_matches_reference(b, n, data, kmin):
+    rng = np.random.default_rng(n + b)
+    x = rng.integers(0, 1 << 32, (b, n), dtype=np.uint64).astype(np.uint32)
+    if data == "dupes":
+        x = (x % 7).astype(np.uint32) * np.uint32(0x1001)
+    x[1] = np.uint32(0x80000000)               # a constant row
+    if data == "constant":
+        x[:] = np.uint32(12345)
+    ref = jax.jit(ref_radix_select, static_argnums=(1, 2))
+    for k in (1, 17, n):
+        got = _radix_select(x, k, kmin, torch.device("cpu"))
+        want = [np.asarray(a) for a in ref(x, k, kmin)]
+        assert got[0].dtype == np.uint32 and got[1].dtype == np.int32
+        assert got[2].dtype == np.int64
+        assert all(g.flags.c_contiguous for g in got)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w.astype(g.dtype))
 
 
 def test_telemetry_keys_and_metric_names_match_reference():
