@@ -50,7 +50,10 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      in {1, 2, 4}, k in {0, 2, 8}, stop_after in {1, 16, N}, against the
      plain mesh on the host at widths up to 256 and against the numpy
      hardware model; the round count per row must stay within the
-     reference's static account;
+     reference's static account.  Then the race hold: MESH_STRESS_PASSES
+     passes of 36 mesh launches queued back to back (D in {2, 4, 8} x
+     fuse in {1, 2, 4} x mapreduce and uniform x both carriers, 32 rows a
+     tile, 216 launches), each exact against the local kernel;
   5. the main path: serve the default ``--smoke`` workload (200 requests,
      lengths 64-4096, seed 0, sim_width_cap 2048) through
      ``repro_torch.launch.sortserve`` on ``cuda``, every response checked
@@ -92,7 +95,9 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      each carrier's mesh kernel at (8, 2048) uniform for D in {2, 4, 8} x
      fuse in {1, 2, 4} beside its local kernel on the same tile, bound by
      the slowest row's min searches times one dependent cross-bank round
-     (the ``mesh_chain`` probe at that D);
+     (the faster of the two ``mesh_chain`` probes at that D, one on each
+     round of ``mesh_exchange.cuh``: the cluster-barrier round and the
+     pushed async round the kernels take, both printed);
   8. the model-serving path (``repro_torch.models``, ``repro_torch.serve``):
      the ten archs at smoke size in float32 with TF32 off, one seeded CPU
      model and its copy on the card, prefill and 3 decode steps' logits
@@ -701,6 +706,41 @@ def hold_radix_select(torch, np, rng) -> int:
 # fuse values held in phase 4 beside 1, 2 and 4: a ragged top block (3, 5)
 # and a pattern set of 8 words (8); phase 7 times these with 6 and 7
 MESH_NEW_FUSES = (3, 5, 8)
+# the mesh race hold: passes over D in {2, 4, 8} x fuse in {1, 2, 4} x
+# {mapreduce, uniform} x both carriers (36 launches a pass), tiles of
+# MESH_STRESS_ROWS rows (a cluster a row, all resident at once)
+MESH_STRESS_PASSES = 6
+MESH_STRESS_ROWS = 32
+
+
+def hold_mesh_races(torch, ops) -> int:
+    """The mesh kernels launched back to back, each launch held against
+    the local packed kernel (exact): a pass queues its 36 launches on
+    fresh tiles, then compares them.  A receive slot overwritten before it
+    was read, or a read that missed its round's acquire, shows here and
+    nowhere on the CPU.  Returns the launches held."""
+    dev = torch.device("cuda")
+    held = 0
+    for rep in range(MESH_STRESS_PASSES):
+        runs = []
+        for banks in (2, 4, 8):
+            for data in ("mapreduce", "uniform"):
+                x = torch.from_numpy(_rows(
+                    data, MESH_STRESS_ROWS, banks * 256,
+                    1000 * rep + 10 * banks)).to(dev)
+                local = ops.colskip_sort_batched(x, 32, 2)
+                for fuse in (1, 2, 4):
+                    for packed in (True, False):
+                        runs.append((f"D={banks} fuse={fuse} {data} "
+                                     f"{'packed' if packed else 'dense'}",
+                                     local, ops.colskip_sort_mesh_batched(
+                                         x, banks, 32, 2, packed=packed,
+                                         fuse=fuse)))
+        for what, local, got in runs:
+            _hold(f"mesh race hold, pass {rep}, {what}: mesh kernel != "
+                  "local kernel", got, local)
+            held += 1
+    return held
 
 
 def hold_mesh(torch, np) -> dict:
@@ -769,6 +809,10 @@ def hold_mesh(torch, np) -> dict:
           f"{sorted((1, 2, 4) + MESH_NEW_FUSES)}, k in {{0, 1, 2, 8}}, "
           "stop_after in {1, 16, N}, N up to D x 4096; rounds within the "
           "static account")
+    held = hold_mesh_races(torch, ops)
+    print(f"mesh race hold: {held} launches back to back ({MESH_STRESS_ROWS}"
+          " rows each; D in {2, 4, 8}, fuse in {1, 2, 4}, mapreduce and "
+          "uniform, both carriers; the async round) == local kernel")
     return worst
 
 
@@ -1036,6 +1080,24 @@ def bench(torch) -> dict:
     return launches
 
 
+def _mesh_round_ns(ops, banks: int) -> dict:
+    """ns a dependent cross-bank round at ``banks`` CTAs, by the chain
+    probe on each round of ``mesh_exchange.cuh`` (the cluster-barrier
+    round and the async round the kernels take), printed; ``"best"``
+    names the faster, which prices the mesh rows' bound."""
+    ns = {}
+    for rnd in ops.MESH_ROUNDS_BUILT:
+        ops.mesh_chain(1000, banks, round=rnd)
+        ns[rnd] = _time_ms(lambda: ops.mesh_chain(MESH_ROUNDS, banks,
+                                                  round=rnd), 3) \
+            * 1e6 / MESH_ROUNDS
+    best = min(ns, key=ns.get)
+    print(f"mesh chain probe D={banks}: " + ", ".join(
+        f"{r} {t:.1f} ns" for r, t in ns.items())
+          + f" a round (faster: {best}; the kernels' round: async)")
+    return {**ns, "best": best}
+
+
 def measure_mesh(torch, np, mesh_launches: int, err: int,
                  packed: bool = True) -> dict:
     """The carrier's mesh kernel row: (8, 2048) uniform at D in {2, 4, 8} x
@@ -1051,11 +1113,10 @@ def measure_mesh(torch, np, mesh_launches: int, err: int,
     name = "colskip_mesh" if packed else "colskip_mesh_dense"
     local_ms = _time_ms(lambda: ops.colskip_sort_batched(
         x, w, k, packed=packed), 10)
-    table = []
+    table, probes = [], {}
     for banks in (2, 4, 8):
-        ops.mesh_chain(1000, banks)
-        chain_ms = _time_ms(lambda: ops.mesh_chain(MESH_ROUNDS, banks), 3)
-        round_ns = chain_ms * 1e6 / MESH_ROUNDS
+        probes[banks] = _mesh_round_ns(ops, banks)
+        round_ns = probes[banks][probes[banks]["best"]]
         for fuse in (1, 2, 4):
             out = ops.colskip_sort_mesh_batched(x, banks, w, k, fuse=fuse,
                                                 packed=packed,
@@ -1077,8 +1138,7 @@ def measure_mesh(torch, np, mesh_launches: int, err: int,
                   f"(static account {table[-1]['static_rounds']}); one "
                   f"cross-bank round {round_ns:.1f} ns")
     # every other fuse at D = 4 (the packed row beside row 1c)
-    chain_ms = _time_ms(lambda: ops.mesh_chain(MESH_ROUNDS, 4), 3)
-    round_ns = chain_ms * 1e6 / MESH_ROUNDS
+    round_ns = probes[4][probes[4]["best"]]
     for fuse in (3, 5, 6, 7, 8):
         out = ops.colskip_sort_mesh_batched(x, 4, w, k, fuse=fuse,
                                             packed=packed, return_rounds=True)
@@ -1109,6 +1169,7 @@ def measure_mesh(torch, np, mesh_launches: int, err: int,
                 shape=f"({b}, {n}) uint32 w={w} k={k} uniform, D=4 banks, "
                       "fuse=2", plain_device="cpu", local_kernel_ms=local_ms,
                 searches_max_row=searches, round_ns=main["round_ns"],
+                round_probe=probes[4]["best"], round_probes=probes,
                 rounds_max_row=main["rounds_max_row"],
                 static_rounds=main["static_rounds"],
                 rounds_chain_ms=main["chain_ms"], table=table)
@@ -3558,9 +3619,8 @@ def measure_hw_mesh(torch, np, hw_launches: int) -> dict:
     t0 = time.perf_counter()
     want = ref.sort_mesh_ref(host, banks, w, k, fuse=2)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    ops.mesh_chain(1000, banks)
-    round_ns = _time_ms(lambda: ops.mesh_chain(MESH_ROUNDS, banks), 3) \
-        * 1e6 / MESH_ROUNDS
+    probes = _mesh_round_ns(ops, banks)
+    round_ns = probes[probes["best"]]
     table, err = [], 0
     for fuse in hw_bench.FUSE_VALUES:
         got = ops.colskip_sort_mesh_batched(x, banks, w, k, fuse=fuse,
@@ -3584,6 +3644,7 @@ def measure_hw_mesh(torch, np, hw_launches: int) -> dict:
                 shape=f"(1, {n}) uint32 w={w} k={k}, D={banks} banks, "
                       "fuse=2 (hw_bench)", plain_device="cpu",
                 searches_max_row=searches, round_ns=round_ns,
+                round_probe=probes["best"], round_probes=probes,
                 rounds_max_row=main["rounds_max_row"], table=table)
 
 

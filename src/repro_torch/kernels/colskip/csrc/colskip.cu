@@ -49,7 +49,10 @@
 //   * one round for the load: every table entry's still-live bit is one
 //     bit of one __reduce_or_sync; the newest live entry is __ffs of it;
 //     the table's sigs and mask slots are packed in two scalars, so a push
-//     is a shift;
+//     is a shift.  Folding the load into the round that ended the last
+//     search, as the mesh kernels do (colskip_body.cuh's head), costs each
+//     lane a share of every entry, and lost on an H100 (PERF.md), so a load
+//     keeps its round here (kFoldsLoad false);
 //   * planes and table in registers up to WPL = 2 (N <= 2048, the serving
 //     cap): the 32 x WPL plane words and the kMaxK x WPL table words of a
 //     lane are register arrays indexed only by compile-time constants
@@ -134,9 +137,10 @@ static_assert(kDenseMaxC >= 4 && (kDenseMaxC & (kDenseMaxC - 1)) == 0,
 constexpr int kMaxDevices = 64;
 
 // One bank, one warp a row (the packed carrier): every gate is a warp
-// reduction.
+// reduction; a load takes one of its own (the body leaves `nxt` alone).
 struct WarpGate {
     static constexpr int bank = 0, banks = 1;
+    static constexpr bool kFoldsLoad = false;
     __device__ __forceinline__ uint32_t any(uint32_t bits) {
         return __reduce_or_sync(kFull, bits);
     }
@@ -148,7 +152,7 @@ struct WarpGate {
     }
     // a drain whose survivors sit in one lane skips the scan (a ballot
     // says so)
-    __device__ __forceinline__ int rank(int mine, int& total) {
+    __device__ __forceinline__ int rank(int mine, int& total, uint32_t&) {
         total = __reduce_add_sync(kFull, mine);
         const uint32_t holders = __ballot_sync(kFull, mine != 0);
         return (holders & (holders - 1u))
@@ -163,10 +167,12 @@ struct WarpGate {
 // two buffers of [NW + 1][W] words: the pattern words, then the counts)
 // behind one barrier.  The buffers alternate (`par`), so one barrier a
 // round suffices: no warp rewrites a buffer before every warp has passed
-// the barrier after its last read.
+// the barrier after its last read.  A load takes a round of its own, as in
+// WarpGate.
 template <int W, int NW = pat_words(kFuse)>
 struct BlockGate {
     static constexpr int bank = 0, banks = 1;
+    static constexpr bool kFoldsLoad = false;
     static constexpr int kSlot = (NW + 1) * W;         // words a buffer
     static constexpr int kWords = W > 1 ? 2 * kSlot : 0;   // shared words
     uint32_t* xch;
@@ -212,7 +218,7 @@ struct BlockGate {
         }
     }
     // one warp skips the scan when a single lane holds every survivor
-    __device__ __forceinline__ int rank(int mine, int& total) {
+    __device__ __forceinline__ int rank(int mine, int& total, uint32_t&) {
         const int lane = threadIdx.x & 31;
         if (W == 1) {
             total = __reduce_add_sync(kFull, mine);

@@ -6,14 +6,18 @@
 // A row body runs on the threads of one bank (one CTA) and reaches the
 // rest of the row only through its Gate, the §IV manager's combine points:
 //
-//   * g.any(bits): OR of a per-thread word over the row's threads (the SL
-//     gate of a load: each table entry's still-live bit);
-//   * g.patterns(pats, cnt): OR of the words `pats` and sum of `cnt` over
-//     the row, in one round (a fused block's set of F-bit patterns, 2^F
-//     bits in pat_words(F) words, and the alive count);
-//   * g.rank(mine, total): this thread's exclusive prefix of `mine` in
-//     element order over the row (bank-major, then thread order) and the
-//     row's total (a drain's rank and survivor count);
+//   * g.patterns(words, cnt): OR of the words `words` and sum of `cnt`
+//     over the row, in one round (a fused block's set of F-bit patterns,
+//     2^F bits in pat_words(F) words, with the next load's still-live bits
+//     where the gate folds the load, block_words(F) words in all; and the
+//     alive count);
+//   * g.rank(mine, total, nxt): this thread's exclusive prefix of `mine`
+//     in element order over the row (bank-major, then thread order), the
+//     row's total and, where the gate folds the load, the OR of `nxt` (a
+//     drain's rank and survivor count, and the next load's still-live
+//     bits);
+//   * g.any(bits), only where the gate does not fold the load: OR of a
+//     per-thread word over the row (a load's SL gate, a round of its own);
 //   * g.done(): the barrier after which every thread of the row sees the
 //     order[] written by all of them; g.bank, g.banks, g.lead() place the
 //     values gather and the counters' write.
@@ -22,6 +26,30 @@
 // shared-memory meeting of the warps); for a mesh (colskip_mesh.cu) each
 // is one exchange between the CTAs of a cluster.  Every verdict comes out
 // of a gate, so every bank of a row takes the same decisions.
+//
+// Gate::kFoldsLoad: a load's SL gate (the reference's or_any(hit),
+// kernel.py:171-174: each table entry's still-live bit) takes no round of
+// its own.  The mesh gates fold it, since their round is a cross-bank
+// exchange; the single-bank gates (colskip.cu) keep it as a reduction,
+// which cost less there on an H100 than the shares below.  A search ends
+// in the round that finds a lone alive element (patterns) or in its drain
+// (rank), which drains every survivor unless the row reaches `stop` and
+// ends.  After either the table does not change before the next load and
+// every alive element is sorted, so the row's OR of the bits e with
+// TMASK(e) & ~(sorted | alive) nonzero, posted in that round, is the next
+// load's verdict exactly; a round that does not end the search drops them.  A
+// block round carries them above the patterns of its first word while
+// 2^F patterns leave kMaxK bits free (F <= 4), else in a word of their
+// own (block_words).
+//
+// There they cost a select.  Every valid table entry holds every alive
+// element (a fresh search pushes from its shrinking alive set; a loaded
+// search walks inside the entry it loaded, which the older valid ones
+// contain), and in a lone round a thread holds at most one alive element.
+// So each thread keeps, per entry, whether its share holds at least one
+// unsorted element (`one`) and at least two (`two`), shifted at a push
+// and recounted where a drain sorts, and posts `two` if it holds an alive
+// element, else `one`.  A drain round posts the bits as they are.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,6 +82,18 @@ __host__ __device__ constexpr int pat_words(int f) {
     return f <= 5 ? 1 : 1 << (f - 5);
 }
 
+// The next load's still-live bits in a block round: above the patterns of
+// its first word (at bit kNxtShift) while 2^F patterns leave them room,
+// else in a word after the pattern set
+constexpr int kNxtShift = 32 - kMaxK;
+__host__ __device__ constexpr bool nxt_in_pats(int f) {
+    return (1 << f) <= kNxtShift;
+}
+// Words a block round ORs: the pattern set and the next load's bits
+__host__ __device__ constexpr int block_words(int f) {
+    return pat_words(f) + (nxt_in_pats(f) ? 0 : 1);
+}
+
 // Word h of the set of F-bit patterns (plane i of a block at bit F - 1 - i)
 // whose bit j is set.
 __host__ __device__ constexpr uint32_t pattern_mask(int f, int j, int h) {
@@ -63,6 +103,50 @@ __host__ __device__ constexpr uint32_t pattern_mask(int f, int j, int h) {
         if (p < (1 << f) && ((p >> j) & 1)) m |= 1u << b;
     }
     return m;
+}
+
+// Bit e < kk: word(e, i) is nonzero for some i < n (the next load's
+// still-live bits, word(e, i) a table entry's unit i with the sorted and
+// alive elements cleared)
+template <int kE, class Word>
+__device__ __forceinline__ uint32_t live_bits(int kk, int n, Word word) {
+    uint32_t hit = 0u;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+        if (e < kk) {
+            uint32_t h = 0u;
+#pragma unroll
+            for (int i = 0; i < n; ++i) h |= word(e, i);
+            hit |= nonzero(h) << e;
+        }
+    }
+    return hit;
+}
+
+// Bits e < kk of the table entries of whose words word(e, i), i < n, at
+// least one element (`one`) and at least two (`two`) are set
+template <int kE, class Word>
+__device__ __forceinline__ void count_bits(int kk, int n, Word word,
+                                           uint32_t& one, uint32_t& two) {
+    one = two = 0u;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+        if (e < kk) {
+            int c = 0;
+#pragma unroll
+            for (int i = 0; i < n; ++i) c += __popc(word(e, i));
+            one |= (uint32_t)(c >= 1) << e;
+            two |= (uint32_t)(c >= 2) << e;
+        }
+    }
+}
+
+// An entry pushed as entry 0 holding `c` of the thread's elements: the
+// older entries' bits shift on (count_bits' words)
+__device__ __forceinline__ void push_count(int c, uint32_t kkmask,
+                                           uint32_t& one, uint32_t& two) {
+    one = ((one << 1) | (uint32_t)(c >= 1)) & kkmask;
+    two = ((two << 1) | (uint32_t)(c >= 2)) & kkmask;
 }
 
 // OR of bits[p] << p over p < n, as a balanced tree (no serial chain)
@@ -77,21 +161,32 @@ __device__ __forceinline__ uint32_t pack_bits(uint32_t (&bits)[N]) {
     return bits[0];
 }
 
+// Word h of the set of all F-bit patterns
+__host__ __device__ constexpr uint32_t pattern_all(int f, int h) {
+    return 32 * h >= (1 << f) ? 0u
+           : (1 << f) - 32 * h >= 32 ? kFull
+                                     : (1u << ((1 << f) - 32 * h)) - 1u;
+}
+
 // The verdicts of one block of F planes (plane i of the block is
 // base + F - 1 - i) from the set of F-bit patterns that the block's alive
-// elements show (plane i at bit F - 1 - i of a pattern).  Bit i of the
-// result is set when plane i is active (at or below `start`) and mixed:
-// the patterns still alive show both of its bits; a mixed plane then keeps
-// those with a 0 there.  A plane above 31 (the top block when F does not
-// divide 32) is above every start, so never active.  Both carriers resolve
-// their blocks here, as the reference's carriers share _traverse_planes.
-template <int F>
+// elements show (plane i at bit F - 1 - i of a pattern), the first
+// pat_words(F) words of `set` (kMasked: bits past the patterns, a folding
+// gate's next-load bits, are cleared first).  Bit i of the result is set
+// when plane i is active (at or below `start`) and mixed: the patterns
+// still alive show both of its bits; a mixed plane then keeps those with a
+// 0 there.  A plane above 31 (the top block when F does not divide 32) is
+// above every start, so never active.  Both carriers resolve their blocks
+// here, as the reference's carriers share _traverse_planes.
+template <int F, bool kMasked, int N>
 __device__ __forceinline__ uint32_t resolve_block(
-        const uint32_t (&set)[pat_words(F)], int base, int start) {
+        const uint32_t (&set)[N], int base, int start) {
+    static_assert(N >= pat_words(F), "the set's words");
     constexpr int NW = pat_words(F);
     uint32_t pats[NW];
 #pragma unroll
-    for (int h = 0; h < NW; ++h) pats[h] = set[h];
+    for (int h = 0; h < NW; ++h)
+        pats[h] = kMasked ? set[h] & pattern_all(F, h) : set[h];
     uint32_t mixed = 0u;
 #pragma unroll
     for (int i = 0; i < F; ++i) {
@@ -235,26 +330,26 @@ __device__ __forceinline__ void packed_row(
     // so the registers do not grow with 2^F
     constexpr int kT = F < 4 ? F : 4, kHi = F - kT;
     constexpr int kPats = 1 << kT;         // patterns of a subset
-    constexpr int kNW = pat_words(F);
+    constexpr bool kFold = Gate::kFoldsLoad;
+    constexpr int kNW = pat_words(F), kXW = kFold ? block_words(F) : kNW;
     bool fresh = true, seen = false;
     int start = 0;
+    uint32_t carried = 0u;   // the next load's live bits (see the head)
+    uint32_t one = 0u, two = 0u;   // the lane's share of the entries (ditto)
+    // bit e: table entry e's word q of `expr` is nonzero for some q
+#define LIVE(expr)                                                         \
+    live_bits<kMaxK>(kk, WPL, [&](int e, int q) { return (expr); })
+#define RECOUNT()                                                          \
+    count_bits<kMaxK>(kk, WPL, [&](int e, int q) {                         \
+        return TMASK(e, q) & ~srt[q]; }, one, two)
 
     while (count < stop) {
-        // --- load: the newest live table entry (one round), else fresh
-        uint32_t live = 0u;
-        if (tvalid != 0u) {
-            uint32_t hit = 0u;
-#pragma unroll
-            for (int e = 0; e < kMaxK; ++e) {
-                if (e < kk) {
-                    uint32_t h = 0u;
-#pragma unroll
-                    for (int q = 0; q < WPL; ++q) h |= TMASK(e, q) & ~srt[q];
-                    hit |= nonzero(h) << e;
-                }
-            }
-            live = tvalid & g.any(hit);
-        }
+        // --- load: the newest live table entry (its verdict came with the
+        // round that ended the last search), else fresh
+        uint32_t live = tvalid & carried;
+        if constexpr (!kFold)
+            if (tvalid != 0u)
+                live = tvalid & g.any(LIVE(TMASK(e, q) & ~srt[q]));
         if (live != 0u) {
             const int first = __ffs(live) - 1;
             start = (int)((tsig >> (8 * first)) & 0xFFu) - 1;
@@ -295,9 +390,16 @@ __device__ __forceinline__ void packed_row(
             // F - 1 - i) that the alive elements show.  A plane is mixed
             // when the patterns still alive show both of its bits; it then
             // keeps those with a 0 there
-            uint32_t seen_pats[kNW];
+            // with the next load's bits (see the head): the lane's share
+            // of each entry, less its alive element if it holds one
+            uint32_t seen_pats[kXW];
 #pragma unroll
-            for (int h = 0; h < kNW; ++h) seen_pats[h] = 0u;
+            for (int h = 0; h < kXW; ++h) seen_pats[h] = 0u;
+            if constexpr (kFold) {
+                const uint32_t nxt = here != 0 ? two : one;
+                seen_pats[nxt_in_pats(F) ? 0 : kNW] =
+                    nxt_in_pats(F) ? nxt << kNxtShift : nxt;
+            }
 #pragma unroll
             // the lane's word q of the alive elements whose top kHi planes
             // read h
@@ -368,9 +470,13 @@ __device__ __forceinline__ void packed_row(
             g.patterns(seen_pats, here);
             if (here <= 1) {
                 lone = true;
+                if (kFold)
+                    carried = nxt_in_pats(F) ? seen_pats[0] >> kNxtShift
+                                             : seen_pats[kXW - 1];
                 break;
             }
-            const uint32_t mixed = resolve_block<F>(seen_pats, base, start);
+            const uint32_t mixed =
+                resolve_block<F, kFold>(seen_pats, base, start);
             if (mixed == 0u) continue;     // uniform block: alive unchanged
             if (!fresh || k == 0) {
                 // no table push: exclude the 1s of every mixed plane at once
@@ -387,8 +493,13 @@ __device__ __forceinline__ void packed_row(
                 for (int i = 0; i < F; ++i) {
                     if (((mixed >> i) & 1u) == 0u) continue;
                     const int sig = base + F - 1 - i;
+                    int c = 0;
 #pragma unroll
-                    for (int q = 0; q < WPL; ++q) alive[q] &= ~COL(sig, q);
+                    for (int q = 0; q < WPL; ++q) {
+                        alive[q] &= ~COL(sig, q);
+                        if constexpr (kFold) c += __popc(alive[q]);
+                    }
+                    if (kFold) push_count(c, kkmask, one, two);
                     // push (sig, alive) as entry 0: older entries shift on
                     if (kRegs) {
 #pragma unroll
@@ -428,13 +539,17 @@ __device__ __forceinline__ void packed_row(
         // that stopped at a lone element already knows the count (one) and
         // the rank (0): its lane writes it, with no round
         if (lone) {
+            bool held = false;
 #pragma unroll
             for (int q = 0; q < WPL; ++q) {
-                if (alive[q] != 0u)
+                if (alive[q] != 0u) {
                     ordr[count] = col0 + (lane * WPL + q) * 32 +
                                   __ffs(alive[q]) - 1;
+                    held = true;
+                }
                 srt[q] |= alive[q];
             }
+            if (kFold && held) RECOUNT();
             ++count;
             continue;
         }
@@ -442,7 +557,10 @@ __device__ __forceinline__ void packed_row(
 #pragma unroll
         for (int q = 0; q < WPL; ++q) mine += __popc(alive[q]);
         int m_tot = 0;
-        int r = g.rank(mine, m_tot);          // rank of the lane's first
+        // bit e: table entry e keeps an element neither sorted nor alive
+        if (kFold && tvalid != 0u)
+            carried = LIVE(TMASK(e, q) & ~(srt[q] | alive[q]));
+        int r = g.rank(mine, m_tot, carried);  // rank of the lane's first
         const int m_eff = min(m_tot, stop - count);
         if (m_eff <= 0) break;                // unreachable: a search always
                                               // keeps a survivor; never spin
@@ -459,10 +577,13 @@ __device__ __forceinline__ void packed_row(
                 }
                 srt[q] |= kept;
             }
+            if (kFold) RECOUNT();
         }
         count += m_eff;
         drains += max(m_eff - 1, 0);
     }
+#undef RECOUNT
+#undef LIVE
 #undef COL
 #undef TMASK
     crs_out = crs;
@@ -489,7 +610,8 @@ __device__ __forceinline__ void dense_row(
     constexpr int E = C ? 4 : 1;           // elements a flag unit holds
     constexpr uint32_t kOne = C ? 0x01010101u : 0x01u;  // a unit's flags
     constexpr uint32_t kPatMask = (1u << F) - 1u;  // a block's F bits
-    constexpr int kNW = pat_words(F);
+    constexpr bool kFold = Gate::kFoldsLoad;
+    constexpr int kNW = pat_words(F), kXW = kFold ? block_words(F) : kNW;
     constexpr int kTE = kRegTab ? kRegTable : 1;
     const int t = threadIdx.x;
     const int c = C ? C : (nl + T - 1) / T;     // elements a thread
@@ -545,23 +667,23 @@ __device__ __forceinline__ void dense_row(
     int s_top = w - 1, count = 0, crs = 0, drains = 0;
     bool fresh = true;
     int start = 0;
+    uint32_t carried = 0u;   // the next load's live bits (see the head)
+    uint32_t one = 0u, two = 0u;   // the thread's share of the entries
+    constexpr int kTableE = kRegTab ? kRegTable : kMaxK;
+    // bit e: table entry e's unit u of `expr` is nonzero for some u
+#define LIVE(expr)                                                         \
+    live_bits<kTableE>(kk, U, [&](int e, int u) { return (uint32_t)(expr); })
+#define RECOUNT()                                                          \
+    count_bits<kTableE>(kk, U, [&](int e, int u) {                         \
+        return (uint32_t)(DT(e, u) & ~DS(u)); }, one, two)
 
     while (count < stop) {
-        // --- load: the newest live table entry (one round), else fresh
-        uint32_t live = 0u;
-        if (tvalid != 0u) {
-            uint32_t hit = 0u;
-#pragma unroll
-            for (int e = 0; e < (kRegTab ? kRegTable : kMaxK); ++e) {
-                if (e < kk) {
-                    uint32_t h = 0u;
-#pragma unroll
-                    for (int u = 0; u < U; ++u) h |= DT(e, u) & ~DS(u);
-                    hit |= nonzero(h) << e;
-                }
-            }
-            live = tvalid & g.any(hit);
-        }
+        // --- load: the newest live table entry (its verdict came with the
+        // round that ended the last search), else fresh
+        uint32_t live = tvalid & carried;
+        if constexpr (!kFold)
+            if (tvalid != 0u)
+                live = tvalid & g.any(LIVE(DT(e, u) & ~DS(u)));
         if (live != 0u) {
             const int first = __ffs(live) - 1;
             start = (int)((tsig >> (8 * first)) & 0xFFu) - 1;
@@ -596,9 +718,9 @@ __device__ __forceinline__ void dense_row(
         bool seen = false, lone = false;
         for (int bi = start >= 0 ? start / F : -1; bi >= 0; --bi) {
             const int base = bi * F;
-            uint32_t pats[kNW];
+            uint32_t pats[kXW];
 #pragma unroll
-            for (int h = 0; h < kNW; ++h) pats[h] = 0u;
+            for (int h = 0; h < kXW; ++h) pats[h] = 0u;
             int here = 0;
 #pragma unroll
             for (int u = 0; u < U; ++u) {
@@ -614,13 +736,21 @@ __device__ __forceinline__ void dense_row(
                                         ? on : 0u) << (p & 31u);
                 }
             }
+            if constexpr (kFold) {         // the next load's bits (the head)
+                const uint32_t nxt = here != 0 ? two : one;
+                pats[nxt_in_pats(F) ? 0 : kNW] |=
+                    nxt_in_pats(F) ? nxt << kNxtShift : nxt;
+            }
             g.patterns(pats, here);
             // a lone element makes every plane from here down uniform
             if (here <= 1) {
                 lone = true;
+                if (kFold)
+                    carried = nxt_in_pats(F) ? pats[0] >> kNxtShift
+                                             : pats[kXW - 1];
                 break;
             }
-            const uint32_t mixed = resolve_block<F>(pats, base, start);
+            const uint32_t mixed = resolve_block<F, kFold>(pats, base, start);
             if (mixed == 0u) continue;     // uniform block: alive unchanged
             // mixed planes as bits of a pattern (plane i at F - 1 - i)
             uint32_t mp = 0u;
@@ -643,6 +773,7 @@ __device__ __forceinline__ void dense_row(
                 for (int i = 0; i < F; ++i) {
                     if (((mixed >> i) & 1u) == 0u) continue;
                     const int sig = base + F - 1 - i;
+                    int c = 0;
 #pragma unroll
                     for (int u = 0; u < U; ++u) {
                         uint32_t keep = 0u;
@@ -650,7 +781,9 @@ __device__ __forceinline__ void dense_row(
                         for (int j = 0; j < E; ++j)
                             keep |= (~(DV(u * E + j) >> sig) & 1u) << (8 * j);
                         DA(u) &= keep;
+                        if constexpr (kFold) c += __popc(DA(u));
                     }
+                    if (kFold) push_count(c, kkmask, one, two);
                     // push (sig, alive) as entry 0: older entries shift on
                     if constexpr (kRegTab) {
 #pragma unroll
@@ -681,14 +814,18 @@ __device__ __forceinline__ void dense_row(
         // that stopped at a lone element already knows the count (one) and
         // the rank (0): its thread writes it, with no round
         if (lone) {
+            bool held = false;
 #pragma unroll
             for (int u = 0; u < U; ++u) {
                 const uint32_t a = DA(u);
-                if (a != 0u)
+                if (a != 0u) {
                     ordr[count] = col0 + first_el + u * E +
                                   ((__ffs(a) - 1) >> 3);
+                    held = true;
+                }
                 DS(u) |= a;
             }
+            if (kFold && held) RECOUNT();
             ++count;
             continue;
         }
@@ -696,7 +833,10 @@ __device__ __forceinline__ void dense_row(
 #pragma unroll
         for (int u = 0; u < U; ++u) mine += __popc(DA(u));
         int m_tot = 0;
-        int r = g.rank(mine, m_tot);          // rank of the thread's first
+        // bit e: table entry e keeps an element neither sorted nor alive
+        if (kFold && tvalid != 0u)
+            carried = LIVE(DT(e, u) & ~(DS(u) | DA(u)));
+        int r = g.rank(mine, m_tot, carried);  // rank of the thread's first
         const int m_eff = min(m_tot, stop - count);
         if (m_eff <= 0) break;                // unreachable: a search always
                                               // keeps a survivor; never spin
@@ -713,10 +853,13 @@ __device__ __forceinline__ void dense_row(
                 }
                 DS(u) |= kept;
             }
+            if (kFold) RECOUNT();
         }
         count += m_eff;
         drains += max(m_eff - 1, 0);
     }
+#undef RECOUNT
+#undef LIVE
 #undef DV
 #undef DA
 #undef DS

@@ -20,23 +20,20 @@
 // 32768); on the dense carrier four warps holding values and flag bytes
 // in registers up to a shard of 2048, one warp in shared memory beyond.
 // Every verdict comes out of a gate, so all CTAs of a row take identical
-// decisions and meet at every cluster barrier.  A whole 8-row tile in one
-// cluster was not taken: its rows finish after different numbers of
-// rounds, and a cluster barrier spans every thread of the cluster
-// (per-row mbarriers in DSMEM would be needed); one cluster a row keeps
-// one barrier a round.
+// decisions and make the same rounds.  One cluster a row: its rows finish
+// after different numbers of rounds.
 //
 // The manager gates (ClusterGate), each one exchange ("round"): every
-// warp reduces its word (one REDUX), its lane 0 posts it with a count in
-// its CTA's shared memory, a cluster barrier (barrier.cluster.arrive.
-// release / wait.acquire, as cluster.sync()) follows, and lane i < D * W
-// reads warp i % W's slot of CTA i / W through DSMEM
-// (cluster.map_shared_rank); one more REDUX ORs the words and adds the
-// counts, so one round reduces over the CTA's warps and over the banks.
-// Slots are double-buffered by round parity: a fast CTA cannot overwrite
-// a slot a slow one has not read, because it reaches that slot's next
-// write only past the barrier the slow one arrives at after its read, so
-// one barrier a round suffices.
+// warp reduces its words (one REDUX a word), the warp's words go to every
+// warp of the row's cluster in one round of mesh_exchange.cuh (its async
+// round: pushed into each CTA's own receive slots and signalled on an
+// mbarrier there, so the reads that follow are local), and one more REDUX
+// a word
+// ORs the words and adds the counts over the lanes that hold the D * W
+// warps' words, so one round reduces over the CTA's warps and over the
+// banks.  A round carries the warp's words (a block's: its pattern set with
+// the next load's still-live bits, block_words(F); a drain's: those bits)
+// and its count.
 //
 //   * OR-gate round, one a fused block of F planes: the set of F-bit
 //     patterns present among the shard's alive elements (the single-bank
@@ -46,14 +43,16 @@
 //   * lone-element stop: the alive count rides in the same round (added,
 //     not ORed); one alive element in the row makes every lower plane
 //     uniform, the walk stops, and only the bank that owns it drains it;
-//   * SL gate: each table entry's still-live bit (kk <= 8 bits) in one
-//     exchange, as or_any(hit) in the reference's load (kernel.py:171-174);
+//   * SL gate, the reference's or_any(hit) in its load (kernel.py:
+//     171-174): each table entry's still-live bit (kk <= 8 bits), with no
+//     exchange of its own: it rides in the round that ended the last
+//     search (colskip_body.cuh's head);
 //   * drain: one exchange of survivor counts gives every bank the row's
 //     total and its exclusive bank-major prefix; a bank writes the order
 //     of its drained elements straight to order[count + prefix + local
 //     rank], in global column numbering (bank * N / D + j), capped at
-//     stop - count (the k-early exit).  After the last round's cluster
-//     barrier the row's CTAs gather the values through order[] together;
+//     stop - count (the k-early exit).  After a last cluster barrier
+//     (done()) the row's CTAs gather the values through order[] together;
 //     no assembly pass follows.
 //
 // fuse (F) is a template parameter, built for F in 1..8 on both carriers
@@ -62,14 +61,14 @@
 // exchange carries together); any other F is refused.  Each row returns
 // the exchanges it made ("rounds"), at most the reference's static account
 // collective_rounds(w, stop, fuse)["rounds"], since a search walks at most
-// ceil(w / F) blocks, and skipped planes, lone elements and a load with an
-// empty table make none.
+// ceil(w / F) blocks, and skipped planes, lone elements and loads make
+// none.
 //
 // What bounds it: latency.  A row is one dependency chain of exchanges,
-// each a cluster barrier plus a DSMEM read, so the least time is the
-// slowest row's min searches times one dependent cross-bank round, which
-// mesh_chain_kernel below times.  The bytes (one read of the tile, one
-// write of values and order) are negligible.
+// so the least time is the slowest row's min searches times one dependent
+// cross-bank round, which mesh_chain_kernel below times for each round of
+// mesh_exchange.cuh.  The bytes (one read of the tile, one write of values
+// and order) are negligible.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -78,6 +77,13 @@
 #include <atomic>
 
 #include "colskip_body.cuh"
+#include "mesh_exchange.cuh"
+
+// a gate's round, counted by kind (0 block, 1 drain) by the CPU
+// emulation's tally (tests/cuda_emu/), nothing on the card
+#ifndef MESH_TALLY
+#define MESH_TALLY(kind) ((void)0)
+#endif
 
 // The library is built in parts (kernels/_build.py, PARTS): nvcc compiles
 // part p of COLSKIP_MESH_PARTS with -DCOLSKIP_MESH_PART=p, which holds the
@@ -93,11 +99,8 @@
 #define COLSKIP_MESH_PART 0
 #endif
 
-namespace cg = cooperative_groups;
-
 namespace {
 
-constexpr int kMaxBanks = 8;    // the portable cluster size
 constexpr int kDenseWarps = 4;  // dense: warps a bank, registers
 constexpr int kDenseRegN = 2048;   // dense: widest shard held in registers
 constexpr int kMaxDevices = 64;
@@ -108,79 +111,68 @@ static_assert(COLSKIP_MESH_PARTS >= 1 && COLSKIP_MESH_PARTS <= kMaxFuse &&
               "one to eight parts");
 
 // The §IV manager between the D CTAs of a row's cluster, W warps each
-// (see the head of this file).  Slots: two buffers (round parity) of
-// [NW + 1][W] words: NW words a warp (a block's pattern set; the other
-// gates post one) and a count per warp.  `rounds` counts the exchanges
-// made.
-template <int W, int NW = 1>
+// (see the head of this file), on round kMode of mesh_exchange.cuh (the
+// async round, the faster on an H100: PERF.md, chip_smoke.py's probes): NW
+// words a warp (a block's words; a drain posts one) and a count word.
+// `rounds` counts the exchanges made.  Built by every thread of the
+// cluster: it sets up the round and meets the cluster once.
+template <int W, int NW = 1, int kMode = kAsyncRound>
 struct ClusterGate {
-    static constexpr int kSlot = (NW + 1) * W;  // words a buffer
-    static constexpr int kWords = 2 * kSlot;    // shared words of the slots
-    static_assert(kMaxBanks * W <= 32, "a lane reads each bank's warp slot");
-    uint32_t* xch;
-    int banks, bank, par = 0, rounds = 0;
-    __device__ ClusterGate(uint32_t* x, int nb, int b)
-        : xch(x), banks(nb), bank(b) {}
+    static constexpr bool kFoldsLoad = true;   // colskip_body.cuh's head
+    using Exchange = MeshExchange<W, NW + 1, kMode>;
+    static constexpr int kWords = Exchange::kWords;  // shared words
+    Exchange x;
+    int banks, bank, rounds = 0;
+    __device__ ClusterGate(uint32_t* smem, int nb, int b)
+        : x(smem, nb, b), banks(nb), bank(b) {
+        x.init();
+    }
 
     // `bits` (N <= NW words) and `cnt` are the warp's (warp-reduced);
     // returns the row's ORs and sum, and in `below` the sum over the warps
-    // before this one in element order (bank-major).  Lane i < D * W reads
-    // warp i % W's slot of CTA i / W: N + 1 words, one barrier a round
+    // before this one in element order (bank-major): lane i < D * W holds
+    // warp i % W's words of CTA i / W
     template <int N>
     __device__ __forceinline__ void exchange(uint32_t (&bits)[N], int& cnt,
                                              int* below) {
-        static_assert(N <= NW, "the slots hold NW words a warp");
-        cg::cluster_group cluster = cg::this_cluster();
+        static_assert(N <= NW, "a round carries NW words a warp");
         const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-        uint32_t* xb = xch + par * kSlot;
-        if (lane == 0) {
+        uint32_t mine[NW + 1], got[NW + 1];
 #pragma unroll
-            for (int h = 0; h < N; ++h) xb[h * W + warp] = bits[h];
-            xb[NW * W + warp] = (uint32_t)cnt;
-        }
-        cluster.sync();
-        uint32_t b[N];
+        for (int h = 0; h < NW; ++h) mine[h] = h < N ? bits[h] : 0u;
+        mine[NW] = (uint32_t)cnt;
+        x.round(mine, got);
 #pragma unroll
-        for (int h = 0; h < N; ++h) b[h] = 0u;
-        int c = 0;
-        if (lane < banks * W) {
-            const uint32_t* remote =
-                cluster.map_shared_rank(xb, (unsigned)(lane / W));
-#pragma unroll
-            for (int h = 0; h < N; ++h) b[h] = remote[h * W + lane % W];
-            c = (int)remote[NW * W + lane % W];
-        }
-#pragma unroll
-        for (int h = 0; h < N; ++h) bits[h] = __reduce_or_sync(kFull, b[h]);
+        for (int h = 0; h < N; ++h) bits[h] = __reduce_or_sync(kFull, got[h]);
+        const int c = (int)got[NW];
         cnt = __reduce_add_sync(kFull, c);
         if (below != nullptr)
             *below = __reduce_add_sync(kFull,
                                        lane < bank * W + warp ? c : 0);
-        par ^= 1;
         ++rounds;
     }
-    __device__ __forceinline__ uint32_t any(uint32_t bits) {
-        uint32_t word[1] = {__reduce_or_sync(kFull, bits)};
-        int none = 0;
-        exchange(word, none, nullptr);
-        return word[0];
-    }
-    __device__ __forceinline__ void patterns(uint32_t (&pats)[NW], int& cnt) {
+    __device__ __forceinline__ void patterns(uint32_t (&words)[NW],
+                                             int& cnt) {
+        if (lead()) MESH_TALLY(0);
 #pragma unroll
-        for (int h = 0; h < NW; ++h) pats[h] = __reduce_or_sync(kFull, pats[h]);
+        for (int h = 0; h < NW; ++h)
+            words[h] = __reduce_or_sync(kFull, words[h]);
         cnt = __reduce_add_sync(kFull, cnt);
-        exchange(pats, cnt, nullptr);
+        exchange(words, cnt, nullptr);
     }
-    __device__ __forceinline__ int rank(int mine, int& total) {
+    __device__ __forceinline__ int rank(int mine, int& total, uint32_t& nxt) {
+        if (lead()) MESH_TALLY(1);
         const int incl = warp_inclusive_scan(mine, threadIdx.x & 31);
-        uint32_t none[1] = {0u};
+        uint32_t bits[1] = {__reduce_or_sync(kFull, nxt)};
         int cnt = __shfl_sync(kFull, incl, 31), below = 0;
-        exchange(none, cnt, &below);
+        exchange(bits, cnt, &below);
+        nxt = bits[0];
         total = cnt;
         return below + incl - mine;
     }
     // no CTA leaves (or gathers) before every partner is past its last
-    // read of the slots and its last write of order[]
+    // write into its shared memory, its last read of the slots and its
+    // last write of order[]
     __device__ __forceinline__ void done() { cg::this_cluster().sync(); }
     __device__ __forceinline__ bool lead() const {
         return bank == 0 && threadIdx.x == 0;
@@ -189,7 +181,7 @@ struct ClusterGate {
 
 // The gate of a mesh kernel at F planes a round, W warps a bank
 template <int W, int F>
-using MeshGate = ClusterGate<W, pat_words(F)>;
+using MeshGate = ClusterGate<W, block_words(F)>;
 
 // The bank's place in its cluster and row
 struct MeshRow {
@@ -249,15 +241,18 @@ colskip_mesh_dense_kernel(const uint32_t* __restrict__ x,
 }
 
 #if COLSKIP_MESH_PART == 0
-// `rounds` dependent exchanges between the `banks` CTAs of one cluster:
-// each posted word depends on the last round's OR, as a block's patterns
-// depend on the last verdict.  The time per round prices one step of a
-// mesh row's chain; it is not on the serving path.
+// `rounds` dependent exchanges between the `banks` CTAs of one cluster on
+// round kMode of mesh_exchange.cuh: each posted word depends on the last
+// round's OR, as a block's patterns depend on the last verdict.  The time
+// per round prices one step of a mesh row's chain; it is not on the
+// serving path.
+template <int kMode>
 __global__ void __launch_bounds__(32)
 mesh_chain_kernel(int32_t* __restrict__ out, uint32_t seed, int rounds,
                   int banks) {
     extern __shared__ uint32_t smem[];
-    ClusterGate<1> g(smem, banks, (int)cg::this_cluster().block_rank());
+    ClusterGate<1, 1, kMode> g(smem, banks,
+                               (int)cg::this_cluster().block_rank());
     int acc = 0;
     for (int r = 0; r < rounds; ++r) {
         uint32_t bits[1] = {((seed >> (r & 31)) ^ (uint32_t)acc ^ g.bank) & 1u};
@@ -268,6 +263,7 @@ mesh_chain_kernel(int32_t* __restrict__ out, uint32_t seed, int rounds,
     g.done();
     if (g.lead()) out[0] = acc;
 }
+
 #endif
 
 // Opt `kernel` in to `bytes` of dynamic shared memory on the current
@@ -444,6 +440,16 @@ int colskip_mesh::COLSKIP_MESH_PART_FN(COLSKIP_MESH_PART)(const Args& a,
 #if COLSKIP_MESH_PART == 0
 namespace {
 
+// the chain probe on round kMode
+template <int kMode>
+int launch_chain(int32_t* out, unsigned seed, int rounds, int banks,
+                 cudaStream_t stream) {
+    return launch_clusters(mesh_chain_kernel<kMode>, 1, banks, 32,
+                           (size_t)ClusterGate<1, 1, kMode>::kWords *
+                               sizeof(uint32_t),
+                           stream, out, seed, rounds, banks);
+}
+
 // the launch at `fuse` planes a round, in the part that owns it
 int launch_fuse(const Args& a, int fuse) {
     using namespace colskip_mesh;
@@ -509,16 +515,20 @@ int colskip_mesh_launch(const void* x, void* vals, void* order, void* crs,
 }
 
 // out (1,) int32 <- the count of true words in a chain of `rounds`
-// dependent exchanges between the `banks` CTAs of one cluster.  Returns
-// cudaGetLastError().
+// dependent exchanges between the `banks` CTAs of one cluster, on round
+// `round` of mesh_exchange.cuh (0 the barrier round, 1 the async round,
+// the mesh kernels').  Returns cudaGetLastError().
 int colskip_mesh_chain_launch(void* out, unsigned seed, int rounds, int banks,
-                              void* stream) {
+                              int round, void* stream) {
     if (rounds < 0 || banks < 1 || banks > kMaxBanks)
         return (int)cudaErrorInvalidValue;
-    return launch_clusters(mesh_chain_kernel, 1, banks, 32,
-                           (size_t)ClusterGate<1>::kWords * sizeof(uint32_t),
-                           static_cast<cudaStream_t>(stream),
-                           static_cast<int32_t*>(out), seed, rounds, banks);
+    auto o = static_cast<int32_t*>(out);
+    auto st = static_cast<cudaStream_t>(stream);
+    if (round == kBarrierRound)
+        return launch_chain<kBarrierRound>(o, seed, rounds, banks, st);
+    if (round == kAsyncRound)
+        return launch_chain<kAsyncRound>(o, seed, rounds, banks, st);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

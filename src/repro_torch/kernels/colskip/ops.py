@@ -14,7 +14,8 @@ counts the packed kernel's launches made through
 through the kernels), ``launches_mesh_dense`` the dense carrier's mesh
 kernel's.  :func:`vote_chain`, :func:`redux_chain` and
 :func:`mesh_chain` run the latency probes that price one dependent warp
-round of a row's chain and one cross-bank round of a mesh row's; they are
+round of a row's chain and one cross-bank round of a mesh row's (on each
+round of ``csrc/mesh_exchange.cuh``, :data:`MESH_ROUNDS_BUILT`); they are
 not counted (they are not the kernels a path runs).
 """
 
@@ -29,9 +30,9 @@ from repro_torch.kernels import _build
 
 from . import ref as _ref
 
-__all__ = ["MESH_FUSES", "colskip_sort_batched", "colskip_sort_mesh_batched",
-           "fuse", "max_n", "mesh_chain", "mesh_shard_max", "redux_chain",
-           "reset_launches", "vote_chain"]
+__all__ = ["MESH_FUSES", "MESH_ROUNDS_BUILT", "colskip_sort_batched",
+           "colskip_sort_mesh_batched", "fuse", "max_n", "mesh_chain",
+           "mesh_shard_max", "redux_chain", "reset_launches", "vote_chain"]
 
 launches = 0
 launches_dense = 0
@@ -41,6 +42,10 @@ launches_mesh_dense = 0
 # planes a round the mesh kernel is built for (colskip_mesh.cu), the
 # reference's range
 MESH_FUSES = (1, 2, 3, 4, 5, 6, 7, 8)
+# the cross-bank rounds of csrc/mesh_exchange.cuh, in the C interface's
+# numbering: a cluster barrier then a DSMEM read; a push by st.async that
+# completes its bytes on the receiver's mbarrier (the mesh kernels' round)
+MESH_ROUNDS_BUILT = ("barrier", "async")
 
 
 def reset_launches() -> None:
@@ -72,7 +77,8 @@ def _mesh_lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.colskip_mesh_launch.argtypes = [vp] * 6 + [i] * 8 + [vp]
         lib.colskip_mesh_launch.restype = i
-        lib.colskip_mesh_chain_launch.argtypes = [vp, ctypes.c_uint, i, i, vp]
+        lib.colskip_mesh_chain_launch.argtypes = [vp, ctypes.c_uint, i, i, i,
+                                                  vp]
         lib.colskip_mesh_chain_launch.restype = i
         for name in ("colskip_mesh_max_banks", "colskip_mesh_max_k"):
             getattr(lib, name).argtypes = []
@@ -112,21 +118,24 @@ def redux_chain(rounds: int, seed: int = 0, device="cuda") -> torch.Tensor:
     return _chain(rounds, seed, device, redux=True)
 
 
-def mesh_chain(rounds: int, banks: int, seed: int = 0,
+def mesh_chain(rounds: int, banks: int, round: str, seed: int = 0,
                device="cuda") -> torch.Tensor:
     """Launch one cluster of ``banks`` CTAs running ``rounds`` dependent
-    cross-bank exchanges (the mesh kernel's round: a word posted in shared
-    memory, a cluster barrier, the banks' words read through DSMEM) on the
-    card (no CPU version); returns its (1,) int32 count of true words.
-    Time it to price one round of a mesh row's chain."""
+    cross-bank exchanges on the card (no CPU version), on ``round`` (one of
+    :data:`MESH_ROUNDS_BUILT`; the mesh kernels take ``"async"``); returns
+    its (1,) int32 count of true words.  Time it to price one round of a
+    mesh row's chain."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("mesh_chain measures the card; it has no CPU version")
+    if round not in MESH_ROUNDS_BUILT:
+        raise ValueError(f"round={round!r}: one of {MESH_ROUNDS_BUILT}")
     out = torch.empty((1,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _mesh_lib().colskip_mesh_chain_launch(out.data_ptr(), seed,
-                                                    rounds, banks, stream)
+        err = _mesh_lib().colskip_mesh_chain_launch(
+            out.data_ptr(), seed, rounds, banks,
+            MESH_ROUNDS_BUILT.index(round), stream)
     if err != 0:
         raise RuntimeError(f"mesh_chain launch failed: CUDA error {err}")
     return out

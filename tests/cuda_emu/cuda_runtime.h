@@ -8,7 +8,14 @@
 // a shared-memory atomic is a plain update.  It checks a kernel's logic and
 // its barrier pairing (a mismatched barrier aborts with a message), not
 // its speed, and knows nothing of memory ordering or bank conflicts.
+// The cluster's shared-memory primitives of the mesh round
+// (mesh_exchange.cuh: a store into a peer CTA's shared memory that
+// completes its bytes on the peer's mbarrier, mbarriers with arrival and
+// transaction counts, a parity wait) are given here under
+// the names that header uses; a parity wait yields the fiber, and aborts
+// like a mismatched barrier when every live fiber waits.
 #pragma once
+#define CUDA_EMU 1
 #include <stddef.h>
 #include <stdint.h>
 
@@ -17,6 +24,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <map>
 #include <memory>
 #include <vector>
 
@@ -89,7 +97,13 @@ struct Barrier {
 };
 struct Warp { Barrier* bar; uint64_t slot[32]; int size; };
 struct Block { Barrier* bar; std::vector<uint32_t> smem; std::vector<Warp*> warps; };
-struct Cluster { Barrier* bar; std::vector<Block*> blocks; };
+// an mbarrier: arrivals pending in the current phase (of `expected`), the
+// transaction bytes still owed (below 0 while bytes arrive before they are
+// expected), the phases completed, and the fibers waiting on this one
+struct MBar { unsigned expected = 0, pending = 0; long tx = 0;
+              unsigned phases = 0; size_t waiters = 0; };
+struct Cluster { Barrier* bar; std::vector<Block*> blocks;
+                 std::map<const void*, MBar> mbars; };
 inline thread_local Block* block;
 inline thread_local Cluster* cluster;
 inline thread_local unsigned rank;
@@ -97,10 +111,18 @@ inline std::atomic<int> last_error{0};
 // warp collectives issued, one count per warp: 0 ballot or any, 1 OR
 // reduction, 2 add reduction, 3 shuffle (read and cleared by emu_rounds)
 inline std::atomic<long> rounds[4];
+// a mesh row's manager rounds by gate (MESH_TALLY: 0 block, 1 drain),
+// counted by the row's lead thread (read and cleared by emu_gate_rounds)
+inline std::atomic<long> gates[2];
 }  // namespace emu
 extern "C" __attribute__((visibility("default"), used)) long emu_rounds(int kind) {
     return emu::rounds[kind].exchange(0);
 }
+extern "C" __attribute__((visibility("default"), used))
+long emu_gate_rounds(int kind) {
+    return emu::gates[kind].exchange(0);
+}
+#define MESH_TALLY(kind) (emu::gates[kind]++)
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 namespace emu {
@@ -287,6 +309,69 @@ void launch(K kernel, dim3 grid, dim3 blk, size_t smem, void*, unsigned csize,
 }  // namespace emu
 
 #define EMU_SMEM(T) (reinterpret_cast<T*>(emu::block->smem.data()))
+
+// The cluster's shared memory (mesh_exchange.cuh's primitives): an address
+// in a peer CTA's shared memory is a pointer there
+typedef uintptr_t ClusterAddr;
+namespace emu {
+inline MBar& mbar(const void* p) {
+    auto it = cluster->mbars.find(p);
+    if (it == cluster->mbars.end()) {
+        std::fprintf(stderr, "cuda_emu: an mbarrier used before its init\n");
+        std::abort();
+    }
+    return it->second;
+}
+// the phase completes once every arrival is in and every byte delivered;
+// its waiters are released, as the last arrival at a Barrier releases them
+inline void mbar_settle(MBar& m) {
+    if (m.pending != 0 || m.tx != 0) return;
+    ++m.phases;
+    m.pending = m.expected;
+    sched->blocked -= m.waiters;
+    m.waiters = 0;
+}
+inline void mbar_arrive(const void* p) {
+    MBar& m = mbar(p);
+    if (m.pending == 0) {
+        std::fprintf(stderr, "cuda_emu: an arrival past an mbarrier's count\n");
+        std::abort();
+    }
+    --m.pending;
+    mbar_settle(m);
+}
+}  // namespace emu
+inline ClusterAddr peer_addr(const void* p, unsigned r) {
+    return reinterpret_cast<ClusterAddr>(
+        reinterpret_cast<const char*>(emu::cluster->blocks[r]->smem.data()) +
+        (reinterpret_cast<const char*>(p) -
+         reinterpret_cast<const char*>(emu::block->smem.data())));
+}
+inline void mbar_init(uint64_t* bar, unsigned arrivals) {
+    emu::MBar& m = emu::cluster->mbars[bar];
+    m = emu::MBar();
+    m.expected = m.pending = arrivals;
+}
+inline void mbar_init_fence() {}
+inline void st_async_peer(ClusterAddr a, uint32_t v, ClusterAddr bar) {
+    *reinterpret_cast<uint32_t*>(a) = v;
+    emu::MBar& m = emu::mbar(reinterpret_cast<const void*>(bar));
+    m.tx -= 4;
+    emu::mbar_settle(m);
+}
+inline void mbar_expect(uint64_t* bar, unsigned bytes) {
+    emu::mbar(bar).tx += bytes;
+    emu::mbar_arrive(bar);
+}
+// the phase of parity `parity` completed: the barrier is past it
+inline void mbar_wait(uint64_t* bar, unsigned parity) {
+    emu::MBar& m = emu::mbar(bar);
+    if ((m.phases & 1u) != parity) return;
+    const unsigned at = m.phases;           // the phase waited on
+    ++m.waiters;
+    if (++emu::sched->blocked == emu::sched->live) emu::deadlock();
+    while (m.phases == at) emu::yield();
+}
 
 template <class... KA, class... A>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*k)(KA...),

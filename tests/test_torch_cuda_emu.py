@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from _cuda_emu import build, compiler
+from repro_torch.core.datasets import make_dataset
 from repro_torch.core.topk import to_sortable_uint
 from repro_torch.dist.bankmesh import collective_rounds
 from repro_torch.kernels import _build
@@ -74,7 +75,10 @@ def libs(tmp_path_factory):
     assert radix.radix_narrow_n() == radix_ops.NARROW_N
     mesh = built["mesh"]
     mesh.colskip_mesh_launch.argtypes = [VP] * 6 + [I] * 8 + [VP]
-    mesh.colskip_mesh_chain_launch.argtypes = [VP, ctypes.c_uint, I, I, VP]
+    mesh.colskip_mesh_chain_launch.argtypes = [VP, ctypes.c_uint, I, I, I,
+                                               VP]
+    mesh.emu_gate_rounds.argtypes = [I]
+    mesh.emu_gate_rounds.restype = ctypes.c_long
     return {"colskip": colskip, "bitonic": bitonic, "fused": fused,
             "dense": dense, "radix": radix, "mesh": mesh}
 
@@ -517,6 +521,15 @@ def _mesh(lib, x: np.ndarray, banks: int, w: int, k: int, stop: int,
     return [vals.view(torch.uint32), order, crs, cyc], rounds
 
 
+def _mesh_gates(lib):
+    """Clear the emulation's tally of mesh rounds by gate; returns a call
+    that reads (and clears) the (block, drain) rounds made since."""
+    def read():
+        return [lib.emu_gate_rounds(g) for g in range(2)]
+    read()
+    return read
+
+
 def _mesh_case(packed, banks, fuse, k, stop, b, n, dupes, w=32):
     """A mesh case; rows of ``w`` < 32 bits add ``-w<w>`` to its id."""
     vals = (packed, banks, fuse, k, stop, b, n, dupes)
@@ -600,11 +613,55 @@ def test_emulated_mesh_kernel_fuses_rounds(libs):
     assert r[0] > r[1] > r[3] > r[7] > 0
 
 
+# no round of its own for a load's SL gate: its verdict rides in the round
+# that ends the last search, so on a row of distinct values every search
+# but the first makes one round less.  A (1, 256) uniform row over 4 banks
+# at k = 2 made 1,483 / 1,078 / 858 rounds at F = 1 / 2 / 4 before, 255 of
+# them SL-gate rounds; the tally splits the rounds by gate (block, drain:
+# none here, every walk ends at a lone element)
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("fuse,before,sl", [(1, 1483, 255), (2, 1078, 255),
+                                             (4, 858, 255)])
+def test_emulated_mesh_rounds_lose_the_sl_gate(libs, packed, fuse, before,
+                                              sl):
+    lib, n = libs["mesh"], 256
+    x = make_dataset("uniform", n, 32, seed=5).astype(np.uint32)[None]
+    gates = _mesh_gates(lib)
+    got, rounds = _mesh(lib, x, 4, 32, 2, n, fuse, packed)
+    _same(got, colskip_ref.sort_mesh_ref(torch.from_numpy(x), 4, 32, 2, n,
+                                         packed=packed, fuse=fuse))
+    block, drain = gates()
+    assert int(rounds[0]) == before - sl == block
+    assert drain == 0
+    assert int(rounds[0]) <= collective_rounds(32, n, fuse)["rounds"]
+
+
+# on a row of duplicates a search ends in a drain, whose round carries
+# the next load's bits: the rounds are the block and drain rounds, and
+# stay exact (a (1, 512) mapreduce row over 4 banks, k = 2)
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("fuse", [1, 2, 4])
+def test_emulated_mesh_rounds_by_gate_with_drains(libs, packed, fuse):
+    lib, n = libs["mesh"], 512
+    x = make_dataset("mapreduce", n, 32, seed=3).astype(np.uint32)[None]
+    gates = _mesh_gates(lib)
+    got, rounds = _mesh(lib, x, 4, 32, 2, n, fuse, packed)
+    _same(got, colskip_ref.sort_mesh_ref(torch.from_numpy(x), 4, 32, 2, n,
+                                         packed=packed, fuse=fuse))
+    block, drain = gates()
+    assert drain > 0 and block > 0
+    assert int(rounds[0]) == block + drain
+    assert int(rounds[0]) <= collective_rounds(32, n, fuse)["rounds"]
+
+
+# the chain probe on each round of mesh_exchange.cuh (0 the cluster
+# barrier, 1 the async round)
+@pytest.mark.parametrize("round_", [0, 1])
 @pytest.mark.parametrize("banks", [1, 2, 8])
-def test_emulated_mesh_chain_probe(libs, banks):
+def test_emulated_mesh_chain_probe(libs, banks, round_):
     out = torch.zeros((1,), dtype=torch.int32)
     assert libs["mesh"].colskip_mesh_chain_launch(out.data_ptr(), 5, 100,
-                                                  banks, None) == 0
+                                                  banks, round_, None) == 0
     acc = 0                           # the chain's words, ORed over banks
     for r in range(100):
         acc += max((((5 >> (r & 31)) ^ acc ^ d) & 1) for d in range(banks))

@@ -343,10 +343,12 @@ def test_mesh_kernel_refuses_what_it_is_not_built_for(cuda):
     assert ops.mesh_shard_max(False, 8) < ops.mesh_shard_max(False, 2)
 
 
-def test_mesh_chain_probe_runs_uncounted(cuda):
+# on each round of mesh_exchange.cuh (ops.MESH_ROUNDS_BUILT)
+@pytest.mark.parametrize("round_", ["barrier", "async"])
+def test_mesh_chain_probe_runs_uncounted(cuda, round_):
     from repro_torch.kernels.colskip import ops
     before = ops.launches_mesh
-    out = ops.mesh_chain(1000, 4)
+    out = ops.mesh_chain(1000, 4, round=round_)
     torch.cuda.synchronize()
     assert int(out[0]) == 1000       # banks 0 and 1 post opposite words
     assert ops.launches_mesh == before
