@@ -196,9 +196,18 @@ CUDA toolkit.  Phases, any failure of which exits nonzero:
      example twins (``examples/torch``) on ``cuda`` at once, each exiting
      0 with its check printed; the dry-run of granite-moe-3b-a800m
      ``train_4k`` on ``meta`` (status ok), its roofline printed beside
-     phase 9's step; and row 1e, the mesh kernel at ``hw_bench``'s shape
+     phase 9's step; row 1e, the mesh kernel at ``hw_bench``'s shape
      ((1, 1024), D = 4, F in {1, 2, 4}) against the plain mesh (exact),
-     with its own rounds and bound;
+     with its own rounds and bound; and (e) the report twins
+     (``repro_torch.launch.calibration_report`` and ``slo_report``):
+     ``--live --device cuda`` each in a fresh process beside the
+     examples (the calibration table non-empty, every row ``tiles > 0``,
+     ``modeled_s > 0``, a finite ratio; the SLO table's two rows of class
+     ``live``, exit 1 only when alerting), two SLO-armed engines on
+     ``cuda`` whose snapshots ``slo_report`` folds in a fresh process
+     (counts the engines' sum, text the in-process fold's), and
+     ``calibration_report`` on phase 5's telemetry (text and exit as
+     ``render`` of its section);
  12. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Exact integer outputs: every tolerance is equality (``max_abs_err`` 0).
@@ -3469,6 +3478,11 @@ EXAMPLE_CHECKS = {
 }
 # the dry-run cell traced on meta, beside phase 9's measured step
 DRYRUN_CELL = ("granite-moe-3b-a800m", "train_4k")
+# (e) the report twins: their live modes on the card, each in a fresh
+# process; and the two SLO-armed engines whose snapshots slo_report folds
+REPORT_DEVICE = "cuda"
+REPORT_SEEDS = (11, 12)
+REPORT_REQUESTS = 24
 
 
 def _py(args, cwd=None, timeout=900) -> tuple:
@@ -3572,11 +3586,164 @@ def run_hw_path(train: dict) -> dict:
     work.mkdir(parents=True)
     t0 = time.perf_counter()
     procs = start_examples(work / "examples")
+    reports = start_reports(work / "reports")
     prof, cache = _hw_tune(work)
     dry = dryrun_beside_training(train)
     walls = finish_examples(procs, t0)
+    report_s = {**finish_reports(reports),
+                **fold_reports(work / "reports")}
     return {"launcher": hw_launcher_runs(prof, cache), "examples_s": walls,
-            "dryrun": dry}
+            "reports_s": report_s, "dryrun": dry}
+
+
+def _report_proc(module: str, args, cwd: Path) -> tuple:
+    """A report twin in a fresh process, collected by a thread that stamps
+    its own wall; :func:`_report_done` joins it."""
+    import os
+    import threading
+    cwd.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.launch.{module}", *args],
+        cwd=cwd, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    done = {}
+
+    def collect():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        done.update(rc=proc.returncode, out=out, err=err,
+                    wall=time.perf_counter() - t0)
+
+    thread = threading.Thread(target=collect)
+    thread.start()
+    return thread, done
+
+
+def _report_done(job: tuple) -> tuple:
+    """(exit code, stdout, stderr, the process's wall s) of a twin."""
+    thread, done = job
+    thread.join()
+    return done["rc"], done["out"], done["err"], done["wall"]
+
+
+def _rendered(render, table) -> tuple:
+    """(text, exit code) of a twin's ``render`` in this process."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = render(table)
+    return buf.getvalue(), rc
+
+
+def start_reports(work: Path) -> dict:
+    """(e), first half: both twins' live modes on cuda, started beside the
+    examples, each in its own directory."""
+    live = ["--live", "--device", REPORT_DEVICE]
+    return {name: _report_proc(name, live, work / name)
+            for name in ("calibration_report", "slo_report")}
+
+
+def finish_reports(procs: dict) -> dict:
+    import math
+    rc, out, err, cal_s = _report_done(procs["calibration_report"])
+    lines = out.splitlines()
+    if rc != 0 or len(lines) < 2 or lines[0].split() != [
+            "backend", "width", "tiles", "wall_s", "modeled_s", "ratio"]:
+        _fail(f"calibration_report --live on {REPORT_DEVICE} returned "
+              f"{rc}:\n{out[-2000:]}\n{err[-2000:]}")
+    rows = [ln.split() for ln in lines[1:]]
+    bad = [r for r in rows if len(r) != 6 or int(r[2]) <= 0
+           or float(r[4]) <= 0 or not math.isfinite(float(r[5]))]
+    if bad or "colskip" not in {r[0] for r in rows}:
+        _fail(f"calibration_report --live on {REPORT_DEVICE}: rows {bad} "
+              f"fail tiles > 0, modeled_s > 0, a finite ratio, or no "
+              f"colskip row:\n{out}")
+    print(f"calibration_report --live --device {REPORT_DEVICE}: exit 0 "
+          f"in {cal_s:.1f} s of its own wall, {len(rows)} rows ("
+          + ", ".join(f"{r[0]} {r[1]}: {r[2]} tiles, ratio {r[5]}"
+                      for r in rows) + ")")
+    rc, out, err, slo_s = _report_done(procs["slo_report"])
+    lines = out.splitlines()
+    live = [ln.split() for ln in lines[1:] if ln.split()[:1] == ["live"]]
+    if rc not in (0, 1) or not lines or lines[0].split()[:3] != [
+            "class", "sli", "objective"] \
+            or [r[1] for r in live] != ["latency", "shed"] \
+            or rc != (1 if any(r[-1] == "ALERTING" for r in live) else 0):
+        _fail(f"slo_report --live on {REPORT_DEVICE} returned {rc}:\n"
+              f"{out[-2000:]}\n{err[-2000:]}")
+    print(f"slo_report --live --device {REPORT_DEVICE}: exit {rc} in "
+          f"{slo_s:.1f} s of its own wall; class live: " + "; ".join(
+              f"{r[1]} good {r[3]} bad {r[4]} burn {r[5]}/{r[6]} {r[-1]}"
+              for r in live))
+    return {"calibration_live": cal_s, "slo_live": slo_s}
+
+
+def fold_reports(work: Path) -> dict:
+    """(e), second half: two SLO-armed engines on cuda dump their
+    snapshots; ``slo_report`` folds them in a fresh process, and
+    ``calibration_report`` reads phase 5's telemetry in another."""
+    from repro_torch.kernels.colskip import ops as colskip_ops
+    from repro_torch.kernels.radix_topk import ops as radix_ops
+    from repro_torch.launch import calibration_report, slo_report
+    from repro_torch.launch.sortserve import make_workload
+    from repro_torch.obs import SLOTarget, merge_snapshots
+    from repro_torch.sortserve import EngineConfig, SortServeEngine
+    work.mkdir(parents=True, exist_ok=True)
+    colskip0, radix0 = colskip_ops.launches, radix_ops.launches
+    paths, snaps, live = [], [], []
+    for seed in REPORT_SEEDS:
+        engine = SortServeEngine(EngineConfig(
+            cache_size=0, slo={"live": SLOTarget(p99_latency_s=0.05)},
+            device=REPORT_DEVICE))
+        session = engine.begin(traffic_class="live", strict=False)
+        session.feed(make_workload(REPORT_REQUESTS, min_len=16, max_len=512,
+                                   seed=seed), flush=True)
+        session.drain()
+        paths.append(str(work / f"snapshot_{seed}.json"))
+        snaps.append(engine.dump_snapshot(paths[-1], source=f"seed{seed}"))
+        live.append(engine.telemetry()["slo"]["live"])
+    launched = (colskip_ops.launches - colskip0, radix_ops.launches - radix0)
+    if min(launched) <= 0:
+        _fail(f"the SLO-armed engines on {REPORT_DEVICE} launched "
+              f"(colskip, radix) {launched} kernels: both must run")
+    telem = ROOT / "build" / "chip_smoke" / "smoke_telemetry.json"
+    procs = {"slo_report": _report_proc("slo_report", paths, work / "fold"),
+             "calibration_report": _report_proc(
+                 "calibration_report", [str(telem)], work / "telemetry")}
+    fold_rc, out, err, fold_s = _report_done(procs["slo_report"])
+    want = _rendered(slo_report.render,
+                     slo_report.fleet_rows(merge_snapshots(snaps)))
+    if (out, fold_rc) != want:
+        _fail(f"slo_report on the two snapshots returned {fold_rc}:\n"
+              f"{out}\n{err[-2000:]}\nwanted the in-process fold's "
+              f"{want[1]}:\n{want[0]}")
+    rows = {ln.split()[1]: ln.split() for ln in out.splitlines()[1:]
+            if ln.split()[:1] == ["live"]}
+    for sli in ("latency", "shed"):
+        got = (int(rows[sli][3]), int(rows[sli][4]))
+        summed = (sum(s[sli]["good"] for s in live),
+                  sum(s[sli]["bad"] for s in live))
+        if got != summed:
+            _fail(f"slo_report folded {sli} (good, bad) {got}; the engines'"
+                  f" telemetry sums to {summed}")
+    rc, out, err, cal_s = _report_done(procs["calibration_report"])
+    want = _rendered(calibration_report.render,
+                     json.loads(telem.read_text()).get("calibration", {}))
+    if (out, rc) != want:
+        _fail(f"calibration_report on {telem} returned {rc}:\n{out}\n"
+              f"{err[-2000:]}\nwanted render's {want[1]}:\n{want[0]}")
+    print(f"slo_report on {len(paths)} snapshots of engines on "
+          f"{REPORT_DEVICE} ({launched[0]} colskip and {launched[1]} radix "
+          f"launches): exit {fold_rc} in {fold_s:.1f} s of its own wall, "
+          f"the in-process fold's text, latency good/bad {rows['latency'][3]}/{rows['latency'][4]} = "
+          f"the engines' sum; calibration_report on phase 5's telemetry: "
+          f"exit {want[1]} in {cal_s:.1f} s, render's text "
+          f"({len(out.splitlines()) - 1} rows)")
+    return {"slo_fold": fold_s, "calibration_file": cal_s}
 
 
 def dryrun_beside_training(train: dict) -> dict:
@@ -3842,8 +4009,8 @@ def main() -> int:
                                        if k != "run"}}, default=str))
     print(f"phase 10 (distribution) took {time.perf_counter() - t0:.1f} s")
     # 11. the sort-serving hardware path: the launcher twice on one compile
-    # cache with a hw_tune profile, the five examples, a dry-run cell on
-    # meta, and the mesh kernel at hw_bench's shape
+    # cache with a hw_tune profile, the five examples, the report twins,
+    # a dry-run cell on meta, and the mesh kernel at hw_bench's shape
     t0 = time.perf_counter()
     hw = run_hw_path(train)
     rows.append(measure_hw_mesh(torch, np, bench_launches["colskip_mesh_hw"]))

@@ -56,7 +56,9 @@ for name in ("repro_torch.dist", "repro_torch.dist.bankmesh",
              "repro_torch.benchmarks.hw_bench",
              "repro_torch.benchmarks.hw_tune",
              "repro_torch.launch.analytic", "repro_torch.launch.roofline",
-             "repro_torch.launch.dryrun"):
+             "repro_torch.launch.dryrun",
+             "repro_torch.launch.calibration_report",
+             "repro_torch.launch.slo_report"):
     assert name in names, name
 print(len(names))
 """
