@@ -1,8 +1,9 @@
-"""Flight-recorder span tracing for the serving stack.
+"""Flight-recorder span tracing for the serving stack, and the engine's
+stage spans.
 
 One :class:`Tracer` records one **span chain per request** —
 
-    feed -> bucket -> admit -> execute -> scatter -> retire
+    feed -> ingest -> bucket -> admit -> execute -> scatter -> retire
 
 — in *both* time domains at once: wall seconds on the engine's injectable
 clock (feed/dispatch/execute/retire stamps) and virtual time in modeled
@@ -17,38 +18,58 @@ event-clock story stay joined by construction.  Fault-recovery events
 hook: unknown kinds render as instants on the scheduler-event track, so
 the recovery story of a retried tile sits inline with its admissions.
 
+:class:`Stages` times the engine's host work a tile or a call at a time:
+``sortserve.feed`` / ``bucket`` / ``emit`` / ``schedule`` / ``execute`` /
+``scatter``, ``<backend>.h2d`` / ``launch`` / ``d2h`` and the front door's
+``frontdoor.collect``.  Each stage adds to an always-on table of counts,
+seconds and self seconds (``telemetry()["stages"]``); while
+``torch.profiler`` records on the calling thread it also opens a profiler
+range of the same name, so a device trace names the stage the host was
+in; with a tracer it also writes the span into the tracer's stage ring.
+
 Design constraints, in order:
 
-  * **Low overhead** — every hook is a handful of dict writes under the
-    engine lock; no formatting, no I/O, no clock reads of its own (every
-    wall stamp is passed in from the engine's clock, so traces are
-    deterministic under a fake clock).
-  * **Bounded memory** — finished request chains and retired tile records
-    land in rings (``deque(maxlen=capacity)``); the recorder forgets the
-    old past, never grows without bound.  Flight-recorder semantics also
-    mean the trace is *exempt from submit rollback*: a failed batch rolls
-    back telemetry counters, but what the recorder saw, it keeps (like the
-    executor cache keeps its compiles).
-  * **Off by default** — the engine only calls these hooks when a tracer
-    was injected via ``EngineConfig(tracer=...)``; without one, the serving
-    path is untouched.
+  * **Low overhead** — every request hook is a handful of dict writes
+    under the engine lock, with no formatting, no I/O and no clock reads
+    of its own (every request and tile stamp is passed in from the
+    engine's clock, so chains are deterministic under a fake clock).  The
+    stage spans read a clock of their own, ``time.perf_counter`` (the
+    engine's default clock), twice a span, and ask the profiler whether it
+    records; ``scripts/stage_cost.py`` measures what a span costs, with
+    and without a profiler running.
+  * **Bounded memory** — finished request chains, retired tile records,
+    scheduler events and stage spans land in rings of ``capacity``; the
+    recorder forgets the old past, never grows without bound.
+    Flight-recorder semantics also mean the trace is *exempt from submit
+    rollback*: a failed batch rolls back telemetry counters, but what the
+    recorder saw, it keeps (like the executor cache keeps its compiles);
+    the stage table keeps the time that was spent, too.
+  * **Off by default** — the engine only calls the request hooks when a
+    tracer was injected via ``EngineConfig(tracer=...)``; without one,
+    the stage table is the only recording on the serving path.
 
 :meth:`Tracer.export` renders the recording as Chrome trace-event JSON
 (``chrome://tracing`` / https://ui.perfetto.dev): process 1 is the wall
 domain (one track per request), process 2 is the virtual-time domain at the
-modeled clock (one track per bank, plus a scheduler-event track), so both
-domains sit in one viewer, zoomable together.
+modeled clock (one track per bank, plus a scheduler-event track).  When the
+engine runs on its default clock the wall stamps are written in Unix-epoch
+microseconds, the clock of ``torch.profiler``'s trace, so both load on one
+time axis, and process 3 holds the engine's stage spans (one track per
+thread).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
+import threading
+import time
 from collections import deque
 
 from repro_torch.core.costmodel import BASE_CLOCK_MHZ
 
-__all__ = ["Tracer"]
+__all__ = ["NO_STAGES", "Stages", "Tracer"]
 
 # statuses a finalized request chain can carry
 SERVED, CACHE_HIT, SHED, FAILED, ABORTED = (
@@ -56,11 +77,10 @@ SERVED, CACHE_HIT, SHED, FAILED, ABORTED = (
 
 # hot-path templates: one C-level ``dict.copy`` beats rebuilding the
 # full literal on every request/tile (these hooks run inside the engine
-# lock on the serving fast path — see the 5% overhead gate in
-# benchmarks/streaming_bench.py)
+# lock on the serving fast path)
 _CHAIN_TEMPLATE = {
     "rid": None, "op": None, "n": None, "traffic_class": None,
-    "t_feed": None, "t_bucket": None, "t_done": None,
+    "t_feed": None, "t_ingest": None, "t_bucket": None, "t_done": None,
     "status": None, "latency_s": None, "tile": None,
 }
 _RECORD_TEMPLATE = {
@@ -78,9 +98,14 @@ _RECORD_TEMPLATE = {
 class Tracer:
     """Ring-buffered span recorder; inject via ``EngineConfig(tracer=...)``.
 
-    ``capacity`` bounds both rings (finished request chains, retired tile
-    records) and the scheduler-event ring; ``clock_hz`` maps virtual-time
+    ``capacity`` bounds every ring (finished request chains, retired tile
+    records, scheduler events, stage spans); ``clock_hz`` maps virtual-time
     cycles onto export microseconds (default: the modeled 500 MHz part).
+
+    ``anchor`` is ``(time.perf_counter_ns(), time.time_ns())`` read back
+    to back at construction; an engine on its default clock sets
+    ``perf_clock``, and :meth:`export` then writes wall stamps in
+    Unix-epoch microseconds through it.
     """
 
     def __init__(self, capacity: int = 4096,
@@ -96,6 +121,12 @@ class Tracer:
         # scheduler instants, stored raw as (kind, seq, vt, attrs) tuples —
         # the ``events`` property materializes dict views on demand
         self._events: deque = deque(maxlen=capacity)
+        # stage spans, a ring of columns (name, t0, t1, span, parent,
+        # tile seq, thread) written in place: recording a span allocates
+        # nothing the garbage collector tracks, and the ring adds seven
+        # objects to the heap, not one a slot
+        self._spans = [[None] * capacity for _ in range(7)]
+        self._spans_written = 0
         self._active: dict[int, dict] = {}            # rid -> open chain
         self._open_tiles: dict[int, dict] = {}        # seq -> open record
         self._seq = itertools.count(1)
@@ -103,12 +134,13 @@ class Tracer:
         # freelists when the rings wrap, so recording allocates (almost)
         # nothing on the serving path: the pool promotes to the old GC
         # generation once and young-gen collections never see recorder
-        # garbage again — the measured lever behind the 5% overhead gate
-        # in benchmarks/streaming_bench.py.  Consequence (flight-recorder
-        # semantics): a reference held to an evicted chain/record sees it
-        # overwritten with newer data once the ring wraps.
+        # garbage again.  Consequence (flight-recorder semantics): a
+        # reference held to an evicted chain/record sees it overwritten
+        # with newer data once the ring wraps.
         self._chain_free = [dict(_CHAIN_TEMPLATE) for _ in range(capacity)]
         self._record_free = [dict(_RECORD_TEMPLATE) for _ in range(capacity)]
+        self.anchor = (time.perf_counter_ns(), time.time_ns())
+        self.perf_clock = False     # wall stamps are time.perf_counter's
 
     @property
     def events(self) -> list[dict]:
@@ -135,14 +167,19 @@ class Tracer:
 
     # ------------------------------------------------------------- requests
     def request_feed(self, rid: int, op: str, n: int,
-                     traffic_class: str | None, wall: float) -> None:
-        """A request entered a session (post-validation, pre-bucket)."""
+                     traffic_class: str | None, wall: float,
+                     ingest: float | None = None) -> None:
+        """A request entered a session (post-validation, pre-bucket).
+        ``wall`` is its feed stamp (the front door's submit stamp);
+        ``ingest`` is when the front door's collector took it off its
+        queue (``wall`` itself for a request fed directly)."""
         chain = self._new_chain()
         chain["rid"] = rid
         chain["op"] = op
         chain["n"] = n
         chain["traffic_class"] = traffic_class
         chain["t_feed"] = wall
+        chain["t_ingest"] = wall if ingest is None else ingest
         self._active[rid] = chain
 
     def request_cache_hit(self, rid: int, op: str, n: int,
@@ -154,7 +191,8 @@ class Tracer:
         chain["op"] = op
         chain["n"] = n
         chain["traffic_class"] = traffic_class
-        chain["t_feed"] = chain["t_bucket"] = chain["t_done"] = wall
+        chain["t_feed"] = chain["t_ingest"] = chain["t_bucket"] = \
+            chain["t_done"] = wall
         chain["status"] = CACHE_HIT
         chain["latency_s"] = 0.0
         self._seal_chain(chain)
@@ -279,6 +317,32 @@ class Tracer:
                 self._record_free.append(tiles.popleft())
             tiles.append(record)
 
+    # --------------------------------------------------------------- stages
+    def stage_span(self, name: str, t0: float, t1: float, span: int,
+                   parent: int | None, seq: int | None, tid: int) -> None:
+        """One closed :class:`Stages` span: its id, the id of the span
+        that encloses it (None at a root), the tile's ``trace_seq`` (None
+        outside a tile) and the recording thread's track."""
+        k = self._spans_written % self.capacity
+        self._spans_written += 1
+        names, t0s, t1s, spans, parents, seqs, tids = self._spans
+        names[k] = name
+        t0s[k] = t0
+        t1s[k] = t1
+        spans[k] = span
+        parents[k] = parent
+        seqs[k] = seq
+        tids[k] = tid
+
+    @property
+    def stage_spans(self) -> list[tuple]:
+        """The stage ring, oldest first, as ``(name, t0, t1, span,
+        parent, seq, tid)`` tuples (materialized on access)."""
+        n = min(self._spans_written, self.capacity)
+        start = self._spans_written - n
+        rows = list(zip(*self._spans))
+        return [rows[(start + i) % self.capacity] for i in range(n)]
+
     # ---------------------------------------------------------------- views
     def chain_for(self, rid: int) -> dict | None:
         """Most recent finalized chain for a request id (tests/tools)."""
@@ -295,12 +359,24 @@ class Tracer:
         """Render the recording as a Chrome trace-event document.
 
         pid 1: the wall domain — one thread per request id, nested complete
-        spans (``request`` ⊃ ``bucket`` / ``admit`` / ``execute`` /
-        ``scatter``) with the virtual-time story attached as span args.
+        spans (``request`` ⊃ ``frontdoor`` / ``bucket`` / ``admit`` /
+        ``execute`` / ``scatter``) with the virtual-time story attached as
+        span args; ``frontdoor`` (submit to the collector's ingest) only
+        for a request that waited in the front door's queue.
         pid 2: the virtual-time domain mapped at ``clock_hz`` — one thread
         per bank (labelled via ``bank_labels``, device-aware on a mesh
         pool) carrying tile occupancy spans, plus one scheduler-event
         thread of ARRIVE/ADMIT/DEFER/SHED/EARLY/RETIRE instants.
+        pid 3: the engine's stage spans, one thread per recording thread,
+        only with ``perf_clock`` set.
+
+        With ``perf_clock`` set (the engine's default clock) every wall
+        ``ts`` is in Unix-epoch microseconds (``otherData["clock"]`` is
+        ``"unix_us"``), the clock of ``torch.profiler``'s chrome trace;
+        otherwise the request spans count from the first feed
+        (``"engine"``, ``wall_origin_s``), and the stage spans, which
+        always read ``time.perf_counter``, share an axis with nothing in
+        the document and are left out.
         """
         ev: list[dict] = []
         us_per_cycle = 1e6 / self.clock_hz
@@ -318,10 +394,19 @@ class Tracer:
                    "tid": sched_tid, "args": {"name": "scheduler events"}})
 
         chains = list(self.chains)
-        t0 = min((c["t_feed"] for c in chains), default=0.0)
+        perf_ns, unix_ns = self.anchor
 
-        def us(wall: float) -> float:
-            return (wall - t0) * 1e6
+        def unix_us(wall: float) -> float:
+            return (wall - perf_ns / 1e9) * 1e6 + unix_ns / 1e3
+
+        if self.perf_clock:
+            t0 = None
+            us = unix_us
+        else:
+            t0 = min((c["t_feed"] for c in chains), default=0.0)
+
+            def us(wall: float) -> float:
+                return (wall - t0) * 1e6
 
         def x(name, pid, tid, ts, dur, args):
             ev.append({"name": name, "ph": "X", "pid": pid, "tid": tid,
@@ -340,8 +425,13 @@ class Tracer:
             if c["status"] == CACHE_HIT or c["t_bucket"] is None:
                 continue
             t_exec0, t_exec1 = rec.get("t_exec0"), rec.get("t_exec1")
-            x("bucket", 1, c["rid"], us(c["t_feed"]),
-              us(c["t_bucket"]) - us(c["t_feed"]),
+            t_in = c["t_ingest"]
+            if t_in is None:
+                t_in = c["t_feed"]
+            elif t_in > c["t_feed"]:
+                x("frontdoor", 1, c["rid"], us(c["t_feed"]),
+                  us(t_in) - us(c["t_feed"]), {})
+            x("bucket", 1, c["rid"], us(t_in), us(c["t_bucket"]) - us(t_in),
               {"tile_seq": rec.get("seq"), "shape": list(rec.get("shape", ())),
                "co_batched": rec.get("requests")})
             if t_exec0 is None:        # shed / failed before execution
@@ -379,12 +469,155 @@ class Tracer:
                        "pid": 2, "tid": sched_tid, "cat": "scheduler",
                        "ts": vt * us_per_cycle,
                        "args": {"seq": seq, **attrs}})
+
+        spans = list(self.stage_spans) if self.perf_clock else []
+        if spans:
+            ev.append({"name": "process_name", "ph": "M", "pid": 3,
+                       "args": {"name": "engine stages (wall clock)"}})
+        for tid in sorted({sp[6] for sp in spans}):
+            ev.append({"name": "thread_name", "ph": "M", "pid": 3,
+                       "tid": tid, "args": {"name": f"thread {tid}"}})
+        for name, s0, s1, span, parent, seq, tid in spans:
+            ev.append({"name": name, "ph": "X", "pid": 3, "tid": tid,
+                       "ts": unix_us(s0), "dur": max(s1 - s0, 0.0) * 1e6,
+                       "cat": "stage",
+                       "args": {"span": span, "parent": parent,
+                                "tile_seq": seq}})
+        other = {"clock_hz": self.clock_hz,
+                 "clock": "unix_us" if self.perf_clock else "engine",
+                 "anchor": {"perf_counter_ns": perf_ns, "time_ns": unix_ns}}
+        if t0 is not None:
+            other["wall_origin_s"] = t0
         return {"traceEvents": ev, "displayTimeUnit": "ms",
-                "otherData": {"clock_hz": self.clock_hz,
-                              "wall_origin_s": t0}}
+                "otherData": other}
 
     def dump(self, path: str, bank_labels=None) -> dict:
         doc = self.export(bank_labels=bank_labels)
         with open(path, "w") as f:
             json.dump(doc, f)
         return doc
+
+
+class _Span:
+    """One :class:`Stages` span: a context manager, and its frame on the
+    thread's stack while it is open."""
+
+    __slots__ = ("stages", "name", "tile", "t0", "child", "rng", "span",
+                 "parent", "seq")
+
+    def __init__(self, stages: "Stages", name: str, tile) -> None:
+        self.stages = stages
+        self.name = name
+        self.tile = tile
+        self.child = 0.0
+
+    def __enter__(self) -> "_Span":
+        st = self.stages
+        local = st._local
+        try:
+            stack = local.stack
+        except AttributeError:
+            stack = local.stack = []
+            local.tid = next(st._tids)
+        if st.tracer is not None:
+            self.span = next(st._ids)
+            up = stack[-1] if stack else None
+            self.parent = up.span if up is not None else None
+            self.seq = (self.tile.obs.get("trace_seq")
+                        if self.tile is not None
+                        else up.seq if up is not None else None)
+        stack.append(self)
+        # the range opens and closes next to the clock's reads, so the
+        # profiler's stamps and the span's lie as close as two calls can
+        if st._recording():
+            self.rng = st._range(self.name)
+            self.rng.__enter__()
+        else:
+            self.rng = None
+        self.t0 = st.clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        st = self.stages
+        t1 = st.clock()
+        if self.rng is not None:
+            self.rng.__exit__(None, None, None)
+        stack = st._local.stack
+        stack.pop()
+        dt = t1 - self.t0
+        row = st.table.get(self.name)
+        if row is None:
+            row = st.table[self.name] = [0, 0.0, 0.0]
+        row[0] += 1
+        row[1] += dt
+        row[2] += self.child
+        if stack:
+            stack[-1].child += dt
+        if st.tracer is not None:
+            st.tracer.stage_span(self.name, self.t0, t1, self.span,
+                                 self.parent, self.seq, st._local.tid)
+
+
+class Stages:
+    """The engine's stage spans: one span primitive for every layer
+    boundary of the serving path, a tile or a call at a time.
+
+    A span (``with stages.stage(name, tile):``) does three things:
+
+      * adds to :attr:`table`, always: ``name -> [count, seconds, child
+        seconds]``; :meth:`section` renders it as ``{"n", "s", "self_s"}``,
+        self time being the span's time less the spans it encloses on the
+        same thread.  The table is the engine's ``telemetry()["stages"]``:
+        it keeps the time that was spent, so a failed ``submit`` does not
+        roll it back;
+      * opens a ``torch.profiler`` range of the same name, only while a
+        profiler records on the calling thread
+        (``torch.autograd._profiler_enabled()``), so a device trace puts the
+        host's time between kernels down to the stage it was in;
+      * with a ``tracer``, writes the span into its stage ring
+        (:meth:`Tracer.stage_span`) with its enclosing span and its tile's
+        ``trace_seq`` (inherited from the enclosing span when no tile is
+        given).
+
+    :attr:`clock` is ``time.perf_counter``, the engine's default clock, and
+    not an injected engine clock: the stage reads leave a fake clock's
+    count of reads, and so everything it stamps, as it was.  The clock is
+    read inside the profiler range, so a span's stamps lie within its
+    range's.  Each thread keeps its own stack of open spans.  Spans of one
+    engine are written under its lock, but for the front door's
+    ``frontdoor.collect``, which only its collector thread writes.
+    """
+
+    def __init__(self, tracer: Tracer | None = None):
+        import torch
+        self.clock = time.perf_counter
+        self.tracer = tracer
+        self.table: dict[str, list] = {}
+        self._local = threading.local()
+        self._recording = torch.autograd._profiler_enabled
+        self._range = getattr(torch._C._profiler, "_RecordFunctionFast",
+                              torch.profiler.record_function)
+        self._ids = itertools.count(1)
+        self._tids = itertools.count(1)
+
+    def stage(self, name: str, tile=None) -> _Span:
+        """A span over the ``with`` block; ``tile`` tags tracer spans."""
+        return _Span(self, name, tile)
+
+    def section(self) -> dict:
+        """``{name: {"n": count, "s": seconds, "self_s": seconds less the
+        enclosed spans}}``, a copy."""
+        return {name: {"n": n, "s": s, "self_s": s - child}
+                for name, (n, s, child) in list(self.table.items())}
+
+
+class _NoStages:
+    """Records nothing: the spans of a backend no engine has adopted."""
+
+    _null = contextlib.nullcontext()
+
+    def stage(self, name: str, tile=None):
+        return self._null
+
+
+NO_STAGES = _NoStages()

@@ -37,6 +37,13 @@ Execution goes through a process-level :class:`ExecutorCache` of kernel
 launchers keyed by the reference's tile signatures (plus the device): a
 miss builds the launcher (and, on the card, loads or compiles the kernel
 library), a hit goes straight to it.
+
+The device backends time a tile in three stage spans of the engine's
+:class:`~repro_torch.obs.tracer.Stages` (``Backend.stages``, set by the
+engine that builds them): ``<name>.h2d`` (host array to device tensor),
+``<name>.launch`` (the launcher call: output allocation, the kernel
+enqueue) and ``<name>.d2h`` (from the launch's return to the last result
+on the host: the wait for the kernel and the synchronising copies).
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from repro_torch.core.bitmatrix import as_words
 from repro_torch.core.costmodel import estimate_colskip_cycles
 from repro_torch.kernels.colskip import ops as colskip_ops
 from repro_torch.kernels.radix_topk import ops as radix_ops
+from repro_torch.obs.tracer import NO_STAGES
 
 from .batcher import Tile
 
@@ -236,10 +244,13 @@ def solve_numpy(op: str, u: np.ndarray, k: int | None) -> tuple[np.ndarray, np.n
 
 
 class Backend:
-    """Base class: subclasses set ``name``/``ops`` and implement ``run``."""
+    """Base class: subclasses set ``name``/``ops`` and implement ``run``.
+    ``stages`` records nothing until an engine hands the backend its
+    own."""
 
     name: str = "?"
     ops: frozenset = frozenset()
+    stages = NO_STAGES
 
     def run(self, tile: Tile) -> TileResult:  # pragma: no cover - interface
         raise NotImplementedError
@@ -321,14 +332,19 @@ class ColskipBackend(Backend):
         b, n = tile.data.shape
         fn, warm = _colskip_launcher(b, n, self.w, self.state_k, stop,
                                      self.packed, self.device)
-        vals, order, crs, cycles = fn(_tensor(tile.data, self.device))
-        return TileResult(vals.cpu().numpy(), order.cpu().numpy(),
-                          crs.cpu().numpy().astype(np.int64),
-                          cycles.cpu().numpy().astype(np.int64),
-                          self.name, meta={"w": self.w, "state_k": self.state_k,
-                                           "stop_after": stop,
-                                           "packed": self.packed,
-                                           "exec_warm": warm})
+        stage = self.stages.stage
+        with stage("colskip.h2d"):
+            x = _tensor(tile.data, self.device)
+        with stage("colskip.launch"):
+            vals, order, crs, cycles = fn(x)
+        with stage("colskip.d2h"):
+            return TileResult(
+                vals.cpu().numpy(), order.cpu().numpy(),
+                crs.cpu().numpy().astype(np.int64),
+                cycles.cpu().numpy().astype(np.int64),
+                self.name, meta={"w": self.w, "state_k": self.state_k,
+                                 "stop_after": stop, "packed": self.packed,
+                                 "exec_warm": warm})
 
     def warm(self, b: int, n: int, op: str, k: int | None) -> bool:
         stop = k if op == "kmin" else None
@@ -449,7 +465,8 @@ class ShardedColskipBackend(Backend):
         if not self._on_mesh(tile.data.shape[1]):
             return False                 # one-bank fallback: nothing to hide
         self._staged.pop(id(tile), None)
-        self._staged[id(tile)] = (tile, *self._stage(tile.data))
+        with self.stages.stage("colskip_mesh.h2d", tile):
+            self._staged[id(tile)] = (tile, *self._stage(tile.data))
         while len(self._staged) > 2:
             del self._staged[next(iter(self._staged))]
         return True
@@ -462,40 +479,51 @@ class ShardedColskipBackend(Backend):
         # the identity re-check guards id() reuse after a staged tile died
         prefetch_hit = staged is not None and staged[0] is tile
         coll = {"coll_rounds": 0, "coll_planes": 0, "coll_unfused_rounds": 0}
+        stage = self.stages.stage
+        rounds = None
         if self._on_mesh(n):
             stop_eff = min(stop, n) if stop is not None else n
             fn, warm = self._mesh_launcher(b, n, stop_eff)
-            if prefetch_hit:
-                arr, done = staged[1], staged[2]
-                if done is not None:
-                    cur = torch.cuda.current_stream(self.device)
-                    cur.wait_event(done)
-                    arr.record_stream(cur)
-            else:
-                arr = _tensor(tile.data, self.device)
-            vals, order, crs, cycles, rounds = fn(arr, return_rounds=True)
+            with stage("colskip_mesh.h2d"):
+                if prefetch_hit:
+                    arr, done = staged[1], staged[2]
+                    if done is not None:
+                        cur = torch.cuda.current_stream(self.device)
+                        cur.wait_event(done)
+                        arr.record_stream(cur)
+                else:
+                    arr = _tensor(tile.data, self.device)
+            with stage("colskip_mesh.launch"):
+                vals, order, crs, cycles, rounds = fn(arr,
+                                                      return_rounds=True)
             banks_used = self.n_devices
-            acct = collective_rounds(self.w, stop_eff, self.fuse)
-            coll = {"coll_rounds": acct["rounds"],
-                    "coll_planes": acct["planes"],
-                    "coll_unfused_rounds": acct["unfused_rounds"]}
-            if rounds is not None:
-                cls = type(self)
-                cls.kernel_rounds += int(rounds.max())
-                cls.static_rounds += acct["rounds"]
         else:
             fn, warm = _colskip_launcher(b, n, self.w, self.state_k, stop,
                                          self.packed, self.device)
-            vals, order, crs, cycles = fn(_tensor(tile.data, self.device))
+            with stage("colskip_mesh.h2d"):
+                arr = _tensor(tile.data, self.device)
+            with stage("colskip_mesh.launch"):
+                vals, order, crs, cycles = fn(arr)
             banks_used = 1
-        return TileResult(vals.cpu().numpy(), order.cpu().numpy(),
-                          crs.cpu().numpy().astype(np.int64),
-                          cycles.cpu().numpy().astype(np.int64), self.name,
-                          meta={"w": self.w, "state_k": self.state_k,
-                                "stop_after": stop, "mesh_banks": banks_used,
-                                "packed": self.packed, "exec_warm": warm,
-                                "fuse": self.fuse,
-                                "prefetch_hit": prefetch_hit, **coll})
+        with stage("colskip_mesh.d2h"):
+            if banks_used > 1:
+                acct = collective_rounds(self.w, stop_eff, self.fuse)
+                coll = {"coll_rounds": acct["rounds"],
+                        "coll_planes": acct["planes"],
+                        "coll_unfused_rounds": acct["unfused_rounds"]}
+                if rounds is not None:
+                    cls = type(self)
+                    cls.kernel_rounds += int(rounds.max())
+                    cls.static_rounds += acct["rounds"]
+            return TileResult(
+                vals.cpu().numpy(), order.cpu().numpy(),
+                crs.cpu().numpy().astype(np.int64),
+                cycles.cpu().numpy().astype(np.int64), self.name,
+                meta={"w": self.w, "state_k": self.state_k,
+                      "stop_after": stop, "mesh_banks": banks_used,
+                      "packed": self.packed, "exec_warm": warm,
+                      "fuse": self.fuse, "prefetch_hit": prefetch_hit,
+                      **coll})
 
     def warm(self, b: int, n: int, op: str, k: int | None) -> bool:
         stop = k if op == "kmin" else None
@@ -541,7 +569,7 @@ class RadixTopkBackend(Backend):
     def run(self, tile: Tile) -> TileResult:
         b, n = tile.data.shape
         fn, warm = self._launcher(b, n, tile.k, tile.op == "kmin")
-        vals, idxs, reads = fn(tile.data)
+        vals, idxs, reads = fn(tile.data, stages=self.stages)
         return TileResult(vals, idxs, reads, None, self.name,
                           meta={"planes_max": int(reads.max(initial=0)),
                                 "exec_warm": warm})
@@ -593,7 +621,8 @@ def _stable_argsort(data: np.ndarray, device: torch.device) -> np.ndarray:
     return torch.argsort(keys, dim=-1, stable=True).to(torch.int32).cpu().numpy()
 
 
-def _radix_select(data: np.ndarray, k: int, kmin: bool, device: torch.device):
+def _radix_select(data: np.ndarray, k: int, kmin: bool, device: torch.device,
+                  stages=NO_STAGES):
     """Tile body: (B, N) sortable uint32 -> (values, indices, plane reads).
 
     ``kmin`` selects the k smallest by descending on the bitwise complement
@@ -601,13 +630,18 @@ def _radix_select(data: np.ndarray, k: int, kmin: bool, device: torch.device):
     copy of the tile to the device, one launch of the radix kernel's top-k
     entry (the complement and each row's plane reads inside it: one CR per
     discriminating plane per row, uniform planes skipped), one copy of its
-    packed (B, 2k + 1) int32 result back."""
-    out = _host(radix_ops.fused_topk(_tensor(data, device), k,
-                                     complement=kmin, reads=True,
-                                     packed=True))
-    return (np.ascontiguousarray(out[:, :k]).view(np.uint32),
-            np.ascontiguousarray(out[:, k:2 * k]),
-            out[:, 2 * k].astype(np.int64))
+    packed (B, 2k + 1) int32 result back: the stages ``radix_topk.h2d``,
+    ``.launch`` and ``.d2h`` of ``stages``."""
+    with stages.stage("radix_topk.h2d"):
+        x = _tensor(data, device)
+    with stages.stage("radix_topk.launch"):
+        out = radix_ops.fused_topk(x, k, complement=kmin, reads=True,
+                                   packed=True)
+    with stages.stage("radix_topk.d2h"):
+        out = _host(out)
+        return (np.ascontiguousarray(out[:, :k]).view(np.uint32),
+                np.ascontiguousarray(out[:, k:2 * k]),
+                out[:, 2 * k].astype(np.int64))
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

@@ -86,6 +86,7 @@ from repro_torch.obs.calibration import CalibrationTable
 from repro_torch.obs.export import render_openmetrics
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.slo import SLOTracker
+from repro_torch.obs.tracer import Stages
 
 from .backends import (
     EXECUTOR_CACHE,
@@ -233,6 +234,14 @@ class SortServeEngine:
         # the tracer doubles as the scheduler's event hook so ARRIVE/ADMIT/
         # DEFER/SHED/EARLY/RETIRE land in the same stream as request spans
         self._tracer = self.config.tracer
+        if self._tracer is not None and self._clock is time.perf_counter:
+            self._tracer.perf_clock = True
+        # stage spans (always-on counters behind telemetry()["stages"],
+        # profiler ranges while a profiler records, tracer spans with a
+        # tracer), shared with the backends built above
+        self.stages = Stages(tracer=self._tracer)
+        for be in self.backends:
+            be.stages = self.stages
         self._metrics = MetricsRegistry(self.config.metrics_window_s)
         self._calib = CalibrationTable()
         # per-traffic-class SLO burn-rate tracking (opt-in, like the tracer);
@@ -498,6 +507,12 @@ class SortServeEngine:
 
     def _execute(self, tile: Tile,
                  traffic_class: str | None = None) -> TileResult:
+        # the span's self time is the accounting around backend.run
+        with self.stages.stage("sortserve.execute", tile):
+            return self._execute_tile(tile, traffic_class)
+
+    def _execute_tile(self, tile: Tile,
+                      traffic_class: str | None) -> TileResult:
         backend = self.policy.choose(tile, traffic_class=traffic_class)
         inj = self._injector
         faulty = (inj is not None and inj.active
@@ -744,6 +759,10 @@ class SortServeEngine:
             # a FaultPlan is configured, every bank always present under
             # per_bank — zeros and "healthy" on a faults-off engine
             "fault": self._fault_section(),
+            # host seconds by stage of the serving path (port only; not
+            # rolled back, not exported as metrics):
+            # {name: {"n", "s", "self_s"}}
+            "stages": self.stages.section(),
         }
 
     def _collectives_section(self) -> dict:
@@ -912,8 +931,8 @@ class SortSession:
 
     # -------------------------------------------------------------- ingress
     def feed(self, requests: list[SortRequest], *, flush: bool = False,
-             isolate: bool = False,
-             now: float | None = None) -> list[SortResponse]:
+             isolate: bool = False, now: float | None = None,
+             ingest: float | None = None) -> list[SortResponse]:
         """Accept requests into the stream; returns whatever completed.
 
         Validation (including request-id uniqueness among the session's
@@ -924,68 +943,85 @@ class SortSession:
         force-closes every open bucket after this feed; ``isolate=True``
         bypasses the shared buckets entirely and gives each fed request
         its own tile (the front door's failure-isolation retry — other
-        callers' open buckets are untouched)."""
+        callers' open buckets are untouched).  ``ingest`` stamps when the
+        front door's collector took the requests off its queue (the
+        tracer's ``t_ingest``; ``now`` when not given)."""
         e = self.engine
-        with e._lock:
+        stage = e.stages.stage
+        with e._lock, stage("sortserve.feed"):
             now = e._clock() if now is None else now
-            e._validate_batch(requests, prior_ids=self._outstanding)
-            use_cache = e.config.cache_size > 0
-            tracer = e._tracer
-            solo: list[SortRequest] = []
-            for req in requests:
-                rid = req.request_id
-                self._stats["requests"] += 1
-                key = e._cache_key(req) if use_cache else None
-                entry = e._cache.get(key) if use_cache else None
-                if entry is not None:
-                    e._cache.move_to_end(key)
-                    e._agg["cache_hits"] += 1
-                    self._stats["cache_hits"] += 1
-                    if tracer is not None:
-                        tracer.request_cache_hit(rid, req.op, req.n,
-                                                 self.traffic_class, now)
-                    self._record(e._isolated_response(
-                        entry, request_id=rid, latency_s=0.0,
-                        meta={**entry.meta, "cache_hit": True}), 0.0, now)
-                    continue
-                if use_cache:
-                    e._agg["cache_misses"] += 1
-                    self._keys[rid] = key
-                e._note_signature(self.traffic_class,
-                                  self._batcher.signature_of(req))
-                self._t_fed[rid] = now
-                self._outstanding.add(rid)
-                if tracer is not None:
-                    tracer.request_feed(rid, req.op, req.n,
-                                        self.traffic_class, now)
-                if isolate:
-                    solo.append(req)
-                else:
-                    self._batcher.add(req, now)
-            tiles = []
-            for req in solo:                  # one private tile per request
-                lone = Batcher(e.config.tile_rows, e.config.min_bucket,
-                               stats=e.batcher.stats)
-                lone.add(req, now)
-                tiles += lone.flush()
-            tiles += (self._batcher.flush() if flush
-                      else self._batcher.take_ready(now, self.max_age_s))
+            with stage("sortserve.bucket"):
+                solo = self._bucket(requests, now, isolate, ingest)
+            with stage("sortserve.emit"):
+                tiles = []
+                for req in solo:              # one private tile per request
+                    lone = Batcher(e.config.tile_rows, e.config.min_bucket,
+                                   stats=e.batcher.stats)
+                    lone.add(req, now)
+                    tiles += lone.flush()
+                tiles += (self._batcher.flush() if flush
+                          else self._batcher.take_ready(now, self.max_age_s))
             self._dispatch(tiles)
             return self._take()
+
+    def _bucket(self, requests: list[SortRequest], now: float,
+                isolate: bool, ingest: float | None) -> list[SortRequest]:
+        """Validate, serve cache hits, bucket the misses; returns the
+        requests that take a tile of their own (``isolate``)."""
+        e = self.engine
+        e._validate_batch(requests, prior_ids=self._outstanding)
+        use_cache = e.config.cache_size > 0
+        tracer = e._tracer
+        solo: list[SortRequest] = []
+        for req in requests:
+            rid = req.request_id
+            self._stats["requests"] += 1
+            key = e._cache_key(req) if use_cache else None
+            entry = e._cache.get(key) if use_cache else None
+            if entry is not None:
+                e._cache.move_to_end(key)
+                e._agg["cache_hits"] += 1
+                self._stats["cache_hits"] += 1
+                if tracer is not None:
+                    tracer.request_cache_hit(rid, req.op, req.n,
+                                             self.traffic_class, now)
+                self._record(e._isolated_response(
+                    entry, request_id=rid, latency_s=0.0,
+                    meta={**entry.meta, "cache_hit": True}), 0.0, now)
+                continue
+            if use_cache:
+                e._agg["cache_misses"] += 1
+                self._keys[rid] = key
+            e._note_signature(self.traffic_class,
+                              self._batcher.signature_of(req))
+            self._t_fed[rid] = now
+            self._outstanding.add(rid)
+            if tracer is not None:
+                tracer.request_feed(rid, req.op, req.n,
+                                    self.traffic_class, now, ingest)
+            if isolate:
+                solo.append(req)
+            else:
+                self._batcher.add(req, now)
+        return solo
 
     def poll(self, now: float | None = None) -> list[SortResponse]:
         """Close aged buckets, pump the event clock, return completions."""
         e = self.engine
-        with e._lock:
+        with e._lock, e.stages.stage("sortserve.feed"):
             now = e._clock() if now is None else now
-            self._dispatch(self._batcher.take_ready(now, self.max_age_s))
+            with e.stages.stage("sortserve.emit"):
+                tiles = self._batcher.take_ready(now, self.max_age_s)
+            self._dispatch(tiles)
             return self._take()
 
     def drain(self) -> list[SortResponse]:
         """Close every open bucket and return all remaining responses."""
         e = self.engine
-        with e._lock:
-            self._dispatch(self._batcher.flush())
+        with e._lock, e.stages.stage("sortserve.feed"):
+            with e.stages.stage("sortserve.emit"):
+                tiles = self._batcher.flush()
+            self._dispatch(tiles)
             if self.strict and self._outstanding:
                 raise RuntimeError(
                     f"{len(self._outstanding)} requests vanished without "
@@ -1011,7 +1047,11 @@ class SortSession:
     # ------------------------------------------------------------ internals
     def _dispatch(self, tiles: list[Tile]) -> None:
         e = self.engine
-        if tiles:
+        if not tiles:
+            return
+        # the span's self time is the event loop's, less the execute and
+        # scatter spans it runs
+        with e.stages.stage("sortserve.schedule"):
             self._stats["tiles"] += len(tiles)
             tracer = e._tracer
             if tracer is not None:
@@ -1028,6 +1068,12 @@ class SortSession:
             e.scheduler.pump()
 
     def _on_tile(self, tile: Tile, result, exc) -> None:
+        with self.engine.stages.stage("sortserve.scatter", tile):
+            self._retire(tile, result, exc)
+
+    def _retire(self, tile: Tile, result, exc) -> None:
+        """A tile's requests leave the stream: decoded responses, cache
+        inserts and records, or failures."""
         e = self.engine
         if exc is not None:
             now = e._clock()
@@ -1289,9 +1335,12 @@ class AsyncSortServe:
 
     # --------------------------------------------------------- stream plumbing
     def _feed_one(self, req: SortRequest, fut: Future,
-                  at: float | None = None, isolate: bool = False) -> None:
+                  at: float | None = None, isolate: bool = False,
+                  ingest: float | None = None) -> None:
         """Feed one request into the session; a validation error fails its
-        future alone (the session state is untouched on validation)."""
+        future alone (the session state is untouched on validation).
+        ``at`` is its submit stamp, ``ingest`` when the collector took it
+        off the queue."""
         if req.request_id in self._pending:
             # fail the newcomer directly: registering it would orphan the
             # in-flight request's future under the same id
@@ -1302,7 +1351,7 @@ class AsyncSortServe:
         try:
             done = self.session.feed(
                 [req], isolate=isolate,
-                now=self._clock() if at is None else at)
+                now=self._clock() if at is None else at, ingest=ingest)
         except Exception as exc:
             self._pending.pop(req.request_id, None)
             self._finish(fut, exc=exc)
@@ -1380,6 +1429,11 @@ class AsyncSortServe:
 
     def _loop(self) -> None:
         stop = False
+        stage = self.engine.stages.stage
+        # the ingest stamp is the tracer's alone, on the engine's clock
+        # like the stamps after it: untraced, the collector reads the clock
+        # as often as it did without it
+        traced = self.engine._tracer is not None
         while not stop:
             deadline = self.session.next_deadline()
             retry_t = self._next_retry_t()
@@ -1397,25 +1451,29 @@ class AsyncSortServe:
                 item = self._q.get(timeout=timeout)
             except queue.Empty:
                 item = None
-            ingested = 0
-            while item is not None:
-                if item is self._STOP:
-                    stop = True
-                    break
-                req, fut, at = item
-                if not fut.cancelled():
-                    self._feed_one(req, fut, at)
-                else:
-                    with self._lock:      # caller bailed: free its slot
-                        self._inflight -= 1
-                ingested += 1
-                if ingested >= self.max_batch:
-                    break
-                try:
-                    item = self._q.get_nowait()
-                except queue.Empty:
-                    break
-            self._pump()
+            # one pass of the collector, from the queue's return to the
+            # next wait
+            with stage("frontdoor.collect"):
+                ingested = 0
+                while item is not None:
+                    if item is self._STOP:
+                        stop = True
+                        break
+                    req, fut, at = item
+                    if not fut.cancelled():
+                        self._feed_one(req, fut, at, ingest=(
+                            self.engine._clock() if traced else None))
+                    else:
+                        with self._lock:  # caller bailed: free its slot
+                            self._inflight -= 1
+                    ingested += 1
+                    if ingested >= self.max_batch:
+                        break
+                    try:
+                        item = self._q.get_nowait()
+                    except queue.Empty:
+                        break
+                self._pump()
         # STOP seen: feed whatever was already queued behind it, then drain
         # the session so no accepted request leaves its future unresolved
         while True:
