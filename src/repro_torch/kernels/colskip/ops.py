@@ -21,6 +21,7 @@ not counted (they are not the kernels a path runs).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -158,46 +159,95 @@ def max_n(packed: bool, k: int) -> int:
     return _lib().colskip_max_n(int(packed), k)
 
 
-def _launch(x: torch.Tensor, w: int, k: int, stop: int, packed: bool):
-    """Launch the carrier's CUDA kernel on ``x`` (B, N) 32-bit words on the
-    card."""
-    global launches, launches_dense
+# signatures whose range checks passed, a (kernel, w, k, N, banks, carrier,
+# card) each: the card's limits do not change while the process runs, so a
+# warm signature is not checked again
+_checked: set = set()
+
+
+def _device_ctx(dev: torch.device):
+    """The context a launch on ``dev`` needs: none when ``dev`` is the
+    calling thread's current device already."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def _outputs(b: int, stop: int, dev: torch.device, rounds: bool) -> tuple:
+    """Fresh outputs of a launch: values and order (B, stop), the column
+    reads and cycles (B,), and with ``rounds`` the mesh's (B,) rounds."""
+    out = (torch.empty((b, stop), dtype=torch.uint32, device=dev),
+           torch.empty((b, stop), dtype=torch.int32, device=dev),
+           torch.empty((b,), dtype=torch.int32, device=dev),
+           torch.empty((b,), dtype=torch.int32, device=dev))
+    if rounds:
+        out += (torch.empty((b,), dtype=torch.int32, device=dev),)
+    return out
+
+
+def _check_outputs(out: tuple, b: int, stop: int, dev: torch.device,
+                   rounds: bool) -> None:
+    """Preallocated outputs must be what :func:`_outputs` would make: the
+    kernel writes through their pointers unchecked."""
+    shapes = [(b, stop), (b, stop), (b,), (b,)] + [(b,)] * rounds
+    if len(out) != len(shapes) or any(
+            t.shape != s or t.device != dev or t.element_size() != 4
+            or not t.is_contiguous() for t, s in zip(out, shapes)):
+        raise ValueError(f"out: {len(shapes)} contiguous 32-bit tensors on "
+                         f"{dev} of shapes {shapes}")
+
+
+def _check_words(x: torch.Tensor, what: str) -> None:
     if x.dtype not in (torch.uint32, torch.int32):
-        raise TypeError(f"colskip kernel takes 32-bit words, got {x.dtype}")
+        raise TypeError(f"{what} takes 32-bit words, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
-        raise ValueError("colskip kernel takes a contiguous (B, N) tensor")
+        raise ValueError(f"{what} takes a contiguous (B, N) tensor")
+
+
+def _launch(x: torch.Tensor, w: int, k: int, stop: int, packed: bool,
+            out: tuple | None = None):
+    """Launch the carrier's CUDA kernel on ``x`` (B, N) 32-bit words on the
+    card.  ``out``: the four outputs preallocated on ``x``'s device, 32-bit
+    words of the shapes :func:`colskip_sort_batched` returns (a caller's
+    staging); without it they are allocated.  Returns the outputs."""
+    global launches, launches_dense
+    _check_words(x, "colskip kernel")
     b, n = x.shape
     lib = _lib()
-    if not 1 <= w <= 32:
-        raise ValueError(f"w={w} out of range [1, 32]")
-    if not 0 <= k <= lib.colskip_max_k():
-        raise ValueError(f"k={k} out of range [0, {lib.colskip_max_k()}] "
-                         "for the CUDA kernel")
     dev = x.device
-    with torch.cuda.device(dev):
-        widest = lib.colskip_max_n(int(packed), k)
-    if n > widest:
-        carrier = "packed" if packed else "dense"
-        raise ValueError(f"N={n} > {widest}, the widest row the {carrier} "
-                         f"CUDA kernel holds at k={k}")
-    vals = torch.empty((b, stop), dtype=torch.uint32, device=dev)
-    order = torch.empty((b, stop), dtype=torch.int32, device=dev)
-    crs = torch.empty((b,), dtype=torch.int32, device=dev)
-    cyc = torch.empty((b,), dtype=torch.int32, device=dev)
+    sig = ("colskip", w, k, n, 1, packed, dev.index)
+    if sig not in _checked:
+        if not 1 <= w <= 32:
+            raise ValueError(f"w={w} out of range [1, 32]")
+        if not 0 <= k <= lib.colskip_max_k():
+            raise ValueError(f"k={k} out of range [0, {lib.colskip_max_k()}] "
+                             "for the CUDA kernel")
+        with torch.cuda.device(dev):
+            widest = lib.colskip_max_n(int(packed), k)
+        if n > widest:
+            carrier = "packed" if packed else "dense"
+            raise ValueError(f"N={n} > {widest}, the widest row the {carrier} "
+                             f"CUDA kernel holds at k={k}")
+        _checked.add(sig)
+    if out is None:
+        out = _outputs(b, stop, dev, rounds=False)
+    else:
+        _check_outputs(out, b, stop, dev, rounds=False)
     if b == 0:
-        return vals, order, crs, cyc
-    with torch.cuda.device(dev):
+        return out
+    vals, order, crs, cyc = out
+    with _device_ctx(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ptrs = (x.data_ptr(), vals.data_ptr(), order.data_ptr(),
-                crs.data_ptr(), cyc.data_ptr(), b, n, w, k, stop)
-        err = lib.colskip_sort_launch(*ptrs, int(packed), stream)
+        err = lib.colskip_sort_launch(
+            x.data_ptr(), vals.data_ptr(), order.data_ptr(), crs.data_ptr(),
+            cyc.data_ptr(), b, n, w, k, stop, int(packed), stream)
     if err != 0:
         raise RuntimeError(f"colskip kernel launch failed: CUDA error {err}")
     if packed:
         launches += 1
     else:
         launches_dense += 1
-    return vals, order, crs, cyc
+    return out
 
 
 def colskip_sort_batched(x, w: int = 32, k: int = 2, *,
@@ -225,40 +275,42 @@ def colskip_sort_batched(x, w: int = 32, k: int = 2, *,
 
 
 def _launch_mesh(x: torch.Tensor, banks: int, w: int, k: int, stop: int,
-                 fuse: int, packed: bool):
+                 fuse: int, packed: bool, out: tuple | None = None):
     """Launch the mesh kernel on ``x`` (B, N) 32-bit words on the card;
-    returns the outputs and the (B,) exchange rounds of each row."""
+    returns the outputs and the (B,) exchange rounds of each row.  ``out``:
+    those five preallocated on ``x``'s device, as :func:`_launch`'s."""
     global launches_mesh, launches_mesh_dense
-    if x.dtype not in (torch.uint32, torch.int32):
-        raise TypeError(f"colskip mesh kernel takes 32-bit words, got {x.dtype}")
-    if x.dim() != 2 or not x.is_contiguous():
-        raise ValueError("colskip mesh kernel takes a contiguous (B, N) tensor")
+    _check_words(x, "colskip mesh kernel")
     b, n = x.shape
     lib = _mesh_lib()
-    if not 1 <= banks <= lib.colskip_mesh_max_banks():
-        raise ValueError(f"{banks} banks: the mesh kernel takes 1 to "
-                         f"{lib.colskip_mesh_max_banks()} (a cluster)")
-    if not 1 <= w <= 32:
-        raise ValueError(f"w={w} out of range [1, 32]")
-    if not 0 <= k <= lib.colskip_mesh_max_k():
-        raise ValueError(f"k={k} out of range [0, {lib.colskip_mesh_max_k()}]"
-                         " for the mesh kernel")
     dev = x.device
-    with torch.cuda.device(dev):
-        widest = lib.colskip_mesh_shard_max(int(packed), k)
-    if n // banks > widest:
-        carrier = "packed" if packed else "dense"
-        raise ValueError(f"N={n} over {banks} banks: shards of {n // banks} > "
-                         f"{widest}, the widest shard the {carrier} mesh "
-                         f"kernel holds at k={k}")
-    vals = torch.empty((b, stop), dtype=torch.uint32, device=dev)
-    order = torch.empty((b, stop), dtype=torch.int32, device=dev)
-    crs = torch.empty((b,), dtype=torch.int32, device=dev)
-    cyc = torch.empty((b,), dtype=torch.int32, device=dev)
-    rounds = torch.empty((b,), dtype=torch.int32, device=dev)
+    sig = ("colskip_mesh", w, k, n, banks, packed, dev.index)
+    if sig not in _checked:
+        if not 1 <= banks <= lib.colskip_mesh_max_banks():
+            raise ValueError(f"{banks} banks: the mesh kernel takes 1 to "
+                             f"{lib.colskip_mesh_max_banks()} (a cluster)")
+        if not 1 <= w <= 32:
+            raise ValueError(f"w={w} out of range [1, 32]")
+        if not 0 <= k <= lib.colskip_mesh_max_k():
+            raise ValueError(f"k={k} out of range "
+                             f"[0, {lib.colskip_mesh_max_k()}] for the mesh "
+                             "kernel")
+        with torch.cuda.device(dev):
+            widest = lib.colskip_mesh_shard_max(int(packed), k)
+        if n // banks > widest:
+            carrier = "packed" if packed else "dense"
+            raise ValueError(f"N={n} over {banks} banks: shards of "
+                             f"{n // banks} > {widest}, the widest shard the "
+                             f"{carrier} mesh kernel holds at k={k}")
+        _checked.add(sig)
+    if out is None:
+        out = _outputs(b, stop, dev, rounds=True)
+    else:
+        _check_outputs(out, b, stop, dev, rounds=True)
     if b == 0:
-        return vals, order, crs, cyc, rounds
-    with torch.cuda.device(dev):
+        return out
+    vals, order, crs, cyc, rounds = out
+    with _device_ctx(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.colskip_mesh_launch(
             x.data_ptr(), vals.data_ptr(), order.data_ptr(), crs.data_ptr(),
@@ -271,7 +323,7 @@ def _launch_mesh(x: torch.Tensor, banks: int, w: int, k: int, stop: int,
         launches_mesh += 1
     else:
         launches_mesh_dense += 1
-    return vals, order, crs, cyc, rounds
+    return out
 
 
 def colskip_sort_mesh_batched(x, banks: int, w: int = 32, k: int = 2, *,

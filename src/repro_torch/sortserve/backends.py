@@ -41,9 +41,14 @@ library), a hit goes straight to it.
 The device backends time a tile in three stage spans of the engine's
 :class:`~repro_torch.obs.tracer.Stages` (``Backend.stages``, set by the
 engine that builds them): ``<name>.h2d`` (host array to device tensor),
-``<name>.launch`` (the launcher call: output allocation, the kernel
+``<name>.launch`` (the launcher call: the outputs' place, the kernel
 enqueue) and ``<name>.d2h`` (from the launch's return to the last result
-on the host: the wait for the kernel and the synchronising copies).
+on the host).  The machine backends move a tile on the card through their
+own persistent :class:`~repro_torch.sortserve.staging.Staging`: ``h2d``
+is a copy into a pinned slab and one copy to the device, ``launch``
+points the kernel's outputs into a device slab, and ``d2h`` is the wait
+for the kernel and one copy of the tile's output words back, then their
+copy into arrays of the result's own.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ from repro_torch.kernels.radix_topk import ops as radix_ops
 from repro_torch.obs.tracer import NO_STAGES
 
 from .batcher import Tile
+from .staging import Staging, split
 
 __all__ = [
     "BACKENDS",
@@ -186,16 +192,52 @@ def _tensor(data: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def _colskip_launcher(b: int, n: int, w: int, state_k: int,
                       stop: int | None, packed: bool, device: torch.device):
-    """Warm launcher for one colskip tile signature on one mask carrier."""
+    """Warm launcher for one colskip tile signature on one mask carrier,
+    called as ``fn(x, out=outputs)`` on a staged tile: on the card the
+    kernel's launch, on the CPU the plain machine (:func:`_into`)."""
     key = ("colskip", b, n, w, state_k, stop, packed, str(device))
 
     def build():
         if device.type == "cuda":
             colskip_ops._lib()                # load (or compile) the kernel
-        return functools.partial(colskip_ops.colskip_sort_batched, w=w,
-                                 k=state_k, stop_after=stop, packed=packed,
-                                 device=device)
+            return functools.partial(colskip_ops._launch, w=w, k=state_k,
+                                     stop=_stop(n, stop), packed=packed)
+        return _into(functools.partial(
+            colskip_ops.colskip_sort_batched, w=w, k=state_k,
+            stop_after=stop, packed=packed, device=device))
     return EXECUTOR_CACHE.get(key, build)     # -> (fn, warm)
+
+
+def _into(machine):
+    """A plain machine, ``machine(x)``, with the card launch's call,
+    ``fn(x, out=outputs)``: its outputs are copied into ``out`` (the
+    plain mesh's rounds, None, leave their words as they are)."""
+    def fn(x: torch.Tensor, out: tuple) -> tuple:
+        for o, t in zip(out, machine(x.view(torch.uint32))):
+            if t is not None:
+                o.copy_(t.view(torch.int32) if t.dtype == torch.uint32
+                        else t)
+        return out
+    return fn
+
+
+def _stop(n: int, stop: int | None) -> int:
+    """Outputs a row of a machine tile of width ``n``: all of them, or the
+    kmin drain's ``stop``."""
+    return n if stop is None else min(stop, n)
+
+
+def _launch_staged(stages, name: str, staging: Staging, fn,
+                   x: torch.Tensor, stop: int, mesh: bool) -> dict:
+    """A staged machine tile's launch and its copy back: the kernel writes
+    into ``staging``'s output slab, and the tile's words come back in one
+    copy and one wait (stages ``<name>.launch`` and ``<name>.d2h``).
+    Returns the outputs by name (:func:`~.staging.split`)."""
+    with stages.stage(name + ".launch"):
+        out = staging.output(x.shape[0], stop, mesh)
+        fn(x, out=out.outs)
+    with stages.stage(name + ".d2h"):
+        return split(staging.take(out), out)
 
 
 @dataclass
@@ -326,6 +368,10 @@ class ColskipBackend(Backend):
         self.state_k = state_k
         self.packed = packed
         self.device = resolve_device(device)
+        # the transfer buffers, this instance's own: each engine builds its
+        # own backends and calls them under its lock, so the staging needs
+        # no lock of its own
+        self._staging = Staging(self.device)
 
     def run(self, tile: Tile) -> TileResult:
         stop = tile.k if tile.op == "kmin" else None
@@ -333,23 +379,23 @@ class ColskipBackend(Backend):
         fn, warm = _colskip_launcher(b, n, self.w, self.state_k, stop,
                                      self.packed, self.device)
         stage = self.stages.stage
+        meta = {"w": self.w, "state_k": self.state_k, "stop_after": stop,
+                "packed": self.packed, "exec_warm": warm}
+        st = self._staging
         with stage("colskip.h2d"):
-            x = _tensor(tile.data, self.device)
-        with stage("colskip.launch"):
-            vals, order, crs, cycles = fn(x)
-        with stage("colskip.d2h"):
-            return TileResult(
-                vals.cpu().numpy(), order.cpu().numpy(),
-                crs.cpu().numpy().astype(np.int64),
-                cycles.cpu().numpy().astype(np.int64),
-                self.name, meta={"w": self.w, "state_k": self.state_k,
-                                 "stop_after": stop, "packed": self.packed,
-                                 "exec_warm": warm})
+            x = st.put(tile.data, st.input(b, n))
+        got = _launch_staged(self.stages, "colskip", st, fn, x,
+                             _stop(n, stop), mesh=False)
+        meta.update(st.report())
+        return TileResult(got["values"], got["order"], got["column_reads"],
+                          got["cycles"], self.name, meta=meta)
 
     def warm(self, b: int, n: int, op: str, k: int | None) -> bool:
         stop = k if op == "kmin" else None
         _, hit = _colskip_launcher(b, n, self.w, self.state_k, stop,
                                    self.packed, self.device)
+        self._staging.input(b, n)             # size the slabs now
+        self._staging.output(b, _stop(n, stop))
         return not hit
 
 
@@ -357,11 +403,11 @@ class ColskipBackend(Backend):
 class ShardedColskipBackend(Backend):
     """Column-skipping sorter over a bank mesh (§IV on one card).
 
-    Executes each tile through
-    :func:`repro_torch.dist.bankmesh.colskip_sort_mesh`: a row's columns
-    split over the mesh's banks, the mixed-column judgement one OR-gate
-    exchange per fused block of planes — on the card the mesh kernel (a
-    thread-block cluster a row, a CTA a bank), on the CPU the plain mesh.
+    Executes each tile as :func:`repro_torch.dist.bankmesh.colskip_sort_mesh`
+    does: a row's columns split over the mesh's banks, the mixed-column
+    judgement one OR-gate exchange per fused block of planes — on the card
+    the mesh kernel (a thread-block cluster a row, a CTA a bank), launched
+    into the backend's staging, on the CPU the plain mesh.
     Values, order, and CR/cycle telemetry are bit-identical to
     :class:`ColskipBackend` — §V.C's invariance of column skipping under
     multi-bank management — so the cost policy treats both simulators
@@ -402,12 +448,18 @@ class ShardedColskipBackend(Backend):
         # launcher keys carry the topology fingerprint, NOT the mesh object:
         # an equal mesh rebuilt after a restart must hit, not rebuild
         self._fingerprint = topology_fingerprint(self.mesh)
-        # double buffer: id(tile) -> (tile, staged tensor, copy event)
+        # double buffer: id(tile) -> (tile, input slot, the slot's views)
         # staged by prefetch() while the previous tile runs.  Two slots,
         # FIFO-evicted: admitting tile X stages its successor Y before X
-        # executes, so X's own staged entry must survive one more staging
+        # executes, so X's own staged entry must survive one more staging.
+        # The views keep the buffers that hold the tile should warm() grow
+        # the slot before it runs
         self._staged: dict = {}
-        self._copy_stream = None
+        # the transfer buffers, this instance's own (each engine builds its
+        # own backends and calls them under its lock, so the staging needs
+        # no lock of its own): input slot 0 for a tile's own copy, slots 1
+        # and 2 for the double buffer's
+        self._staging = Staging(self.device, slots=3)
 
     @classmethod
     def reset_rounds(cls) -> None:
@@ -422,6 +474,9 @@ class ShardedColskipBackend(Backend):
         return n % self.n_devices == 0 and self.n_devices > 1
 
     def _mesh_launcher(self, b: int, n: int, stop_eff: int):
+        """Warm launcher for one mesh tile signature, called as
+        ``fn(x, out=outputs)`` on a staged tile: on the card the mesh
+        kernel's launch, on the CPU the plain mesh (:func:`_into`)."""
         from repro_torch.dist.bankmesh import colskip_sort_mesh
         key = ("colskip_mesh", b, n, self.w, self.state_k, stop_eff,
                self.packed, self.fuse, self.n_devices, self._fingerprint)
@@ -429,110 +484,90 @@ class ShardedColskipBackend(Backend):
         def build():
             if self.device.type == "cuda":
                 colskip_ops._mesh_lib()       # load (or compile) the kernel
-            return functools.partial(
+                return functools.partial(
+                    colskip_ops._launch_mesh, banks=self.n_devices, w=self.w,
+                    k=self.state_k, stop=stop_eff, fuse=self.fuse,
+                    packed=self.packed)
+            return _into(functools.partial(
                 colskip_sort_mesh, mesh=self.mesh, w=self.w, k=self.state_k,
                 axis_name=self.axis_name, stop_after=stop_eff,
-                packed=self.packed, fuse=self.fuse)
+                packed=self.packed, fuse=self.fuse))
         # built through the executor cache (like the local backends), so a
         # cold mesh tile is visible as a cache miss — the engine's
         # warm-only EMA gate depends on that
         return EXECUTOR_CACHE.get(key, build)
 
-    def _stage(self, data: np.ndarray):
-        """The tile on the mesh's device: on the card a host-to-device copy
-        from pinned memory on a side stream, with the event that marks its
-        end; on the CPU the tensor itself."""
-        host = torch.from_numpy(np.ascontiguousarray(data, np.uint32))
-        if self.device.type != "cuda":
-            return host, None
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(device=self.device)
-        pinned = host.pin_memory()
-        with torch.cuda.stream(self._copy_stream):
-            staged = pinned.to(self.device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self._copy_stream)
-        return staged, done
-
     def prefetch(self, tile: Tile) -> bool:
         """Stage the next tile's device transfer (double buffering).
 
         Called by the scheduler right before the current tile executes:
-        the copy runs on a side stream while the current tile traverses
-        planes, and :meth:`run` waits on its event before launching.  Two
-        slots, oldest evicted; restaging a tile refreshes it.  Returns
+        the tile goes into a free input slot of the staging, and on the
+        card its copy runs on a side stream while the current tile
+        traverses planes; :meth:`run` orders its launch after that copy.
+        Two slots, oldest evicted; restaging a tile refreshes it.  Returns
         True when a transfer was staged."""
         if not self._on_mesh(tile.data.shape[1]):
             return False                 # one-bank fallback: nothing to hide
         self._staged.pop(id(tile), None)
-        with self.stages.stage("colskip_mesh.h2d", tile):
-            self._staged[id(tile)] = (tile, *self._stage(tile.data))
-        while len(self._staged) > 2:
+        while len(self._staged) >= 2:
             del self._staged[next(iter(self._staged))]
+        with self.stages.stage("colskip_mesh.h2d", tile):
+            held = {slot for _, slot, _ in self._staged.values()}
+            slot = next(s for s in (1, 2) if s not in held)
+            view = self._staging.put_ahead(tile.data, slot)
+            self._staged[id(tile)] = (tile, slot, view)
         return True
 
     def run(self, tile: Tile) -> TileResult:
         from repro_torch.dist.bankmesh import collective_rounds
         b, n = tile.data.shape
         stop = tile.k if tile.op == "kmin" else None
+        stop_eff = _stop(n, stop)
         staged = self._staged.pop(id(tile), None)
         # the identity re-check guards id() reuse after a staged tile died
         prefetch_hit = staged is not None and staged[0] is tile
-        coll = {"coll_rounds": 0, "coll_planes": 0, "coll_unfused_rounds": 0}
-        stage = self.stages.stage
-        rounds = None
-        if self._on_mesh(n):
-            stop_eff = min(stop, n) if stop is not None else n
+        on_mesh = self._on_mesh(n)
+        if on_mesh:
             fn, warm = self._mesh_launcher(b, n, stop_eff)
-            with stage("colskip_mesh.h2d"):
-                if prefetch_hit:
-                    arr, done = staged[1], staged[2]
-                    if done is not None:
-                        cur = torch.cuda.current_stream(self.device)
-                        cur.wait_event(done)
-                        arr.record_stream(cur)
-                else:
-                    arr = _tensor(tile.data, self.device)
-            with stage("colskip_mesh.launch"):
-                vals, order, crs, cycles, rounds = fn(arr,
-                                                      return_rounds=True)
-            banks_used = self.n_devices
         else:
             fn, warm = _colskip_launcher(b, n, self.w, self.state_k, stop,
                                          self.packed, self.device)
-            with stage("colskip_mesh.h2d"):
-                arr = _tensor(tile.data, self.device)
-            with stage("colskip_mesh.launch"):
-                vals, order, crs, cycles = fn(arr)
-            banks_used = 1
-        with stage("colskip_mesh.d2h"):
-            if banks_used > 1:
-                acct = collective_rounds(self.w, stop_eff, self.fuse)
-                coll = {"coll_rounds": acct["rounds"],
-                        "coll_planes": acct["planes"],
-                        "coll_unfused_rounds": acct["unfused_rounds"]}
-                if rounds is not None:
-                    cls = type(self)
-                    cls.kernel_rounds += int(rounds.max())
-                    cls.static_rounds += acct["rounds"]
-            return TileResult(
-                vals.cpu().numpy(), order.cpu().numpy(),
-                crs.cpu().numpy().astype(np.int64),
-                cycles.cpu().numpy().astype(np.int64), self.name,
-                meta={"w": self.w, "state_k": self.state_k,
-                      "stop_after": stop, "mesh_banks": banks_used,
-                      "packed": self.packed, "exec_warm": warm,
-                      "fuse": self.fuse, "prefetch_hit": prefetch_hit,
-                      **coll})
+        stage = self.stages.stage
+        meta = {"w": self.w, "state_k": self.state_k, "stop_after": stop,
+                "mesh_banks": self.n_devices if on_mesh else 1,
+                "packed": self.packed, "exec_warm": warm, "fuse": self.fuse,
+                "prefetch_hit": prefetch_hit}
+        st = self._staging
+        with stage("colskip_mesh.h2d"):
+            x = (st.ready(staged[2], staged[1]) if prefetch_hit
+                 else st.put(tile.data, st.input(b, n)))
+        got = _launch_staged(self.stages, "colskip_mesh", st, fn, x,
+                             stop_eff, mesh=on_mesh)
+        meta.update(st.report())
+        coll = {"coll_rounds": 0, "coll_planes": 0, "coll_unfused_rounds": 0}
+        if on_mesh:
+            acct = collective_rounds(self.w, stop_eff, self.fuse)
+            coll = {"coll_rounds": acct["rounds"],
+                    "coll_planes": acct["planes"],
+                    "coll_unfused_rounds": acct["unfused_rounds"]}
+            if meta["staged"]:  # the kernel's rounds (not the plain mesh's)
+                cls = type(self)
+                cls.kernel_rounds += int(got["rounds"].max())
+                cls.static_rounds += acct["rounds"]
+        return TileResult(got["values"], got["order"], got["column_reads"],
+                          got["cycles"], self.name, meta={**meta, **coll})
 
     def warm(self, b: int, n: int, op: str, k: int | None) -> bool:
         stop = k if op == "kmin" else None
-        if self._on_mesh(n):
-            stop_eff = min(stop, n) if stop is not None else n
-            _, hit = self._mesh_launcher(b, n, stop_eff)
+        on_mesh = self._on_mesh(n)
+        if on_mesh:
+            _, hit = self._mesh_launcher(b, n, _stop(n, stop))
         else:
             _, hit = _colskip_launcher(b, n, self.w, self.state_k, stop,
                                        self.packed, self.device)
+        for slot in (0, 1, 2) if on_mesh else (0,):   # size the slabs now
+            self._staging.input(b, n, slot)
+        self._staging.output(b, _stop(n, stop), mesh=on_mesh)
         return not hit
 
 

@@ -577,11 +577,16 @@ class SortServeEngine:
                                        cycles_total, result.estimated_cycles)
         pb = self._agg["per_backend"].setdefault(
             backend.name, {"tiles": 0, "requests": 0, "rows": 0,
-                           "column_reads": 0, "wall_s": 0.0})
+                           "column_reads": 0, "wall_s": 0.0,
+                           "staged_tiles": 0, "staging_grows": 0})
         pb["tiles"] += 1
         pb["requests"] += len(tile.entries)
         pb["rows"] += tile.shape[0]
         pb["wall_s"] += result.meta["wall_s"]
+        # the machine backends' persistent staging on the card (port only):
+        # tiles that ran on it, and its buffers (re)allocated
+        pb["staged_tiles"] += int(bool(result.meta.get("staged")))
+        pb["staging_grows"] += int(result.meta.get("staging_grows", 0))
         if result.column_reads is not None:
             pb["column_reads"] += int(result.column_reads.sum())
             self._agg["column_reads"] += int(result.column_reads.sum())

@@ -398,6 +398,119 @@ def test_mesh_double_buffer_stages_on_a_side_stream(cuda):
         assert np.array_equal(out[id(t)].values, np.sort(t.data, -1))
 
 
+def _machine_engine(backend, **over):
+    from repro_torch.sortserve import EngineConfig, SortServeEngine
+    return SortServeEngine(EngineConfig(
+        backends=(backend,), mesh=backend == "colskip_mesh", fuse=2,
+        tile_rows=8, min_bucket=8, banks=4, bank_width=512, bank_rows=8,
+        sim_width_cap=4096, cache_size=0, device="cuda", **over))
+
+
+def _machine_tiles(rng, mesh):
+    from repro_torch.sortserve.batcher import Tile
+    shapes = [("sort", 8, 1024, None), ("argsort", 8, 64, None),
+              ("sort", 3, 2048, None), ("kmin", 8, 1024, 16)]
+    if mesh:                      # a one-bank fallback (66 % 4), then a mesh
+        shapes += [("argsort", 2, 66, None), ("sort", 8, 256, None)]
+    return [Tile(op=op, data=rng.integers(0, 1 << 32, (b, n), dtype=np.uint64)
+                 .astype(np.uint32), k=k, entries=[], pad_rows=b)
+            for op, b, n, k in shapes]
+
+
+@pytest.mark.parametrize("backend", ["colskip", "colskip_mesh"])
+def test_staged_tiles_keep_their_results_after_later_tiles(cuda, backend):
+    # tiles of different signatures back to back through one backend's
+    # staging (the mesh's double buffer staging each successor first):
+    # every earlier result still equals the reference once all have run
+    from repro_torch.kernels.colskip import ops
+    from repro_torch.sortserve.backends import solve_numpy
+    from repro_torch.sortserve.backends import ShardedColskipBackend
+    mesh = backend == "colskip_mesh"
+    eng = _machine_engine(backend)
+    tiles = _machine_tiles(np.random.default_rng(29), mesh)
+    rounds_before = ShardedColskipBackend.kernel_rounds
+    results = []
+    for i, t in enumerate(tiles):
+        if mesh and i + 1 < len(tiles):
+            eng._prefetch_tile(tiles[i + 1])
+        results.append(eng._execute(t))
+    for t, res in zip(tiles, results):
+        b, n = t.data.shape
+        out = n if t.k is None else t.k
+        for row in range(b):
+            v, i = solve_numpy(t.op, t.data[row], t.k)
+            assert np.array_equal(res.values[row], v[:out])
+            assert np.array_equal(res.indices[row], i[:out])
+        # reads and cycles: the kernel's own outputs, allocated afresh
+        want = ops.colskip_sort_batched(torch.from_numpy(t.data).to(cuda), 32,
+                                        2, stop_after=t.k)
+        assert np.array_equal(res.column_reads, want[2].cpu().numpy())
+        assert np.array_equal(res.cycles, want[3].cpu().numpy())
+        assert res.meta["staged"] is True
+    row = eng.telemetry()["per_backend"][backend]
+    assert row["staged_tiles"] == row["tiles"] == len(tiles)
+    assert row["staging_grows"] >= 2
+    if mesh:
+        assert [r.meta["mesh_banks"] for r in results] == [4] * 4 + [1, 4]
+        assert sum(r.meta["prefetch_hit"] for r in results) == 4
+        # each mesh tile's slowest row, read from the words copied back,
+        # against the rounds of a fresh launch of the same tile
+        be = eng.backends[0]
+        want = sum(int(ops.colskip_sort_mesh_batched(
+            torch.from_numpy(t.data).to(cuda), 4, 32, 2, stop_after=t.k,
+            packed=be.packed, fuse=be.fuse, device=cuda,
+            return_rounds=True)[4].max())
+            for t, r in zip(tiles, results) if r.meta["mesh_banks"] == 4)
+        assert ShardedColskipBackend.kernel_rounds - rounds_before == want
+
+
+def test_warm_growing_a_slot_keeps_a_mesh_tile_staged_ahead(cuda):
+    # a tile staged ahead on the side stream, then warm() of a wider
+    # signature grows its slot: the tile runs on the words it was given
+    from repro_torch.sortserve.backends import solve_numpy
+    from repro_torch.sortserve.batcher import Tile
+    be = _machine_engine("colskip_mesh").backends[0]
+    rng = np.random.default_rng(5)
+    data = rng.integers(0, 1 << 32, (2, 64), dtype=np.uint64).astype(
+        np.uint32)
+    small = Tile(op="argsort", data=data, k=None, entries=[], pad_rows=2)
+    be.warm(2, 64, "argsort", None)
+    assert be.prefetch(small)
+    be.warm(8, 4096, "sort", None)
+    res = be.run(small)
+    assert res.meta["prefetch_hit"] is True and res.meta["staged"] is True
+    for row in range(2):
+        v, i = solve_numpy("argsort", data[row], None)
+        assert np.array_equal(res.values[row], v)
+        assert np.array_equal(res.indices[row], i)
+
+
+@pytest.mark.parametrize("backend", ["colskip", "colskip_mesh"])
+def test_warm_machine_tile_is_one_copy_each_way(cuda, backend):
+    # a warm tile: one host-to-device copy from pinned memory, one copy
+    # back to pinned memory, no reduction kernel, no device allocation
+    from torch.profiler import ProfilerActivity, profile
+    eng = _machine_engine(backend)
+    tile = _machine_tiles(np.random.default_rng(3), False)[0]
+    be = eng.backends[0]
+    be.run(tile)                                  # the first of its size
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = be.run(tile)
+        torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == before
+    assert res.meta["staged"] is True and res.meta["staging_grows"] == 0
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [n for n in names if n.startswith("Memcpy")]
+    assert sorted(copies) == ["Memcpy DtoH (Device -> Pinned)",
+                              "Memcpy HtoD (Pinned -> Device)"], names
+    assert not [n for n in names if "reduce" in n.lower()], names
+    assert len(names) == 3, names               # the copies and the kernel
+
+
 # ---------------------------------------------------------------- models
 
 MODEL_ARCHS = ["gemma3-4b", "command-r-35b", "deepseek-coder-33b",

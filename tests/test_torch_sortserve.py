@@ -90,8 +90,10 @@ def test_radix_tile_body_matches_reference(b, n, data, kmin):
 
 
 # telemetry sections the port has and the reference has not: the stage
-# spans' table (repro_torch.obs.tracer.Stages)
+# spans' table (repro_torch.obs.tracer.Stages); and in each per_backend
+# row, the machine backends' staging counts (repro_torch.sortserve.staging)
 PORT_ONLY = {"stages"}
+PORT_ONLY_BACKEND = {"staged_tiles", "staging_grows"}
 
 
 def test_telemetry_keys_and_metric_names_match_reference():
@@ -104,6 +106,12 @@ def test_telemetry_keys_and_metric_names_match_reference():
     telem = port.telemetry()
     assert PORT_ONLY <= set(telem) and not PORT_ONLY & set(ref.telemetry())
     shared = {k: v for k, v in telem.items() if k not in PORT_ONLY}
+    for row, ref_row in zip(shared["per_backend"].values(),
+                            ref.telemetry()["per_backend"].values()):
+        assert PORT_ONLY_BACKEND <= set(row)
+        assert not PORT_ONLY_BACKEND & set(ref_row)
+        for key in PORT_ONLY_BACKEND:
+            del row[key]
     assert _keys(shared) == _keys(ref.telemetry())
     series = re.compile(r"^([a-z_]+)", re.M)
     assert set(series.findall(port.dump_metrics())) == \
