@@ -1,16 +1,16 @@
-"""The control of ``correct``: the plain reference in the program's place,
-with one guarantee of the configuration broken.
+"""The control of ``correct``: the program's own control put in its place,
+which the check must read as not correct.
 
     python perfbench/control.py --workload csk.uniform1024.backlog \
         --seeds 101,102,103 --seconds 10
 
 Runs the cell as the benchmark does (same traffic, size and load) with the
-column-skipping backend's ``run`` replaced by the reference machine of
-:mod:`perfbench.reference.sortref` at one state-recording entry fewer than
-the configuration states (k = 1 for the paper's k = 2): right values and
-positions, wrong column reads and cycles.  The check must read it as not
-correct.  Prints each run's compared numbers and ``correct``.  The
-benchmark's own runs never do this.
+cell's program altered by its ``control(obj, config)`` once set-up is done:
+for the sort service, the column-skipping backends' ``run`` replaced by
+the plain reference machine at one state-recording entry fewer than the
+configuration states (k = 1 for the paper's k = 2): right values and
+positions, wrong column reads and cycles.  Prints each run's compared
+numbers and ``correct``.  The benchmark's own runs never do this.
 """
 
 from __future__ import annotations
@@ -26,45 +26,6 @@ os.environ["TORCH_EXTENSIONS_DIR"] = str(ROOT / "build" / "torch_extensions")
 os.environ["TRITON_CACHE_DIR"] = str(ROOT / "build" / "triton")
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-MACHINES = ("colskip", "colskip_mesh")
-
-
-def reference_in_place(engine, state_k: int) -> None:
-    """Serve the machine backends' tiles by the plain reference at
-    ``state_k`` state entries.  Column reads are kept by the row's sorted
-    keys, which fix them."""
-    import numpy as np
-
-    from perfbench.reference.sortref import colskip_reads
-    from repro_torch.sortserve.backends import TileResult
-    w = engine.config.w
-    memo: dict = {}
-
-    def make_run(name):
-        def run(tile):
-            b, n = tile.data.shape
-            stop = tile.k if tile.op == "kmin" else None
-            out = n if stop is None else min(stop, n)
-            vals = np.empty((b, out), np.uint32)
-            idx = np.empty((b, out), np.int32)
-            reads = np.empty(b, np.int64)
-            cycles = np.empty(b, np.int64)
-            for r in range(b):
-                row = tile.data[r]
-                order = np.argsort(row, kind="stable")[:out]
-                vals[r], idx[r] = row[order], order
-                key = (np.sort(row).tobytes(), stop)
-                if key not in memo:
-                    memo[key] = colskip_reads(row, w, state_k, stop)
-                reads[r], cycles[r] = memo[key]
-            return TileResult(vals, idx, reads, cycles, name,
-                              meta={"exec_warm": True})
-        return run
-
-    for be in engine.backends:
-        if be.name in MACHINES:
-            be.run = make_run(be.name)
-
 
 def main(argv=None) -> int:
     from perfbench import harness
@@ -75,11 +36,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     manifest = harness.load_manifest(ROOT)
     cell = harness.find_cell(manifest, args.workload)
-    state_k = harness.load_config(ROOT, manifest, cell["config"])["state_k"]
+    config = harness.load_config(ROOT, manifest, cell["config"])
+    program = harness.load_program(ROOT, manifest, cell["config"])
     for seed in (int(s) for s in args.seeds.split(",")):
         result = harness.run_cell(
             ROOT, args.workload, seed, args.seconds, False,
-            patch=lambda e: reference_in_place(e, state_k - 1))
+            patch=lambda obj: program.control(obj, config))
         print(json.dumps({"seed": seed, "correct": result["correct"],
                           "attempted": result["attempted"],
                           "checks": result["checks"]}), flush=True)

@@ -1,23 +1,64 @@
-"""The benchmark of ``repro_torch``'s sort service: one run of one cell.
+"""The benchmark of ``repro_torch``: one run of one cell.
 
 ``python perfbench/run.py --workload <cell> --seed <n> --seconds <s>
 --trace <0|1>`` runs the cell named in ``BENCHMARK.json`` and prints one
 JSON line (the last of standard output).  Everything that belongs to one
-configuration, traffic mix or metric is found by its name:
+configuration, program, traffic mix or metric is found by its name:
 
 * a cell's configuration is ``configs/<config>.json`` (the manifest's
-  ``file``): the engine's settings and the guarantees the reference holds
-  the responses to;
+  ``file``): the program's settings and the guarantees its check holds
+  the answers to, and under ``program`` the name of its program;
+* that program is ``programs/<program>.py`` (for example ``"sortserve"``);
 * its traffic is ``traffic/<traffic>.json``, whose ``kind`` names the
   generator module ``traffic/<kind>.py`` (``prepare``, ``warm``,
   ``drive``);
 * each metric is ``metrics/<name>.py``, whose ``read(ctx)`` returns the
   number or None when the run has nothing for it to read.
 
-A run: set-up (imports, the card, the request pool from the seed, the
-engine, every launcher and shape of the cell warmed) is ``setup_s``; then
-the window of ``--seconds``; then, with the program's state freed, the
-reference checks the responses (:mod:`perfbench.reference.verify`).
+A program module provides:
+
+* ``build(config, device, cache_dir, tracer)``: the object under test,
+  which the generator's ``warm`` and ``drive`` receive; ``cache_dir`` is
+  where its kernel libraries are kept (None on the CPU), ``tracer`` the
+  program's request tracer or None;
+* ``snapshot(obj)``: the dict kept at the window's open and close (the
+  harness adds ``"t"``, its clock); it holds ``"telemetry"``, the counters
+  that ``Context.delta`` reads, and whatever else the readers read;
+* ``report(obj, log)``: writes the lines logged once the window closed,
+  before the program's state is freed;
+* ``check(window, config, marks, *, seed, device, log)``: run once the
+  program's state is freed, returns ``(numbers, limits, info)``: each
+  compared number, each its limit (the run is correct when every number
+  is at most its limit), and ``info``, the fields of the readers'
+  ``Context`` that only the check works out; ``numbers["missing"]`` is
+  the run's failed count;
+* ``validate(config)``: raises ValueError on a configuration it cannot
+  run (the tests call it);
+* ``control(obj, config)``: puts the program's control in place once set-up
+  is done, which the check must read as not correct (``control.py``).
+
+A generator's ``prepare(mix, config, seed, seconds)`` makes the run's
+inputs from the seed; ``warm(plan, obj, hooks)`` runs every shape the
+window will; ``drive(plan, obj, seconds, hooks)`` calls ``hooks.opened()``,
+runs the window inside the span ``window`` and calls ``hooks.closed()``,
+then returns the window's record:
+
+* ``requests``: one record a request offered, whose ``n`` is the elements
+  it asks of the program (the keys of a sort request, the tokens a
+  generation request generates), the unit of ``elems_per_s``;
+* ``responses``: the answer of each, None where none came;
+* ``t_due``, ``t_done``: numpy arrays of each request's due time and the
+  time its answer came (NaN where none came), on ``hooks.clock``;
+* ``t0``, ``t_end``, ``t_loop``: the window's open, its planned close
+  (``t0 + seconds``) and the time its loop ended;
+* ``errors``: each request's error or None; ``error``: what stopped the
+  window, or None;
+* and what the program's check reads besides (``client_s``, the seconds
+  the harness's client spent outside the program's calls, is logged).
+
+A run: set-up (imports, the card, the inputs from the seed, the program,
+every launcher and shape of the cell warmed) is ``setup_s``; then the
+window of ``--seconds``; then, with the program's state freed, its check.
 ``--trace 1`` runs the window under ``torch.profiler`` and reports the
 per-layer metrics in place of the end-to-end ones.
 """
@@ -26,18 +67,18 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
-import importlib
 import importlib.util
 import json
 import os
 import sys
 import time
+from numbers import Integral
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-CR_SAMPLE = 512            # machine rows the open loop's check samples
 TRACER_SLACK = 4096
 
 
@@ -75,8 +116,42 @@ def load_mix(root: Path, traffic: str) -> dict:
         return json.load(f)
 
 
-def generator(kind: str):
-    return importlib.import_module(f"perfbench.traffic.{kind}")
+def load_module(root: Path, folder: str, name: str):
+    """The module ``<folder>/<name>.py`` under ``root``'s perfbench, as
+    ``perfbench.<folder>.<name>`` (its relative imports resolve in the
+    package ``perfbench.<folder>``)."""
+    path = Path(root) / "perfbench" / folder / f"{name}.py"
+    if not (name.isidentifier() and path.is_file()):
+        raise RunError(f"no module {path}")
+    qual = f"perfbench.{folder}.{name}"
+    spec = importlib.util.spec_from_file_location(qual, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[qual] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[qual]
+        raise
+    return mod
+
+
+def generator(root: Path, kind: str):
+    """The traffic generator ``traffic/<kind>.py``."""
+    return load_module(root, "traffic", kind)
+
+
+def load_program(root: Path, manifest: dict, name: str):
+    """The program module that configuration ``name`` names under its key
+    ``program``: ``programs/<program>.py``."""
+    program = load_config(root, manifest, name).get("program")
+    file = next(e["file"] for e in manifest["configs"] if e["name"] == name)
+    if not isinstance(program, str):
+        raise RunError(f"{file} names no program (its key 'program')")
+    try:
+        return load_module(root, "programs", program)
+    except RunError as exc:
+        raise RunError(f"{file} names the program {program!r}: {exc}") \
+            from None
 
 
 def metric_reader(root: Path, name: str):
@@ -104,27 +179,7 @@ def forbidden_modules() -> list[str]:
                   & set(FORBIDDEN))
 
 
-# ------------------------------------------------------------------ engine
-def build_engine(config: dict, device: str, cache_dir: str | None,
-                 tracer=None):
-    """The program's engine at the configuration's settings."""
-    from repro_torch.sortserve import EngineConfig, SortServeEngine
-    cfg = EngineConfig(
-        backends=tuple(config["backends"]), tile_rows=config["tile_rows"],
-        min_bucket=config["min_bucket"], banks=config["banks"],
-        bank_width=config["bank_width"], bank_rows=config["bank_rows"],
-        w=config["w"], state_k=config["state_k"],
-        sim_width_cap=config["sim_width_cap"], mesh=config["mesh"],
-        fuse=config["fuse"], cache_size=config["cache_size"],
-        packed=config["packed"], compile_cache=cache_dir, tracer=tracer,
-        device=device)
-    engine = SortServeEngine(cfg)
-    if config["mesh"] and engine.pool.n_devices != config["mesh_banks"]:
-        raise RunError(f"the mesh has {engine.pool.n_devices} banks, the "
-                       f"configuration states {config['mesh_banks']}")
-    return engine
-
-
+# ------------------------------------------------------------------- hooks
 class GcWatch:
     """Pauses of the interpreter's garbage collector while armed."""
 
@@ -148,10 +203,10 @@ class GcWatch:
 class Hooks:
     """What a generator's ``warm``/``drive`` call back into: the clock,
     spans (profiler ranges in a traced run), the window's open and close
-    (telemetry snapshots), and a device synchronise."""
+    (the program's snapshots), and a device synchronise."""
 
-    def __init__(self, engine, device: str, traced: bool):
-        self.engine = engine
+    def __init__(self, snapshot, device: str, traced: bool):
+        self.snapshot = snapshot
         self.device = device
         self.traced = traced
         self.clock = time.perf_counter
@@ -169,15 +224,9 @@ class Hooks:
             torch.cuda.synchronize()
 
     def _snapshot(self) -> dict:
-        from repro_torch.sortserve.backends import ShardedColskipBackend
-        e = self.engine
-        bs = e.batcher.stats
-        return {"telemetry": e.telemetry(),
-                "batcher": {"tiles": bs.tiles, "requests": bs.requests,
-                            "pad_cols": bs.pad_cols,
-                            "real_elems": bs.real_elems},
-                "mesh_rounds": ShardedColskipBackend.kernel_rounds,
-                "t": self.clock()}
+        snap = self.snapshot()
+        snap["t"] = self.clock()
+        return snap
 
     def opened(self) -> None:
         self.marks["open"] = self._snapshot()
@@ -233,7 +282,7 @@ START_WALL = time.time()
 def run_cell(root: Path, workload: str, seed: int, seconds: float,
              trace: bool, *, device: str = "cuda", patch=None,
              log=None) -> dict:
-    """One run; returns the result line as a dict.  ``patch(engine)``, if
+    """One run; returns the result line as a dict.  ``patch(obj)``, if
     given, alters the program's timed path once set-up is done (the
     control and the fault tests)."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
@@ -241,6 +290,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     manifest = load_manifest(root)
     cell = find_cell(manifest, workload)
     config = load_config(root, manifest, cell["config"])
+    program = load_program(root, manifest, cell["config"])
     mix = load_mix(root, cell["traffic"])
     section = "per_layer" if trace else "end_to_end"
     wanted = cell_metrics(manifest, workload, section)
@@ -252,7 +302,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     if device == "cuda":
         torch.cuda.init()
     phases = {"start_to_imports": process_age_s()}
-    gen = generator(mix["kind"])
+    gen = generator(root, mix["kind"])
     plan = gen.prepare(mix, config, seed, seconds)
     phases["prepare"] = process_age_s()
     tracer = None
@@ -262,15 +312,15 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         tracer = Tracer(capacity=expect + TRACER_SLACK)
     cache_dir = (str(root / "build" / "repro_torch")
                  if device == "cuda" else None)
-    engine = build_engine(config, device, cache_dir, tracer)
-    phases["engine"] = process_age_s()
-    hooks = Hooks(engine, device, trace)
-    gen.warm(plan, engine, hooks)
+    obj = program.build(config, device, cache_dir, tracer)
+    phases["build"] = process_age_s()
+    hooks = Hooks(functools.partial(program.snapshot, obj), device, trace)
+    gen.warm(plan, obj, hooks)
     if device == "cuda":
         torch.cuda.synchronize()
     phases["warm"] = process_age_s()
     if patch is not None:
-        patch(engine)
+        patch(obj)
 
     prof = None
     if trace:
@@ -283,7 +333,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     setup_s = process_age_s()
     log("set-up, seconds since the process started: " + ", ".join(
         f"{k} {v:.3f}" for k, v in phases.items()) + f", window {setup_s:.3f}")
-    window = gen.drive(plan, engine, seconds, hooks)
+    window = gen.drive(plan, obj, seconds, hooks)
     if prof is not None:
         hooks.synchronize()
         prof.__exit__(None, None, None)
@@ -295,10 +345,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         kind = torch.cuda.get_device_name(0)
     else:
         memory_peak, kind = 0, "cpu"
-    exec_cache = engine.telemetry()["executor_cache"]
-    log(f"kernel libraries opened from {cache_dir}: "
-        f"{exec_cache['persistent_hits']} from disk, "
-        f"{exec_cache['persistent_misses']} built by nvcc in this run")
+    program.report(obj, log)
 
     _log_window(log, window, hooks.gc)
 
@@ -309,32 +356,19 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
             f"{trace_info['window_s']:.4f} s; harness spans "
             f"{trace_info['spans_s']}")
     marks = dict(hooks.marks)
-    engine_tracer = tracer
-    del engine, hooks, prof
-    plan.pop("front", None)
+    del obj, hooks, prof, plan      # the program's state, freed
     if device == "cuda":
         torch.cuda.empty_cache()
 
-    from perfbench.reference import verify
-    t_ref = time.perf_counter()
-    numbers, ref = verify.check(window, config, seed=seed, sample=CR_SAMPLE,
-                                device=device)
-    cache_hits = (marks["close"]["telemetry"]["cache"]["hits"]
-                  - marks["open"]["telemetry"]["cache"]["hits"])
-    log(f"engine result-cache hits in the window: {cache_hits} "
-        "(any hit makes the run invalid)")
-    log(f"reference: {time.perf_counter() - t_ref:.3f} s, "
-        f"{ref['reads_checked']} rows' reads and cycles checked "
-        f"({ref['machine_rows_sampled']} machine rows sampled)")
-    numbers["cache_hits"] = cache_hits
-    limits = dict(verify.LIMITS, cache_hits=0)
+    numbers, limits, info = program.check(window, config, marks, seed=seed,
+                                          device=device, log=log)
     failed = int(numbers["missing"])
     correct = (window["error"] is None
                and all(numbers[k] <= limits[k] for k in limits))
 
     ctx = _lib.Context(window=window, marks=marks, config=config, mix=mix,
                        seconds=seconds, setup_s=setup_s, trace=trace_info,
-                       tracer=engine_tracer, expected_reads=ref["reads"])
+                       tracer=tracer, **info)
     metrics = {}
     for m in wanted:
         value = readers[m["name"]].read(ctx)
@@ -351,12 +385,17 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         dev["window_s"] = trace_info["window_s"]
         result["breakdown"] = {"device_ops": trace_info["device_ops"],
                                "idle_gaps": trace_info["idle_gaps"]}
-    result["checks"] = {k: {"value": int(numbers[k]), "limit": limits[k]}
+    result["checks"] = {k: {"value": _plain(numbers[k]), "limit": limits[k]}
                         for k in limits}
     late = forbidden_modules()
     if late:
         raise RunError(f"modules {late} loaded in the process")
     return result
+
+
+def _plain(x):
+    """A compared number as JSON holds it: a whole number stays whole."""
+    return int(x) if isinstance(x, Integral) else float(x)
 
 
 def main(argv=None, root: Path | None = None) -> int:

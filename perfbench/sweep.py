@@ -4,7 +4,7 @@ sustains.
     python perfbench/sweep.py --workload csk.mixed.poisson --seed 7 \
         --seconds 10 --rates 1000,2000,3000
 
-One process, one engine, set up and warmed once; then, for each rate in
+One process, the cell's program built and warmed once; then, for each rate in
 turn, the cell's traffic at that rate for ``--seconds``.  A rate is
 sustained when the requests left unanswered do not grow over the window
 (those in flight at its end are no more than at its middle, plus one
@@ -51,17 +51,19 @@ def main(argv=None) -> int:
     manifest = harness.load_manifest(ROOT)
     cell = harness.find_cell(manifest, args.workload)
     config = harness.load_config(ROOT, manifest, cell["config"])
+    program = harness.load_program(ROOT, manifest, cell["config"])
     mix = harness.load_mix(ROOT, cell["traffic"])
-    gen = harness.generator(mix["kind"])
-    engine = harness.build_engine(config, "cuda",
-                                  str(ROOT / "build" / "repro_torch"))
-    hooks = harness.Hooks(engine, "cuda", traced=False)
+    gen = harness.generator(ROOT, mix["kind"])
+    obj = program.build(config, "cuda", str(ROOT / "build" / "repro_torch"),
+                        None)
+    hooks = harness.Hooks(lambda: program.snapshot(obj), "cuda",
+                          traced=False)
     rates = [float(r) for r in args.rates.split(",")]
     for i, rate in enumerate(rates):
         plan = gen.prepare(dict(mix, rate_per_s=rate), config,
                            args.seed + i, args.seconds)
-        gen.warm(plan, engine, hooks)
-        w = gen.drive(plan, engine, args.seconds, hooks)
+        gen.warm(plan, obj, hooks)
+        w = gen.drive(plan, obj, args.seconds, hooks)
         lat = w["t_done"] - w["t_due"]
         failed = np.array([r is None for r in w["responses"]])
         lat = np.where(failed | ~np.isfinite(lat), np.inf, lat) * 1e3

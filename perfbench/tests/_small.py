@@ -12,23 +12,19 @@ for p in (str(REPO), str(REPO / "src")):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-SMALL = {
-    "uniform1024.backlog": {"length": 64, "batch": 16, "pool": 8},
-    "mapreduce1024.backlog": {"length": 64, "batch": 16, "pool": 8},
-    "mixed.poisson": {"rate_per_s": 20, "length": {"min": 8, "max": 128},
-                      "settle_s": 30},
-}
+SMALL = Path(__file__).resolve().parent / "small"
 
 
 def small_root(tmp: Path) -> Path:
-    """``tmp`` holding ``BENCHMARK.json`` and ``perfbench/`` with every
-    traffic mix cut to :data:`SMALL`."""
+    """``tmp`` holding ``BENCHMARK.json`` and ``perfbench/`` with each
+    traffic mix ``<mix>`` cut to ``small/<mix>.json``, key by key, where
+    that file exists."""
     shutil.copy(REPO / "BENCHMARK.json", tmp / "BENCHMARK.json")
     shutil.copytree(REPO / "perfbench", tmp / "perfbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    for mix, over in SMALL.items():
-        path = tmp / "perfbench" / "traffic" / f"{mix}.json"
+    for cut in sorted(SMALL.glob("*.json")):
+        path = tmp / "perfbench" / "traffic" / cut.name
         data = json.loads(path.read_text())
-        data.update(over)
+        data.update(json.loads(cut.read_text()))
         path.write_text(json.dumps(data))
     return tmp

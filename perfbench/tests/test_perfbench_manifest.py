@@ -13,6 +13,7 @@ MANIFEST = json.loads((REPO / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 LINE = re.compile(r"^[^\t\n]{1,200}$")
+PROGRAM = ("build", "snapshot", "report", "check", "validate", "control")
 
 
 def test_manifest_form():
@@ -46,8 +47,10 @@ def test_manifest_form():
             assert x["unit"] == "%"
     for x in m["end_to_end"] + m["per_layer"]:
         assert UNIT.match(x["unit"]) and x["better"] in ("lower", "higher")
+    on_four = [w["name"] for w in m["workloads"] if w["chips"] == 4]
+    assert len(on_four) <= max(1, len(m["workloads"]) // 4), on_four
     for w in m["workloads"]:
-        assert w["chips"] == 1 and LINE.match(w["why"])
+        assert w["chips"] in (1, 4) and LINE.match(w["why"])
         assert (REPO / "perfbench/traffic" / f"{w['traffic']}.json").is_file()
         reported = harness.cell_metrics(m, w["name"], "end_to_end")
         assert "setup_s" in [x["name"] for x in reported]
@@ -58,7 +61,12 @@ def test_manifest_form():
     for c in m["configs"]:
         assert c["file"].startswith("perfbench/")
         assert LINE.match(c["source"]) and LINE.match(c["why"])
-        assert c["reduced"] == []
+        # each key cut from the source is listed in the configuration's
+        # own file, under its `reduced`, beside the published value
+        published = json.loads((REPO / c["file"]).read_text()).get(
+            "reduced", {})
+        assert len(c["reduced"]) <= 16
+        assert all(NAME.match(k) and k in published for k in c["reduced"])
         assert any(w["config"] == c["name"] for w in m["workloads"])
     assert len((REPO / "BENCHMARK.json").read_bytes()) <= 64 * 1024
 
@@ -68,10 +76,11 @@ def test_every_cell_resolves(cell):
     found = harness.find_cell(MANIFEST, cell)
     config = harness.load_config(REPO, MANIFEST, found["config"])
     mix = harness.load_mix(REPO, found["traffic"])
-    gen = harness.generator(mix["kind"])
+    gen = harness.generator(REPO, mix["kind"])
     assert all(hasattr(gen, f) for f in ("prepare", "warm", "drive"))
-    assert set(config["guarantees"]["serves"]) == {"sort", "argsort",
-                                                   "topk", "kmin"}
+    program = harness.load_program(REPO, MANIFEST, found["config"])
+    assert all(callable(getattr(program, f)) for f in PROGRAM)
+    program.validate(config)
     for section in ("end_to_end", "per_layer"):
         for m in harness.cell_metrics(MANIFEST, cell, section):
             assert callable(harness.metric_reader(REPO, m["name"]).read)
@@ -123,3 +132,30 @@ def test_unknown_names_are_refused(tmp_path):
         harness.load_mix(REPO, "no.such.mix")
     with pytest.raises(harness.RunError):
         harness.metric_reader(REPO, "no_such_metric")
+
+
+def test_program_names_are_refused(tmp_path):
+    """A configuration that names no program, or a program with no module,
+    is refused with the configuration's file named."""
+    root = small_root(tmp_path)
+    file = "perfbench/configs/colskip-n1024-w32-k2.json"
+    config = json.loads((root / file).read_text())
+    for program in (None, "no_such_program", "../harness"):
+        config.pop("program", None)
+        if program is not None:
+            config["program"] = program
+        (root / file).write_text(json.dumps(config))
+        with pytest.raises(harness.RunError, match=file):
+            harness.load_program(root, MANIFEST, "colskip-n1024-w32-k2")
+
+
+def test_sort_program_validates_its_configuration():
+    program = harness.load_program(REPO, MANIFEST, "colskip-n1024-w32-k2")
+    config = harness.load_config(REPO, MANIFEST, "colskip-n1024-w32-k2")
+    del config["guarantees"]["serves"]["kmin"]
+    with pytest.raises(ValueError, match="kmin"):
+        program.validate(config)
+    config = harness.load_config(REPO, MANIFEST, "colskip-n1024-w32-k2")
+    del config["state_k"]
+    with pytest.raises(ValueError, match="state_k"):
+        program.validate(config)

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 
 from _small import small_root
-from perfbench import control, harness
+from perfbench import harness
 
 SEED = 2**31 + 99
 SECONDS = 1.5
@@ -46,8 +46,14 @@ def test_sound_run_is_correct(root, cell, trace):
 
 @pytest.mark.parametrize("cell", BACKLOG + ["csk.mixed.poisson"])
 def test_control_is_not_correct(root, cell):
-    result = run(root, cell,
-                 patch=lambda e: control.reference_in_place(e, 1))
+    """The program's own control (for the sorter: the reference machine at
+    k = 1 in place of k = 2), as ``control.py`` puts it in place."""
+    manifest = harness.load_manifest(root)
+    name = harness.find_cell(manifest, cell)["config"]
+    config = harness.load_config(root, manifest, name)
+    program = harness.load_program(root, manifest, name)
+    assert config["state_k"] == 2
+    result = run(root, cell, patch=lambda e: program.control(e, config))
     assert not result["correct"]
     assert result["checks"]["reads"]["value"] > 0
     assert result["checks"]["values"]["value"] == 0
