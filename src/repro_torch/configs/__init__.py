@@ -2,6 +2,8 @@
 
 A copy of the reference's ``repro/configs`` (stdlib dataclasses only), so
 that the port imports no part of ``repro``; the two must stay equal.
+:func:`get_config` also serves the port's own configurations
+(``_PORT_MODULES``), which ``ARCHS`` leaves out.
 """
 
 from importlib import import_module
@@ -21,12 +23,18 @@ _MODULES = {
     "hymba-1.5b": "hymba_1b5",
 }
 ARCHS = list(_MODULES)
+# configurations of the port alone, not in the reference's ``ARCHS``
+_PORT_MODULES = {
+    "granite-3.0-3b-a800m": "granite_3_0_3b_a800m",
+}
 
 
 def get_config(name: str, smoke: bool = False) -> ModelCfg:
-    if name not in _MODULES:
-        raise ValueError(f"unknown arch {name!r}; options: {ARCHS}")
-    mod = import_module(f"repro_torch.configs.{_MODULES[name]}")
+    module = _MODULES.get(name) or _PORT_MODULES.get(name)
+    if module is None:
+        raise ValueError(f"unknown arch {name!r}; options: "
+                         f"{ARCHS + list(_PORT_MODULES)}")
+    mod = import_module(f"repro_torch.configs.{module}")
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG
 
 

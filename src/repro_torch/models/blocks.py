@@ -36,6 +36,21 @@ def dtype_of(cfg: ModelCfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
+def multiplier(cfg: ModelCfg, name: str) -> float:
+    """One of granite's muP multipliers (``embedding_multiplier``,
+    ``residual_multiplier``, ``logits_scaling``: fields of
+    :class:`~repro_torch.configs.granite_3_0_3b_a800m.GraniteCfg`); 1.0,
+    which the callers skip, on a configuration without them."""
+    return getattr(cfg, name, 1.0)
+
+
+def attn_scale(cfg: ModelCfg):
+    """The softmax scale of the scores: the configuration's
+    ``attention_multiplier`` where it has one (granite's 1/64), else None,
+    the usual 1/sqrt(head_dim)."""
+    return getattr(cfg, "attention_multiplier", None)
+
+
 def normal(shape, scale, dtype, gen, device) -> torch.Tensor:
     """Standard normal draws in float32 times ``scale``, cast to ``dtype``
     (the reference's initialiser); uninitialised when ``gen`` is None."""
@@ -223,7 +238,8 @@ def sdpa(q, k, v, mask, cfg: ModelCfg):
     g = h // kv
     q = q.reshape(b, s, kv, g, dh)
     scores = torch.einsum("bskgd,btkd->bkgst", q, k).float()
-    scores = scores / np.sqrt(dh)
+    scale = attn_scale(cfg)
+    scores = scores / np.sqrt(dh) if scale is None else scores * scale
     if mask is not None:
         scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -268,17 +284,18 @@ def _flash_shapes(q, k, v, causal):
         causal)[0].transpose(1, 2)
 
 
-def sdpa_fused(q, k, v, mask=None, causal=False):
+def sdpa_fused(q, k, v, mask=None, causal=False, scale=None):
     """:func:`sdpa` through ``F.scaled_dot_product_attention`` (CUDA
-    tensors): ``mask`` (S, T) bool, True where a key is seen.  GQA maps
-    query head h on KV head h // (H / KV), as :func:`sdpa` does.  On
-    ``meta`` an unmasked call is the flash kernel's op."""
+    tensors): ``mask`` (S, T) bool, True where a key is seen; ``scale``
+    the scores' (None: 1/sqrt(Dh)).  GQA maps query head h on KV head h //
+    (H / KV), as :func:`sdpa` does.  On ``meta`` an unmasked call is the
+    flash kernel's op."""
     if q.device.type == "meta" and mask is None:
         return _flash_shapes(q, k, v, causal)
     with sdpa_kernel(_BACKENDS):
         out = F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, is_causal=causal,
+            attn_mask=mask, is_causal=causal, scale=scale,
             enable_gqa=q.shape[2] != k.shape[2])
     return out.transpose(1, 2)
 
@@ -302,10 +319,12 @@ def attend(q, k, v, window: int, cfg: ModelCfg):
     s = q.shape[1]
     windowed = 0 < window < s
     if fused_path(q):
+        scale = attn_scale(cfg)
         if not windowed:
-            return sdpa_fused(q, k, v, causal=True)
+            return sdpa_fused(q, k, v, causal=True, scale=scale)
         return sdpa_fused(q, k, v, causal_mask(s, s, window,
-                                               device=q.device)[0, 0, 0])
+                                               device=q.device)[0, 0, 0],
+                          scale=scale)
     mask = causal_mask(s, s, window if windowed else None, device=q.device)
     return sdpa(q, k, v, mask, cfg)
 
@@ -315,7 +334,8 @@ def _attend_cache(cfg, q, cache_k, cache_v, cache_len, window):
     lo = 0 if window is None else max(0, cache_len - window + 1)
     if fused_path(q):
         return sdpa_fused(q, cache_k[:, lo:cache_len + 1],
-                          cache_v[:, lo:cache_len + 1])
+                          cache_v[:, lo:cache_len + 1],
+                          scale=attn_scale(cfg))
     kpos = torch.arange(cache_k.shape[1], device=q.device)
     valid = (kpos <= cache_len) & (kpos >= lo)
     return sdpa(q, cache_k, cache_v, valid[None, None, None, None, :], cfg)

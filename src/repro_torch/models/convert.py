@@ -14,6 +14,8 @@ slot keyed by the model's parameter names, as the reference's tree of
 numpy arrays, its layers stacked again.  bf16 leaves come out as
 ``|V2`` arrays of their raw bits, which is what ``np.savez`` writes for
 the reference's ``ml_dtypes`` bf16 (the port needs no ``ml_dtypes``).
+:func:`granite_from_hf` builds granite's published model from HF
+``GraniteMoeForCausalLM`` tensors.
 """
 
 from __future__ import annotations
@@ -179,3 +181,66 @@ def _put(tree: dict, dotted: str, leaf) -> None:
     for key in path:
         tree = tree.setdefault(key, {})
     tree[last] = leaf
+
+
+# ------------------------------------------------- HF GraniteMoe checkpoints
+
+def _granite_leaf(name: str):
+    """The port's parameter of HF ``GraniteMoeForCausalLM`` parameter
+    ``name`` -> (the port's dotted name, how its tensor maps: ``"T"``
+    transposed, ``"T12"`` with its last two axes swapped, ``"norm"``
+    ``weight - 1``, ``"pad"`` the embedding's padded rows added)."""
+    if name == "model.embed_tokens.weight":
+        return "embed", "pad"
+    if name == "model.norm.weight":
+        return "final_norm.scale", "norm"
+    parts = name.split(".")
+    i, rest = int(parts[2]), ".".join(parts[3:])
+    port = {"input_layernorm.weight": ("ln1.scale", "norm"),
+            "post_attention_layernorm.weight": ("ln2.scale", "norm"),
+            "self_attn.q_proj.weight": ("attn.wq", "T"),
+            "self_attn.k_proj.weight": ("attn.wk", "T"),
+            "self_attn.v_proj.weight": ("attn.wv", "T"),
+            "self_attn.o_proj.weight": ("attn.wo", "T"),
+            "block_sparse_moe.router.layer.weight": ("moe.router", "T"),
+            "block_sparse_moe.input_linear.weight": ("moe.gate_up", "T12"),
+            "block_sparse_moe.output_linear.weight": ("moe.down", "T12")}
+    leaf, how = port[rest]
+    return f"blocks.{i}.{leaf}", how
+
+
+@torch.no_grad()
+def granite_from_hf(cfg: ModelCfg, named, *, device="cuda"):
+    """A granite dropless model (:class:`~repro_torch.configs
+    .granite_3_0_3b_a800m.GraniteCfg`) from HF ``GraniteMoeForCausalLM``
+    tensors, ``named`` an iterable of ``(name, tensor)`` taken one at a
+    time (each freed once copied in): ``(out, in)`` projections become the
+    port's ``(in, out)``, the experts' ``(E, out, in)`` ``(E, in, out)``,
+    RMSNorm weights the port's ``weight - 1`` (computed in float32), the
+    embedding gains the padded vocabulary's zero rows; each is cast to the
+    parameter's dtype (the router stays float32).  Every parameter must
+    be given."""
+    model = model_class(cfg)(cfg, device=device, generator=None)
+    params = dict(model.named_parameters())
+    missing = set(params)
+    for name, t in named:
+        port, how = _granite_leaf(name)
+        p = params[port]
+        t = t.to(device=p.device, dtype=torch.float32)
+        if how == "T":
+            t = t.T
+        elif how == "T12":
+            t = t.transpose(1, 2)
+        elif how == "norm":
+            t = t - 1.0
+        elif how == "pad":
+            p[t.shape[0]:].zero_()
+            p = p[:t.shape[0]]
+        if p.shape != t.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not fit "
+                             f"{port} {tuple(p.shape)}")
+        p.copy_(t)
+        missing.discard(port)
+    if missing:
+        raise ValueError(f"no tensor given for {sorted(missing)}")
+    return model

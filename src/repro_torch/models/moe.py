@@ -17,6 +17,14 @@ so its bf16 sums would change from run to run.  Here each token's
 ``top_k`` contributions are gathered back to choice order and summed by
 one reduction, the same every run.
 
+Granite's published layer (``GraniteCfg.dropless``, a configuration of
+the port alone) has a third, :func:`_apply_moe_dropless`: top-k of the
+router's logits through the same radix kernel, softmax over the k, and
+every routed entry computed, each expert over exactly its routed rows by
+a grouped GEMM (``torch._grouped_mm``, its group ends on the device, so
+no host synchronisation), over the real experts only (no padding, no
+capacity, no drop).
+
 Two dispatch paths, as in the reference:
 
   * ``auto``: every expert on this rank (one card, or the CPU);
@@ -52,6 +60,7 @@ from repro_torch.dist._comm import (axis_index, copy_to, pmean_replicated,
                                     psum_replicated)
 from repro_torch.dist.sharding import dp_axes
 from repro_torch.kernels.radix_topk import radix_topk
+from repro_torch.obs.tracer import NO_STAGES
 from .blocks import activation, dtype_of, normal
 
 
@@ -60,13 +69,28 @@ def padded_experts(cfg: ModelCfg, n_model: int = 16) -> int:
     return -(-e // n_model) * n_model
 
 
+def dropless(cfg: ModelCfg) -> bool:
+    """Whether the configuration's MoE layer is dropless (granite's)."""
+    return getattr(cfg, "dropless", False)
+
+
 def moe_params(cfg: ModelCfg, gen, device) -> dict:
     """The router stays float32 whatever ``cfg.dtype`` (as the
-    reference's); expert weights are stored for the padded count."""
+    reference's); expert weights are stored for the padded count.  A
+    dropless layer stores its real experts only, the gate and up
+    projections side by side in ``gate_up`` (E, d, 2 de), gate first, as
+    HF's ``input_linear`` holds them."""
     m = cfg.moe
     dt = dtype_of(cfg)
     e, d, de = padded_experts(cfg), cfg.d_model, m.d_expert
     scale = 1.0 / np.sqrt(d)
+    if dropless(cfg):
+        e = m.n_experts
+        return {
+            "router": normal((d, e), scale, torch.float32, gen, device),
+            "gate_up": normal((e, d, 2 * de), scale, dt, gen, device),
+            "down": normal((e, de, d), 1.0 / np.sqrt(de), dt, gen, device),
+        }
     return {
         "router": normal((d, m.n_experts), scale, torch.float32, gen, device),
         "gate": normal((e, d, de), scale, dt, gen, device),
@@ -176,15 +200,25 @@ def _dispatch_compute(cfg, p, xf, weights, expert_idx, e_lo, e_count, c):
     return _rows(contrib, inv).reshape(t, k, d).sum(1)
 
 
-def apply_moe(cfg: ModelCfg, p, x, *, act_specs=None, need_aux=True):
+def apply_moe(cfg: ModelCfg, p, x, *, act_specs=None, need_aux=True,
+              obs=None, span="moe"):
     """x: (B, S, d) -> ((B, S, d), aux), aux the router load-balance loss
     (None when ``need_aux`` is False: serving drops it, as the reference's
     compiled serving steps do).  ``act_specs`` whose mesh has a ``model``
     axis takes the expert-parallel path, as the reference's does (with one
     ``model`` rank its ``psum`` is the identity and the aux is still
-    ``pmean``-ed over the data axes)."""
+    ``pmean``-ed over the data axes).  A dropless configuration takes
+    :func:`_apply_moe_dropless`, on one rank only; ``obs`` (the serving
+    model: its ``stages`` and ``counters``) and ``span`` name that path's
+    spans and counters."""
     mesh = act_specs.get("mesh") if act_specs else None
-    if mesh is not None and "model" in mesh.axis_names:
+    sharded = mesh is not None and "model" in mesh.axis_names
+    if dropless(cfg):
+        if sharded:
+            raise ValueError(f"{cfg.name}: the dropless MoE layer runs on "
+                             "one rank; it has no expert-parallel path")
+        return _apply_moe_dropless(cfg, p, x, need_aux, obs, span)
+    if sharded:
         return _apply_moe_sharded(cfg, p, x, mesh, need_aux)
     return _apply_moe_auto(cfg, p, x, need_aux)
 
@@ -205,6 +239,76 @@ def _apply_moe_auto(cfg: ModelCfg, p, x, need_aux=True):
     out = _dispatch_compute(cfg, p, xf, weights, expert_idx,
                             0, padded_experts(cfg), c)
     aux = _aux_loss(cfg, probs, expert_idx) if need_aux else None
+    return out.reshape(b, s, d), aux
+
+
+# ------------------------------------------------------------ dropless
+
+def route_logits(cfg: ModelCfg, router, xf):
+    """Granite's router: top-k of the router's float32 logits through the
+    radix kernel, then softmax over the k -> (gate weights (T, k) float32,
+    expert ids (T, k)).  The same as softmax over every expert, top-k and
+    renormalising, with one softmax over k columns in place of one over E
+    and a sum."""
+    logits = xf.float() @ router
+    vals, ids = radix_topk(logits, cfg.moe.top_k, device=logits.device)
+    return torch.softmax(vals, dim=-1), ids
+
+
+def expert_ffn(cfg: ModelCfg, xs, gate_up, down, ends):
+    """Every expert's SwiGLU over exactly its rows: ``xs`` (N, d) sorted by
+    expert, expert e's rows ``[ends[e-1], ends[e])`` (``ends`` int32 on
+    ``xs``'s device, the groups' ends) -> (N, d).  Two grouped GEMMs
+    (``torch._grouped_mm``: bf16 on the card, any float on the host)."""
+    h = torch._grouped_mm(xs, gate_up, offs=ends)
+    g, u = h.chunk(2, dim=-1)
+    return torch._grouped_mm(activation(cfg)(g) * u, down, offs=ends)
+
+
+def _apply_moe_dropless(cfg: ModelCfg, p, x, need_aux=True, obs=None,
+                        span="moe"):
+    """Granite's dropless layer: route (:func:`route_logits`), sort the
+    T k entries by expert (stable: token order within an expert), gather
+    their rows, run :func:`expert_ffn` over the real experts, weigh each
+    entry by its gate and sum each token's k entries back in choice order
+    (in float32, one reduction, the same every run).  Nothing here waits
+    for the card.  ``need_aux``: the load-balance loss on the softmax
+    over every expert, as the capacity path's.  Spans: ``<span>.route``,
+    ``.dispatch``, ``.experts``, ``.combine``; counters ``<span>.passes``,
+    ``.entries``, ``.max_load`` (the most-loaded expert's entries, summed
+    over passes) and ``.experts_hit`` (experts with an entry)."""
+    stages = NO_STAGES if obs is None else obs.stages
+    m = cfg.moe
+    b, s, d = x.shape
+    t, k = b * s, m.top_k
+    xf = x.reshape(t, d)
+    with stages.stage(f"{span}.route"):
+        weights, ids = route_logits(cfg, p["router"], xf)
+    with stages.stage(f"{span}.dispatch"):
+        flat = ids.reshape(t * k).long()
+        order = torch.argsort(flat, stable=True)
+        counts = _counts(flat, m.n_experts)
+        ends = torch.cumsum(counts, 0).to(torch.int32)
+        xs = xf[order // k]
+    with stages.stage(f"{span}.experts"):
+        ys = expert_ffn(cfg, xs, p["gate_up"], p["down"], ends)
+    with stages.stage(f"{span}.combine"):
+        contrib = ys.float() * weights.reshape(t * k)[order, None]
+        out = torch.empty_like(contrib)
+        out[order] = contrib                 # a permutation: no adds
+        out = out.reshape(t, k, d).sum(1).to(x.dtype)
+    if obs is not None:
+        # a pass's entries are a shape, counted on the host; the loads are
+        # accumulated on the device, read only at a snapshot
+        ctr = obs.counters
+        ctr.add(f"{span}.passes", 1)
+        ctr.add(f"{span}.entries", t * k)
+        ctr.add(f"{span}.max_load", counts.amax())
+        ctr.add(f"{span}.experts_hit", counts.count_nonzero())
+    aux = None
+    if need_aux:
+        probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+        aux = _aux_loss(cfg, probs, ids)
     return out.reshape(b, s, d), aux
 
 

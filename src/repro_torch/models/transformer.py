@@ -4,7 +4,10 @@ families.
 The port of ``repro/models/transformer.py``: one code path parameterised
 by :class:`ModelCfg` covers qwen3-moe, granite-moe, deepseek-coder, gemma3
 (5:1 local:global windows), qwen1.5 (QKV bias), command-r (parallel
-block, LayerNorm) and qwen2-vl (M-RoPE, patch embeddings prepended).  The
+block, LayerNorm) and qwen2-vl (M-RoPE, patch embeddings prepended), and
+the port's own granite-3.0-3b-a800m (granite's muP multipliers on the
+embedding, both residual branches and the logits, its attention scale in
+:mod:`.blocks`, and a dropless MoE layer).  The
 reference stacks its layers under a leading L axis and scans them; here
 :class:`DecoderLM` holds an ``nn.ModuleList`` of blocks, each with the
 reference's parameter names, and a Python loop runs them.  The KV cache
@@ -22,6 +25,7 @@ from torch import nn
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelCfg
+from repro_torch.obs.tracer import Counters, Stages
 from . import blocks as B
 from .moe import apply_moe, moe_params
 
@@ -45,9 +49,22 @@ def _params(tensors: dict) -> nn.ParameterDict:
 class LM(nn.Module):
     """What every family's model shares: its device, and the logits of the
     final hidden states (final norm, then the head, or the embedding's
-    transpose when tied, then the vocab padding mask).  Subclasses hold
-    ``embed``, ``final_norm``, ``head`` unless tied, and the
-    ``vocab_mask`` buffer."""
+    transpose when tied, then the vocab padding mask, over granite's
+    ``logits_scaling``), and its telemetry: :attr:`stages`, the always-on
+    stage spans of the generation path and the MoE layers, and
+    :attr:`counters`, their counts.  Subclasses hold ``embed``,
+    ``final_norm``, ``head`` unless tied, and the ``vocab_mask`` buffer."""
+
+    def __init__(self):
+        super().__init__()
+        self.stages = Stages()
+        self.counters = Counters()
+
+    def telemetry(self) -> dict:
+        """``{"stages": {name: {"n", "s", "self_s"}}, "counters": {name:
+        count}}``; reading the counters is a host synchronisation."""
+        return {"stages": self.stages.section(),
+                "counters": self.counters.section()}
 
     @property
     def device(self) -> torch.device:
@@ -65,7 +82,9 @@ class LM(nn.Module):
     def logits(self, x):
         x = B.apply_norm(self.cfg, self.final_norm, x)
         head = self.embed.T if self.cfg.tie_embeddings else self.head
-        return x @ head + self.vocab_mask
+        logits = x @ head + self.vocab_mask
+        scaling = B.multiplier(self.cfg, "logits_scaling")
+        return logits if scaling == 1.0 else logits / scaling
 
 
 class Block(nn.Module):
@@ -150,6 +169,7 @@ def embed_inputs(cfg: ModelCfg, model: DecoderLM, batch):
     # F.embedding's gradient is a deterministic sorted segment sum, where
     # an index's serializes the rows a frequent token repeats
     x = F.embedding(tokens, model.embed).to(dt)
+    x = _scaled(x, B.multiplier(cfg, "embedding_multiplier"))
     if cfg.vision_patches and "patches" in batch:
         pe = torch.as_tensor(batch["patches"], device=dev).to(dt)
         x = torch.cat([pe @ model.patch_proj, x], dim=1)
@@ -165,9 +185,17 @@ def embed_inputs(cfg: ModelCfg, model: DecoderLM, batch):
     return x, positions
 
 
+def _scaled(x, m: float):
+    """``x * m``; ``x`` itself where ``m`` is 1.0 (every configuration
+    but granite's), so their arithmetic is unchanged."""
+    return x if m == 1.0 else x * m
+
+
 def _layer(cfg: ModelCfg, blk: Block, x, positions, rope, window: int,
-           need_aux: bool, act_specs=None):
-    """One block over a whole sequence -> (x, (k, v), aux or None)."""
+           need_aux: bool, act_specs=None, model=None):
+    """One block over a whole sequence -> (x, (k, v), aux or None).
+    ``model`` (serving) lends the MoE layer its stages and counters."""
+    rm = B.multiplier(cfg, "residual_multiplier")
     h = B.apply_norm(cfg, blk.ln1, x)
     q, k, v = B._qkv(cfg, blk.attn, h, positions, rope)
     attn = B.attend(q, k, v, window, cfg)
@@ -176,14 +204,14 @@ def _layer(cfg: ModelCfg, blk: Block, x, positions, rope, window: int,
     if cfg.parallel_block:
         x = x + attn + B.apply_mlp(cfg, blk.mlp, h)
     else:
-        x = x + attn
+        x = x + _scaled(attn, rm)
         h2 = B.apply_norm(cfg, blk.ln2, x)
         if cfg.moe is not None:
             y, aux = apply_moe(cfg, blk.moe, h2, act_specs=act_specs,
-                               need_aux=need_aux)
+                               need_aux=need_aux, obs=model)
         else:
             y = B.apply_mlp(cfg, blk.mlp, h2)
-        x = x + y
+        x = x + _scaled(y, rm)
     return x, (k, v), aux
 
 
@@ -225,7 +253,7 @@ def prefill(cfg: ModelCfg, model: DecoderLM, batch, *, act_specs=None):
     ks, vs = [], []
     for blk, w in zip(model.blocks, layer_windows(cfg)):
         x, (k, v), _ = _layer(cfg, blk, x, positions, rope, int(w), False,
-                              act_specs)
+                              act_specs, model)
         ks.append(k)
         vs.append(v)
     return model.logits(x[:, -1:]), {"k": torch.stack(ks),
@@ -242,6 +270,8 @@ def decode_step(cfg: ModelCfg, model: DecoderLM, token, cache,
     dev = model.device
     token = torch.as_tensor(token, device=dev)
     x = model.embed[token].to(B.dtype_of(cfg))
+    x = _scaled(x, B.multiplier(cfg, "embedding_multiplier"))
+    rm = B.multiplier(cfg, "residual_multiplier")
     positions = torch.full(token.shape, cache_len, dtype=torch.int32,
                            device=dev)
     if cfg.mrope_sections is not None:
@@ -268,10 +298,10 @@ def decode_step(cfg: ModelCfg, model: DecoderLM, token, cache,
         if cfg.parallel_block:
             x = x + out + B.apply_mlp(cfg, blk.mlp, h)
         else:
-            x = x + out
+            x = x + _scaled(out, rm)
             h2 = B.apply_norm(cfg, blk.ln2, x)
             y = (apply_moe(cfg, blk.moe, h2, act_specs=act_specs,
-                           need_aux=False)[0]
+                           need_aux=False, obs=model, span="moe.decode")[0]
                  if cfg.moe is not None else B.apply_mlp(cfg, blk.mlp, h2))
-            x = x + y
+            x = x + _scaled(y, rm)
     return model.logits(x), cache

@@ -16,10 +16,11 @@ from repro_torch.obs.export import (parse_exposition, render_openmetrics,
 from repro_torch.obs.metrics import (Gauge, LogBucketHistogram,
                                      MetricsRegistry, WindowedCounter)
 from repro_torch.obs.slo import SLOTarget, SLOTracker
-from repro_torch.obs.tracer import Stages, Tracer
+from repro_torch.obs.tracer import Counters, Stages, Tracer
 
 __all__ = [
     "CalibrationTable",
+    "Counters",
     "Gauge",
     "LogBucketHistogram",
     "MetricsRegistry",

@@ -21,7 +21,9 @@ the recovery story of a retried tile sits inline with its admissions.
 :class:`Stages` times the engine's host work a tile or a call at a time:
 ``sortserve.feed`` / ``bucket`` / ``emit`` / ``schedule`` / ``execute`` /
 ``scatter``, ``<backend>.h2d`` / ``launch`` / ``d2h`` and the front door's
-``frontdoor.collect``.  Each stage adds to an always-on table of counts,
+``frontdoor.collect``; on a model (``model.stages``) the generation
+path's ``generate.*`` and the MoE layer's ``moe.*``, beside the model's
+:class:`Counters`.  Each stage adds to an always-on table of counts,
 seconds and self seconds (``telemetry()["stages"]``); while
 ``torch.profiler`` records on the calling thread it also opens a profiler
 range of the same name, so a device trace names the stage the host was
@@ -66,6 +68,7 @@ import json
 import threading
 import time
 from collections import deque
+from numbers import Number
 
 from repro_torch.core.costmodel import BASE_CLOCK_MHZ
 
@@ -600,6 +603,16 @@ class Stages:
         self._ids = itertools.count(1)
         self._tids = itertools.count(1)
 
+    def __getstate__(self) -> dict:
+        """What a copy keeps (a model is copied or pickled with its
+        stages): the table, the tracer and the clock; no open span."""
+        return {"table": self.table, "tracer": self.tracer,
+                "clock": self.clock}
+
+    def __setstate__(self, state: dict) -> None:
+        self.__init__(state["tracer"])
+        self.table, self.clock = state["table"], state["clock"]
+
     def stage(self, name: str, tile=None) -> _Span:
         """A span over the ``with`` block; ``tile`` tags tracer spans."""
         return _Span(self, name, tile)
@@ -609,6 +622,31 @@ class Stages:
         enclosed spans}}``, a copy."""
         return {name: {"n": n, "s": s, "self_s": s - child}
                 for name, (n, s, child) in list(self.table.items())}
+
+
+class Counters:
+    """Named counts that a hot path adds to without a host
+    synchronisation: a Python number adds on the host, a tensor on its
+    own device (one in-place add; the first is kept as a copy).  Each
+    name keeps one kind.  :meth:`section` reads them all: the only
+    synchronisation, at a snapshot."""
+
+    def __init__(self):
+        self.table: dict = {}
+
+    def add(self, name: str, n) -> None:
+        cur = self.table.get(name)
+        if isinstance(n, Number):
+            self.table[name] = n if cur is None else cur + n
+        elif cur is None:
+            self.table[name] = n.detach().clone()
+        else:
+            cur.add_(n)
+
+    def section(self) -> dict:
+        """``{name: count}``, plain numbers."""
+        return {name: (v if isinstance(v, Number) else v.item())
+                for name, v in list(self.table.items())}
 
 
 class _NoStages:

@@ -848,3 +848,72 @@ def test_moe_ep_on_the_card(cuda):
     for d in range(2):
         assert np.array_equal(in_mesh[2 * d]["sampled"],
                               in_mesh[2 * d + 1]["sampled"])
+
+
+GRANITE_SMALL = {"hidden_size": 256, "num_hidden_layers": 2,
+                 "num_attention_heads": 4, "num_key_value_heads": 2,
+                 "intermediate_size": 128, "num_local_experts": 40,
+                 "num_experts_per_tok": 8, "vocab_size": 1000,
+                 "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
+                 "embedding_multiplier": 12.0,
+                 "attention_multiplier": 0.015625,
+                 "residual_multiplier": 0.22, "logits_scaling": 6.0}
+
+
+def _granite_small(device, dtype):
+    import dataclasses
+    import _granite_ref as ref
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MoECfg
+    from repro_torch.models import convert
+    hf = GRANITE_SMALL
+    cfg = dataclasses.replace(
+        get_config("granite-3.0-3b-a800m"), n_layers=2, d_model=256,
+        n_heads=4, n_kv=2, d_head=64, d_ff=128, vocab=1000,
+        moe=MoECfg(n_experts=40, top_k=8, d_expert=128), dtype=dtype)
+    model = convert.granite_from_hf(cfg, ref.weights(hf, 3, device),
+                                    device=device)
+    return hf, cfg, model
+
+
+def test_granite_dropless_layer_on_the_card(cuda, no_tf32):
+    """The published MoE layer in bf16 on the card (radix routing, grouped
+    GEMMs) against the plain float32 layer on the same bf16 weights and
+    inputs: the same experts (the router is float32 in both), outputs
+    within 4 % of the largest (bf16 products, float32 sums)."""
+    import _granite_ref as ref
+    from repro_torch.models import moe
+    hf, cfg, model = _granite_small(cuda, "bfloat16")
+    p = model.blocks[0].moe
+    x = torch.randn((4, 300, 256), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda).bfloat16()
+    got, _ = moe.apply_moe(cfg, p, x, need_aux=False)
+    w = {"l.block_sparse_moe.router.layer.weight": p["router"].T,
+         "l.block_sparse_moe.input_linear.weight":
+             p["gate_up"].float().transpose(1, 2),
+         "l.block_sparse_moe.output_linear.weight":
+             p["down"].float().transpose(1, 2)}
+    want = ref._moe(hf, w, "l.", x.float())
+    err = (got.float() - want).abs().max() / want.abs().max()
+    assert err < 0.04, float(err)
+
+
+def test_granite_decode_step_synchronises_nothing(cuda):
+    """A granite decode step (bf16) on the card under the synchronisation
+    debug mode set to raise: the dropless dispatch, the radix router and
+    the counters wait for nothing."""
+    import torch.nn.functional as F
+    from repro_torch.models import api
+    hf, cfg, model = _granite_small(cuda, "bfloat16")
+    prompt = torch.randint(0, 1000, (8, 16), device=cuda)
+    lg, cache = api.prefill(cfg, model, {"tokens": prompt})
+    cache = {k: F.pad(v, (0, 0, 0, 0, 0, 2)) for k, v in cache.items()}
+    tok = lg[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        api.decode_step(cfg, model, tok, cache, 16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    c = model.telemetry()["counters"]
+    assert c["moe.decode.passes"] == 2 and c["moe.decode.entries"] == 128

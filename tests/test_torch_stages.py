@@ -116,16 +116,48 @@ def kineto_spans(prof, names):
     return {k: sorted(v) for k, v in out.items()}
 
 
+class Bracketed:
+    """A profiler range that reads the stage clock just before it opens
+    and just after it closes, and logs the two reads under its name."""
+
+    def __init__(self, rng, name, clock, log):
+        self.rng, self.name, self.clock, self.log = rng, name, clock, log
+
+    def __enter__(self):
+        self.t = self.clock()
+        self.rng.__enter__()
+
+    def __exit__(self, *exc):
+        self.rng.__exit__(*exc)
+        self.log.setdefault(self.name, []).append((self.t, self.clock()))
+
+
+DESCHEDULED_US = 25     # a range opens or closes in a few microseconds
+
+
 def test_profiler_ranges_and_tracer_spans_share_a_clock():
     from torch.profiler import ProfilerActivity, profile
     tracer = Tracer()
     eng = engine(tracer=tracer)
     eng.submit(workload(seed=1))                # warm: launchers built
     warm = len(tracer.stage_spans)
+    # the test's own clock reads around each range: the profiler stamps a
+    # range while it opens (closes), so its stamp lies between the read
+    # before the opening and the span's start (the span's end and the
+    # read after the closing)
+    st, brackets = eng.stages, {}
+    rng = st._range
+    st._range = lambda name: Bracketed(rng(name), name, st.clock, brackets)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         eng.submit(workload(seed=2))
     doc = tracer.export()
     assert doc["otherData"]["clock"] == "unix_us"
+    anchor = doc["otherData"]["anchor"]
+
+    def unix_us(t):
+        return ((t - anchor["perf_counter_ns"] / 1e9) * 1e6
+                + anchor["time_ns"] / 1e3)
+
     spans = {}
     stage_events = [ev for ev in doc["traceEvents"]
                     if ev.get("pid") == 3 and ev["ph"] == "X"]
@@ -134,14 +166,25 @@ def test_profiler_ranges_and_tracer_spans_share_a_clock():
             (ev["ts"], ev["ts"] + ev["dur"]))
     names = set(ENGINE) | set(BACKEND)
     assert set(spans) == names
+    assert set(brackets) == names
     kin = kineto_spans(prof, names)
     assert set(kin) == names
     for name in names:
         ours = sorted(spans[name])
-        assert len(ours) == len(kin[name]), name
-        for (a0, a1), (b0, b1) in zip(ours, kin[name]):
-            assert abs(a0 - b0) < 50 and abs(a1 - b1) < 50, (name, a0 - b0,
-                                                              a1 - b1)
+        outer = sorted((unix_us(t0), unix_us(t1)) for t0, t1 in
+                       brackets[name])
+        assert len(ours) == len(kin[name]) == len(outer), name
+        for (a0, a1), (b0, b1), (o0, o1) in zip(ours, kin[name], outer):
+            assert o0 <= a0 and a1 <= o1, name
+            if a0 - o0 < DESCHEDULED_US and o1 - a1 < DESCHEDULED_US:
+                assert abs(a0 - b0) < 50 and abs(a1 - b1) < 50, (
+                    name, a0 - b0, a1 - b1)
+            else:
+                # the thread was descheduled between a profiler stamp and
+                # the span's clock read: the stamp lies in the interval
+                # the test's reads bracket, within 50 us of it
+                assert o0 - 50 < b0 < a0 + 50, (name, a0 - b0, a0 - o0)
+                assert a1 - 50 < b1 < o1 + 50, (name, a1 - b1, o1 - a1)
 
 
 def test_engine_clock_export_leaves_stage_spans_out():
